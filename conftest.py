@@ -10,3 +10,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 for p in (os.path.join(ROOT, "src"), ROOT):
     if p not in sys.path:
         sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's kernels); "
+        "skips without one")
