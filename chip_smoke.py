@@ -11,10 +11,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               and at every shape of the main path, under both RNG modes
               (analog_update: f32 bit-equal), and the kernel's time beside
               the plain version's and its memory bound
-  4. quickstart  E-RIDER 32x32, 100 steps: loss and SP error fall, two
+  4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
+              tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
+              layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
+              tokens, against its plain version on the same noise: within
+              one ADC step and >= 99.9 % bit-equal; one launch per call;
+              times beside the plain version's, the product alone
+              (torch.matmul) and the bound
+  5. sp_filter  the SP-tracking filter through ``ops.sp_filter`` at its
+              listed shapes, the FCN's tile shapes and (896, 4864): q_new
+              bit-equal to the plain version, the sums within rtol 1e-5
+              and bit-identical from run to run; one launch per call; times
+              beside the plain version's and the memory bound
+  6. quickstart  E-RIDER 32x32, 100 steps: loss and SP error fall, two
               kernel launches per step, and the card's run agrees with the
               port's CPU run (the plain path) on the same seeds
-  5. fcn      the paper's FCN 784-256-128-10 at full width, batch 64,
+  7. fcn      the paper's FCN 784-256-128-10 at full width, batch 64,
               E-RIDER with the benchmark hyper-parameters, 30 steps under
               update_backend="vmap" and 30 under "fused": finite, falling
               loss, six kernel launches per step (the main path); the first
@@ -185,7 +197,201 @@ def phase_kernels(device):
     timed((512, 1024))
     # the main path's largest tile: the FCN's fc1, 784x256
     k, p, bound = timed((784, 256))
-    return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound)
+    return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound,
+                shape=[784, 256])
+
+
+# The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
+# ADC). K3's shapes, (x shape, w shape): the reference tests' products, in
+# float32 and bfloat16, with the ragged and the rank-3 case of its wrapper
+# tests; then, in float32, the FCN's three layers at batch 64 (the model the
+# port supports) and Qwen2-0.5B's MLP up-projection (d_model 896, d_ff
+# 4864, src/repro/configs/qwen2_0_5b.py) on 2048 tokens, at full width.
+MVM_IO = dict(inp_res=1 / 126, inp_bound=1.0, out_res=1 / 510, out_bound=12.0,
+              out_noise=0.06)
+MVM_SWEEP = [((64, 128), (128, 96)), ((256, 384), (384, 512)),
+             ((128, 512), (512, 256)), ((5, 33, 47), (47, 29)),
+             ((2, 5, 48), (48, 32))]
+MVM_MODELS = [((64, 784), (784, 256)), ((64, 256), (256, 128)),
+              ((64, 128), (128, 10)), ((2048, 896), (896, 4864))]
+
+
+def mvm_operands(xshape, wshape, dtype, seed: int, device):
+    """Random x (normal) and w (0.1 * normal), drawn on the card."""
+    from repro_torch import prng
+
+    kx, kw = prng.split(prng.PRNGKey(seed))
+    return (prng.normal(kx, xshape, device).to(dtype),
+            (0.1 * prng.normal(kw, wshape, device)).to(dtype))
+
+
+def mvm_bound(m: int, k: int, n: int):
+    """(ms, what bounds it): the card's least time for one f32 call, the
+    longer of 2MNK flops at the f32 peak and x, w, noise, the output and
+    the row scales once each at the memory rate."""
+    flops_ms = 2 * m * n * k / H100_F32_FLOPS * 1e3
+    bytes_ms = (4 * (m * k + k * n + 2 * m * n) + 4 * m) / H100_BYTES_PER_S * 1e3
+    return (flops_ms, "operations") if flops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def phase_mvm(device):
+    """The analog MVM through ``ops.analog_mvm`` against its plain version
+    on the same inputs and the same noise (drawn from the call's key). The
+    plain version's cuBLAS product sums in another order, which can move y
+    across an ADC rounding boundary: every element within one ADC step
+    (out_res * s of its row, plus the rounding of the output to its dtype:
+    four f32 ULPs or one bf16 ULP of the value) and >= 99.9 % bit-equal."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.analog_matmul import analog_mvm_cuda
+
+    cases = [(xs, ws, dt) for xs, ws in MVM_SWEEP
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(xs, ws, torch.float32) for xs, ws in MVM_MODELS]
+    ops.reset_launch_counts()
+    max_err_f32 = 0.0
+    for i, (xs, ws, dtype) in enumerate(cases):
+        x, w = mvm_operands(xs, ws, dtype, 30 + i, device)
+        key = prng.PRNGKey(300 + i)
+        got = ops.analog_mvm(x, w, key, **MVM_IO)
+        m, n = math.prod(xs[:-1]), ws[1]
+        x2 = x.reshape(m, -1)
+        want = ref.analog_mvm_ref(x2, w, prng.normal(key, (m, n), device),
+                                  **MVM_IO)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (*xs[:-1], n) and got.dtype == dtype,
+              f"mvm result {tuple(got.shape)} {got.dtype} at {xs}@{ws}")
+        got, want = got.reshape(m, n).float(), want.float()
+        step = MVM_IO["out_res"] * ref.abs_max_scale(x2)
+        diff = (got - want).abs()
+        tol = step + want.abs() * (
+            2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21)
+        equal = (got == want).float().mean().item()
+        gap = (diff / step).max().item()
+        print(f"mvm: {xs}@{ws} {str(dtype).replace('torch.', '')}: "
+              f"bit-equal {equal * 100:.4f} %, largest gap {gap:.4f} ADC "
+              f"steps, max_abs_diff {diff.max().item():.3g}")
+        check(bool((diff <= tol).all()), f"mvm off by {gap} steps at {xs}@{ws}")
+        check(equal >= 0.999, f"mvm only {equal} bit-equal at {xs}@{ws}")
+        if dtype == torch.float32:
+            max_err_f32 = max(max_err_f32, diff.max().item())
+    launches = dict(ops.LAUNCHES)
+    print(f"mvm: {len(cases)} wrapper calls checked, launches {launches}")
+    check(launches["analog_mvm"] == len(cases),
+          f"analog_mvm launches {launches['analog_mvm']} != {len(cases)}")
+
+    def timed(m, k, n):
+        """The kernel alone (its binding), the plain version and the
+        product alone, f32, on the same inputs."""
+        x, w = mvm_operands((m, k), (k, n), torch.float32, 9, device)
+        s = ref.abs_max_scale(x)
+        noise = prng.normal(prng.PRNGKey(9), (m, n), device)
+        kern, k_call = time_ms(lambda: analog_mvm_cuda(x, w, s, noise,
+                                                       **MVM_IO))
+        plain, p_call = time_ms(lambda: ref.analog_mvm_ref(x, w, noise,
+                                                           **MVM_IO))
+        prod, _ = time_ms(lambda: torch.matmul(x, w))
+        bound, by = mvm_bound(m, k, n)
+        print(f"mvm: ({m}, {k})@({k}, {n}) f32 median device "
+              f"{kern * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: "
+              f"device {plain * 1e3:.2f} us, per call {p_call * 1e3:.2f} us; "
+              f"product alone {prod * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
+              f"by {by}; {2 * m * n * k / kern / 1e9:.2f} TFLOP/s)")
+        return dict(ms=kern, plain_ms=plain, product_alone_ms=prod,
+                    bound_ms=bound, bound_by=by, shape=[m, k, n])
+
+    timed(64, 784, 256)
+    return dict(launches=launches["analog_mvm"], max_abs_err=max_err_f32,
+                **timed(2048, 896, 4864))
+
+
+# K2's shapes: the reference tests' (256, 512) and (512, 1024), the ragged
+# 2-D and 3-D cases of its wrapper tests, the FCN's E-RIDER tile shapes,
+# and Qwen2-0.5B's MLP tile (896, 4864), past the 50 MB L2.
+SP_SHAPES = [(256, 512), (512, 1024), (33, 97), (3, 33, 97), (784, 256),
+             (256, 128), (128, 10), (896, 4864)]
+SP_TAUS = [(1.0, 1.0), (0.7, 1.3)]
+
+
+def sp_operands(shape, dtype, seed: int, device):
+    """Random q, p (in ``dtype``), gamma, rho, drawn on the card."""
+    import torch
+
+    from repro_torch import prng
+
+    ks = prng.split(prng.PRNGKey(seed), 4)
+    return ((0.1 * prng.normal(ks[0], shape, device)).to(dtype),
+            (0.2 * prng.normal(ks[1], shape, device)).to(dtype),
+            torch.exp(0.1 * prng.normal(ks[2], shape, device)),
+            0.3 * prng.normal(ks[3], shape, device))
+
+
+def phase_sp_filter(device):
+    """The SP filter through ``ops.sp_filter`` against its plain version on
+    the same operands: q_new bit-equal, the sums within rtol 1e-5 (another
+    summation order) and bit-identical between two kernel runs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sp_filter import sp_filter_cuda
+
+    cases = [(s, torch.float32) for s in SP_SHAPES]
+    cases += [(s, torch.bfloat16) for s in SP_SHAPES[:4]]
+    ops.reset_launch_counts()
+    max_err, max_rel = 0.0, 0.0
+    for i, (shape, dtype) in enumerate(cases):
+        tau_min, tau_max = SP_TAUS[i % 2]
+        kw = dict(eta=0.3, tau_min=tau_min, tau_max=tau_max)
+        o = sp_operands(shape, dtype, 50 + i, device)
+        q_new, gp, err = ops.sp_filter(*o, **kw)
+        _, gp2, err2 = ops.sp_filter(*o, **kw)
+        want = ref.sp_filter_ref(*o, **kw)
+        torch.cuda.synchronize()
+        check(q_new.shape == shape and q_new.dtype == dtype
+              and gp.shape == () and gp.dtype == torch.float32,
+              f"sp_filter result {tuple(q_new.shape)} {q_new.dtype} at "
+              f"{shape}")
+        same = torch.equal(q_new, want[0])
+        rel = max(abs(a.item() - b.item()) / abs(b.item())
+                  for a, b in ((gp, want[1]), (err, want[2])))
+        repeat = torch.equal(gp, gp2) and torch.equal(err, err2)
+        print(f"sp_filter: {shape} {str(dtype).replace('torch.', '')} "
+              f"tau=({tau_min}, {tau_max}): q_new bit-equal={same}, sums "
+              f"{gp.item():.7g} / {err.item():.7g} (rel diff {rel:.2e}), "
+              f"repeatable={repeat}")
+        check(same, f"sp_filter q_new differs from plain at {shape} {dtype}")
+        check(rel <= 1e-5, f"sp_filter sums off by {rel:.2e} at {shape}")
+        check(repeat, f"sp_filter sums changed between runs at {shape}")
+        max_err = max(max_err, (q_new.float() - want[0].float()).abs()
+                      .max().item())
+        max_rel = max(max_rel, rel)
+    launches = dict(ops.LAUNCHES)
+    print(f"sp_filter: {len(cases)} cases, launches {launches}")
+    check(launches["sp_filter"] == 2 * len(cases),
+          f"sp_filter launches {launches['sp_filter']} != {2 * len(cases)}")
+
+    def timed(shape):
+        o = sp_operands(shape, torch.float32, 9, device)
+        kw = dict(eta=0.3, tau_min=0.7, tau_max=1.3)
+        k, k_call = time_ms(lambda: sp_filter_cuda(*o, **kw))
+        p, p_call = time_ms(lambda: ref.sp_filter_ref(*o, **kw))
+        # 16 B read + 4 B written per element; ~25 flops per element
+        n = math.prod(shape)
+        bound = max(20 * n / H100_BYTES_PER_S, 25 * n / H100_F32_FLOPS) * 1e3
+        print(f"sp_filter: {shape} f32 median device {k * 1e3:.2f} us, per "
+              f"call {k_call * 1e3:.2f} us (plain: device {p * 1e3:.2f} us, "
+              f"per call {p_call * 1e3:.2f} us; memory bound "
+              f"{bound * 1e3:.2f} us)")
+        return k, p, bound
+
+    timed((784, 256))
+    k, p, bound = timed((896, 4864))
+    return dict(launches=launches["sp_filter"], max_abs_err=max_err,
+                sums_max_rel_err=max_rel, ms=k, plain_ms=p, bound_ms=bound,
+                shape=[896, 4864])
 
 
 def run_quickstart(device, steps: int):
@@ -337,6 +543,8 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}")
 
     kern = phase_kernels(device)
+    mvm = phase_mvm(device)
+    spf = phase_sp_filter(device)
     phase_quickstart(device)
     launches = 0
     for backend in ("vmap", "fused"):
@@ -344,14 +552,20 @@ def main() -> int:
         launches += n
         print(f"fcn[{backend}]: {med:.2f} ms/step on {card}")
 
-    print(json.dumps({"kernels": [{
-        "name": "analog_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/analog_update.cu",
-        "replaces": "src/repro/kernels/analog_update.py:72",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+    kern["launches"] = launches
+    print(json.dumps({"kernels": [
+        dict(name="analog_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/analog_update.cu",
+             replaces="src/repro/kernels/analog_update.py:72",
+             bound_by="bytes", library_ms=None, **kern),
+        dict(name="analog_mvm", route="cuda",
+             source="src/repro_torch/kernels/csrc/analog_mvm.cu",
+             replaces="src/repro/kernels/analog_matmul.py:59",
+             library_ms=None, **mvm),
+        dict(name="sp_filter", route="cuda",
+             source="src/repro_torch/kernels/csrc/sp_filter.cu",
+             replaces="src/repro/kernels/sp_filter.py:56",
+             bound_by="bytes", library_ms=None, **spf)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ wrapper launches its kernel or raises, it never falls back.
 ``LAUNCHES`` counts, per kernel, the launches these wrappers made, so a
 run can show that its main path went through the kernels.
 
-The CUDA kernel bounds-checks ragged shapes, so the Pallas block padding of
+The CUDA kernels bounds-check ragged shapes, so the Pallas block padding of
 the JAX package's ``ops.py`` has no counterpart here. Noise is always drawn
 at the original shape, so both backends consume identical random bits.
 """
@@ -21,7 +21,8 @@ import torch
 from .. import prng
 from . import fastrng, ref
 
-LAUNCHES: Dict[str, int] = {"analog_update": 0}
+LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_mvm": 0,
+                            "sp_filter": 0}
 
 
 def backend(x: torch.Tensor) -> str:
@@ -87,3 +88,62 @@ def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
     out = analog_update_cuda(*operands, **kw)
     LAUNCHES["analog_update"] += 1
     return out.reshape(w.shape)
+
+
+# ---------------------------------------------------------------------------
+# analog MVM
+# ---------------------------------------------------------------------------
+
+
+def analog_mvm(x, w, key, *, inp_res: float, inp_bound: float,
+               out_res: float, out_bound: float, out_noise: float,
+               noise=None):
+    """IO-quantized crossbar forward: ``x`` (..., K) @ ``w`` (K, N) ->
+    (..., N) in ``x``'s dtype; see ``ref.analog_mvm_ref``.
+
+    The output noise is ``prng.normal(key, (M, N))`` at the flattened
+    output shape, as the JAX package draws it, unless ``noise`` (any shape
+    of M * N elements) is given; then ``key`` is ignored and may be None.
+    """
+    io = dict(inp_res=inp_res, inp_bound=inp_bound, out_res=out_res,
+              out_bound=out_bound, out_noise=out_noise)
+    batch_shape = x.shape[:-1]
+    n = w.shape[-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
+    noise = (prng.normal(key, (m, n), x.device) if noise is None
+             else noise.reshape(m, n))
+    if backend(x) == "ref":
+        out = ref.analog_mvm_ref(x2, w, noise, **io)
+    else:
+        from .analog_matmul import analog_mvm_cuda
+
+        out = analog_mvm_cuda(x2.contiguous(), w.contiguous(),
+                              ref.abs_max_scale(x2),
+                              noise.to(torch.float32).contiguous(), **io)
+        LAUNCHES["analog_mvm"] += 1
+    return out.reshape(*batch_shape, n)
+
+
+# ---------------------------------------------------------------------------
+# SP filter
+# ---------------------------------------------------------------------------
+
+
+def sp_filter(q, p, gamma, rho, *, eta: float, tau_min: float,
+              tau_max: float):
+    """EMA tracking update (12) plus telemetry, any rank: returns
+    ``(q_new, gp_sq, err_sq)``, the sums as 0-d float32 tensors on ``q``'s
+    device (no host sync); see ``ref.sp_filter_ref``."""
+    kw = dict(eta=eta, tau_min=tau_min, tau_max=tau_max)
+    if backend(q) == "ref":
+        return ref.sp_filter_ref(q, p, gamma, rho, **kw)
+
+    from .sp_filter import sp_filter_cuda
+
+    f32 = torch.float32
+    q_new, gp_sq, err_sq = sp_filter_cuda(
+        q.contiguous(), p.contiguous(), gamma.to(f32).contiguous(),
+        rho.to(f32).contiguous(), **kw)
+    LAUNCHES["sp_filter"] += 1
+    return q_new, gp_sq, err_sq

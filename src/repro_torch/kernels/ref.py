@@ -101,3 +101,66 @@ def analog_update_expected_ref(w, dw, gamma, rho, *, tau_min, tau_max):
     f, g = response_fg(wf, gamma.to(f32), rho.to(f32), tau_min, tau_max)
     out = wf + dw.to(f32) * f - torch.abs(dw).to(f32) * g
     return torch.clamp(out, -tau_min, tau_max).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# IO-quantized analog MVM (kernel: csrc/analog_mvm.cu)
+# ---------------------------------------------------------------------------
+
+
+def abs_max_scale(x2: torch.Tensor) -> torch.Tensor:
+    """ABS_MAX noise management: the (M, 1) float32 row scale of (M, K)
+    activations, floored at 1e-12."""
+    return torch.clamp_min(
+        torch.amax(torch.abs(x2.to(torch.float32)), dim=-1, keepdim=True),
+        1e-12)
+
+
+def quantize_input(x, s, inp_res: float, inp_bound: float):
+    """Input DAC: ``x / s`` (a true division by the row scale) clipped to
+    ``+-inp_bound`` and rounded (half to even) to multiples of ``inp_res``.
+    The step multiplies by the Python reciprocal, as the reference does."""
+    xq = torch.clamp(x / s, -inp_bound, inp_bound)
+    return torch.round(xq * (1.0 / inp_res)) * inp_res
+
+
+def analog_mvm_ref(x, w, noise, *, inp_res: float, inp_bound: float,
+                   out_res: float, out_bound: float, out_noise: float):
+    """Analog crossbar MVM with DAC/ADC quantization (paper Table 7):
+    ABS_MAX scaling -> input DAC -> matmul -> additive output noise -> ADC
+    clip and quantization -> rescale. ``x`` (..., K), ``w`` (K, N),
+    ``noise`` standard normals at the output shape. Returns ``x``'s dtype."""
+    f32 = torch.float32
+    xf, wf = x.to(f32), w.to(f32)
+    s = abs_max_scale(xf)
+    y = quantize_input(xf, s, inp_res, inp_bound) @ wf
+    y = y + out_noise * noise.to(f32)
+    y = torch.clamp(y, -out_bound, out_bound)
+    y = torch.round(y * (1.0 / out_res)) * out_res
+    return (y * s).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chopped-EMA SP filter (kernel: csrc/sp_filter.cu)
+# ---------------------------------------------------------------------------
+
+
+def sp_filter_ref(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
+                  tau_max: float):
+    """One step of the digital SP-tracking filter (12) plus telemetry.
+
+    Returns ``(q_new, gp_sq_sum, err_sq_sum)``: ``q_new = (1-eta) q + eta p``
+    in ``q``'s dtype, ``sum G_p(p)^2`` (the convergence metric of Thm 3.7)
+    and ``sum (q_new - w_sp)^2`` (the SP tracking error, ``w_sp`` from the
+    corrected eq. 110), both 0-d float32."""
+    f32 = torch.float32
+    qf, pf = q.to(f32), p.to(f32)
+    gam, rh = gamma_p.to(f32), rho_p.to(f32)
+    q_new = (1.0 - eta) * qf + eta * pf
+    _, g = response_fg(pf, gam, rh, tau_min, tau_max)
+    a_p = gam + rh
+    a_m = gam - rh
+    w_sp = (a_p - a_m) / (div(a_p, tau_max) + div(a_m, tau_min))
+    gp_sq = torch.sum(g * g)
+    err_sq = torch.sum((q_new - w_sp) ** 2)
+    return q_new.to(q.dtype), gp_sq, err_sq

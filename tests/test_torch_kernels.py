@@ -8,7 +8,8 @@
 * ``kernels.ops.analog_update`` against JAX ``ops.analog_update`` on ragged
   shapes under both RNG modes: ``atol=1e-6`` (threefry normals agree to a
   few ULP, so the c2c noise term does too; pulse counts are exact).
-* The CUDA kernel against the plain version: needs a card, skips here.
+* The CUDA kernel against the plain version, on the card:
+  ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -151,19 +152,3 @@ def test_backend_follows_the_tensor_and_never_falls_back():
         analog_update_cuda(x, x, torch.ones_like(x), x, x.to(torch.int32), x,
                            **KW)
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128), (300, 700), (4, 300, 700)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernel_matches_plain_on_card(shape, dtype):
-    """On the card: the CUDA kernel is bit-equal to the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; run on the card (see README)")
-    o = [t.cuda() for t in _torch(_operands(shape, dtype), dtype)]
-    before = ops.LAUNCHES["analog_update"]
-    got = ops.analog_update(*o[:4], None, noise=(o[4], o[5]), **KW)
-    assert ops.backend(o[0]) == "cuda"
-    assert ops.LAUNCHES["analog_update"] == before + 1
-    want = ref.analog_update_ref(*o, **KW)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
