@@ -15,9 +15,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
               tokens, against its plain version on the same noise: within
-              one ADC step and >= 99.9 % bit-equal; one launch per call;
-              times beside the plain version's, the product alone
-              (torch.matmul) and the bound
+              one ADC step and >= 99.9 % bit-equal; one count per call (two
+              CUDA launches: the DAC prologue and the tensor-core product);
+              the prologue bit-equal to ``ref.dac_codes``; times of the
+              call, the prologue and the product kernel beside the plain
+              version's, the product alone (torch.matmul) and the bound
   5. sp_filter  the SP-tracking filter through ``ops.sp_filter`` at its
               listed shapes, the FCN's tile shapes and (896, 4864): q_new
               bit-equal to the plain version, the sums within rtol 1e-5
@@ -49,6 +51,7 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -225,28 +228,68 @@ def mvm_operands(xshape, wshape, dtype, seed: int, device):
             (0.1 * prng.normal(kw, wshape, device)).to(dtype))
 
 
-def mvm_bound(m: int, k: int, n: int):
+def mvm_bound(m: int, k: int, n: int, flops: int):
     """(ms, what bounds it): the card's least time for one f32 call, the
-    longer of 2MNK flops at the f32 peak and x, w, noise, the output and
-    the row scales once each at the memory rate."""
-    flops_ms = 2 * m * n * k / H100_F32_FLOPS * 1e3
+    longer of ``flops`` at the bf16 tensor-core peak (6MNK: the codes times
+    three bf16 pieces of w) and x, w, noise, the output and the row scales
+    once each at the memory rate."""
+    flops_ms = flops / H100_BF16_FLOPS * 1e3
     bytes_ms = (4 * (m * k + k * n + 2 * m * n) + 4 * m) / H100_BYTES_PER_S * 1e3
     return (flops_ms, "operations") if flops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
 
 
+def mvm_bound_f32_simt(m: int, k: int, n: int) -> float:
+    """The bound of a SIMT f32 kernel, kept beside the new one: 2MNK at the
+    f32 peak outside the tensor cores, or the same bytes, whichever is
+    longer (ms)."""
+    bytes_ms = (4 * (m * k + k * n + 2 * m * n) + 4 * m) / H100_BYTES_PER_S * 1e3
+    return max(2 * m * n * k / H100_F32_FLOPS * 1e3, bytes_ms)
+
+
+def mvm_check(got, want, x2, dtype, label: str) -> float:
+    """Every element within one ADC step of the plain version (out_res * s
+    of its row, plus the rounding of the output to its dtype: four f32
+    ULPs or one bf16 ULP of the value) and >= 99.9 % bit-equal; returns
+    the largest difference."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    got, want = got.float(), want.float()
+    step = MVM_IO["out_res"] * ref.abs_max_scale(x2)
+    diff = (got - want).abs()
+    tol = step + want.abs() * (
+        2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21)
+    equal = (got == want).float().mean().item()
+    gap = (diff / step).max().item()
+    print(f"mvm: {label}: bit-equal {equal * 100:.4f} %, largest gap "
+          f"{gap:.4f} ADC steps, max_abs_diff {diff.max().item():.3g}")
+    check(bool((diff <= tol).all()), f"mvm off by {gap} steps at {label}")
+    check(equal >= 0.999, f"mvm only {equal} bit-equal at {label}")
+    return diff.max().item()
+
+
+# Shapes that take the kernel's middle tile size (the 14 wrapper calls take
+# the large one at the LM shape and the small one elsewhere), f32 x with
+# f32 and bf16 w.
+MVM_TILE_CHECKS = [((1024, 256), (256, 1024))]
+
+
 def phase_mvm(device):
     """The analog MVM through ``ops.analog_mvm`` against its plain version
-    on the same inputs and the same noise (drawn from the call's key). The
-    plain version's cuBLAS product sums in another order, which can move y
-    across an ADC rounding boundary: every element within one ADC step
-    (out_res * s of its row, plus the rounding of the output to its dtype:
-    four f32 ULPs or one bf16 ULP of the value) and >= 99.9 % bit-equal."""
+    on the same inputs and the same noise (drawn from the call's key),
+    with the gates of ``mvm_check``: the kernel's tensor-core sums and the
+    plain version's cuBLAS product add in other orders, which can move y
+    across an ADC rounding boundary. Then the DAC prologue alone, bit-equal
+    to ``ref.dac_codes`` at every shape, and the middle tile size."""
     import torch
 
     from repro_torch import prng
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.analog_matmul import analog_mvm_cuda
+    from repro_torch.kernels.analog_matmul import (analog_mvm_cuda,
+                                                   dac_codes_cuda,
+                                                   mvm_codes_cuda)
 
     cases = [(xs, ws, dt) for xs, ws in MVM_SWEEP
              for dt in (torch.float32, torch.bfloat16)]
@@ -264,48 +307,84 @@ def phase_mvm(device):
         torch.cuda.synchronize()
         check(tuple(got.shape) == (*xs[:-1], n) and got.dtype == dtype,
               f"mvm result {tuple(got.shape)} {got.dtype} at {xs}@{ws}")
-        got, want = got.reshape(m, n).float(), want.float()
-        step = MVM_IO["out_res"] * ref.abs_max_scale(x2)
-        diff = (got - want).abs()
-        tol = step + want.abs() * (
-            2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21)
-        equal = (got == want).float().mean().item()
-        gap = (diff / step).max().item()
-        print(f"mvm: {xs}@{ws} {str(dtype).replace('torch.', '')}: "
-              f"bit-equal {equal * 100:.4f} %, largest gap {gap:.4f} ADC "
-              f"steps, max_abs_diff {diff.max().item():.3g}")
-        check(bool((diff <= tol).all()), f"mvm off by {gap} steps at {xs}@{ws}")
-        check(equal >= 0.999, f"mvm only {equal} bit-equal at {xs}@{ws}")
+        err = mvm_check(got.reshape(m, n), want, x2, dtype,
+                        f"{xs}@{ws} {str(dtype).replace('torch.', '')}")
         if dtype == torch.float32:
-            max_err_f32 = max(max_err_f32, diff.max().item())
+            max_err_f32 = max(max_err_f32, err)
     launches = dict(ops.LAUNCHES)
-    print(f"mvm: {len(cases)} wrapper calls checked, launches {launches}")
+    print(f"mvm: {len(cases)} wrapper calls checked, launches {launches} "
+          f"(two CUDA launches each: the DAC prologue and the product)")
     check(launches["analog_mvm"] == len(cases),
           f"analog_mvm launches {launches['analog_mvm']} != {len(cases)}")
 
-    def timed(m, k, n):
-        """The kernel alone (its binding), the plain version and the
-        product alone, f32, on the same inputs."""
-        x, w = mvm_operands((m, k), (k, n), torch.float32, 9, device)
-        s = ref.abs_max_scale(x)
-        noise = prng.normal(prng.PRNGKey(9), (m, n), device)
-        kern, k_call = time_ms(lambda: analog_mvm_cuda(x, w, s, noise,
-                                                       **MVM_IO))
-        plain, p_call = time_ms(lambda: ref.analog_mvm_ref(x, w, noise,
-                                                           **MVM_IO))
-        prod, _ = time_ms(lambda: torch.matmul(x, w))
-        bound, by = mvm_bound(m, k, n)
-        print(f"mvm: ({m}, {k})@({k}, {n}) f32 median device "
-              f"{kern * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: "
-              f"device {plain * 1e3:.2f} us, per call {p_call * 1e3:.2f} us; "
-              f"product alone {prod * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
-              f"by {by}; {2 * m * n * k / kern / 1e9:.2f} TFLOP/s)")
-        return dict(ms=kern, plain_ms=plain, product_alone_ms=prod,
-                    bound_ms=bound, bound_by=by, shape=[m, k, n])
+    for i, (xs, ws, dtype) in enumerate(cases):
+        x, _ = mvm_operands(xs, ws, dtype, 30 + i, device)
+        x2 = x.reshape(-1, xs[-1])
+        codes, s = dac_codes_cuda(x2, inp_res=MVM_IO["inp_res"],
+                                  inp_bound=MVM_IO["inp_bound"])
+        want_codes, want_s = ref.dac_codes(x2, MVM_IO["inp_res"],
+                                           MVM_IO["inp_bound"])
+        torch.cuda.synchronize()
+        check(torch.equal(s, want_s) and torch.equal(codes.float(), want_codes),
+              f"DAC prologue differs from ref.dac_codes at {xs}")
+    print(f"mvm: DAC prologue codes and row scales bit-equal to "
+          f"ref.dac_codes at all {len(cases)} shapes")
+    for j, (xs, ws) in enumerate(MVM_TILE_CHECKS):
+        for wdt in (torch.float32, torch.bfloat16):
+            x, w = mvm_operands(xs, ws, torch.float32, 90 + j, device)
+            w = w.to(wdt)
+            noise = prng.normal(prng.PRNGKey(90 + j), (xs[0], ws[1]), device)
+            got = analog_mvm_cuda(x, w, noise, **MVM_IO)
+            want = ref.analog_mvm_ref(x, w, noise, **MVM_IO)
+            torch.cuda.synchronize()
+            mvm_check(got, want, x, torch.float32,
+                      f"{xs}@{ws} f32 x, {str(wdt).replace('torch.', '')} w "
+                      f"(middle tile)")
 
-    timed(64, 784, 256)
+    def timed(m, k, n):
+        """Device times at f32, in turns on the same inputs: the plain
+        version, the product alone (torch.matmul, cuBLAS f32), the whole
+        kernel call, the prologue alone and the product kernel alone; then
+        the same in reverse order. Each is the mean of its two medians."""
+        x, w = mvm_operands((m, k), (k, n), torch.float32, 9, device)
+        noise = prng.normal(prng.PRNGKey(9), (m, n), device)
+        dac = dict(inp_res=MVM_IO["inp_res"], inp_bound=MVM_IO["inp_bound"])
+        adc = {key: v for key, v in MVM_IO.items() if key != "inp_bound"}
+        codes, s = dac_codes_cuda(x, **dac)
+        fns = dict(
+            plain=lambda: ref.analog_mvm_ref(x, w, noise, **MVM_IO),
+            product=lambda: torch.matmul(x, w),
+            kernel=lambda: analog_mvm_cuda(x, w, noise, **MVM_IO),
+            prologue=lambda: dac_codes_cuda(x, **dac),
+            gemm=lambda: mvm_codes_cuda(codes, s, w, noise, torch.float32,
+                                        **adc))
+        runs = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                runs[name].append(time_ms(fns[name]))
+        t = {name: sum(r[0] for r in rs) / 2 for name, rs in runs.items()}
+        k_call = sum(r[1] for r in runs["kernel"]) / 2
+        bound, by = mvm_bound(m, k, n, 6 * m * n * k)
+        old = mvm_bound_f32_simt(m, k, n)
+        print(f"mvm: ({m}, {k})@({k}, {n}) f32 median device "
+              f"{t['kernel'] * 1e3:.2f} us (prologue {t['prologue'] * 1e3:.2f}"
+              f" us, product kernel {t['gemm'] * 1e3:.2f} us), per call "
+              f"{k_call * 1e3:.2f} us; plain {t['plain'] * 1e3:.2f} us; "
+              f"product alone {t['product'] * 1e3:.2f} us; bound "
+              f"{bound * 1e3:.2f} us by {by} (f32 SIMT bound "
+              f"{old * 1e3:.2f} us); {2 * m * n * k / t['kernel'] / 1e9:.2f} "
+              f"TFLOP/s f32-equivalent (2MNK), "
+              f"{6 * m * n * k / t['kernel'] / 1e9:.2f} TFLOP/s tensor-core "
+              f"work (6MNK)")
+        return dict(ms=t["kernel"], plain_ms=t["plain"],
+                    product_alone_ms=t["product"], prologue_ms=t["prologue"],
+                    gemm_ms=t["gemm"], bound_ms=bound, bound_by=by,
+                    bound_f32_simt_ms=old, shape=[m, k, n])
+
+    fcn = timed(64, 784, 256)
+    lm = timed(2048, 896, 4864)
     return dict(launches=launches["analog_mvm"], max_abs_err=max_err_f32,
-                **timed(2048, 896, 4864))
+                fcn_shape=fcn, **lm)
 
 
 # K2's shapes: the reference tests' (256, 512) and (512, 1024), the ragged

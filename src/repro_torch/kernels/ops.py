@@ -5,8 +5,10 @@ PyTorch version (``kernels/ref.py``) on CPU tensors, and decides by the
 device of the tensor it is given, and nothing else: on a CUDA tensor a
 wrapper launches its kernel or raises, it never falls back.
 
-``LAUNCHES`` counts, per kernel, the launches these wrappers made, so a
-run can show that its main path went through the kernels.
+``LAUNCHES`` counts, per kernel, the calls these wrappers made to it, so
+a run can show that its main path went through the kernels. One
+``analog_mvm`` call is two CUDA launches (the DAC prologue and the
+product) and counts once.
 
 The CUDA kernels bounds-check ragged shapes, so the Pallas block padding of
 the JAX package's ``ops.py`` has no counterpart here. Noise is always drawn
@@ -119,7 +121,6 @@ def analog_mvm(x, w, key, *, inp_res: float, inp_bound: float,
         from .analog_matmul import analog_mvm_cuda
 
         out = analog_mvm_cuda(x2.contiguous(), w.contiguous(),
-                              ref.abs_max_scale(x2),
                               noise.to(torch.float32).contiguous(), **io)
         LAUNCHES["analog_mvm"] += 1
     return out.reshape(*batch_shape, n)

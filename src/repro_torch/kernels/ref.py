@@ -116,12 +116,43 @@ def abs_max_scale(x2: torch.Tensor) -> torch.Tensor:
         1e-12)
 
 
+def _codes(x, s, inp_res: float, inp_bound: float):
+    xq = torch.clamp(x / s, -inp_bound, inp_bound)
+    return torch.round(xq * (1.0 / inp_res))
+
+
 def quantize_input(x, s, inp_res: float, inp_bound: float):
     """Input DAC: ``x / s`` (a true division by the row scale) clipped to
     ``+-inp_bound`` and rounded (half to even) to multiples of ``inp_res``.
     The step multiplies by the Python reciprocal, as the reference does."""
-    xq = torch.clamp(x / s, -inp_bound, inp_bound)
-    return torch.round(xq * (1.0 / inp_res)) * inp_res
+    return _codes(x, s, inp_res, inp_bound) * inp_res
+
+
+def dac_codes(x2: torch.Tensor, inp_res: float, inp_bound: float):
+    """The input DAC of (M, K) activations as integers: ``(codes, s)``, the
+    float32 codes ``quantize_input(x2, s, ...) / inp_res`` before their
+    scaling (so ``codes * inp_res`` is ``quantize_input`` bit for bit) and
+    the (M, 1) ABS_MAX row scale. The CUDA prologue writes the same codes
+    as bfloat16, which holds them exactly while |code| <= 256."""
+    s = abs_max_scale(x2)
+    return _codes(x2.to(torch.float32), s, inp_res, inp_bound), s
+
+
+def split_bf16(w: torch.Tensor):
+    """float32 ``w`` as three bfloat16 pieces ``(hi, mid, lo)``: ``hi`` is
+    ``w`` cut to bfloat16 toward zero (so it never overflows to inf), then
+    ``mid`` and ``lo`` the nearest bfloat16 to what the pieces before them
+    leave over. Their sum is ``w`` exactly for |w| >= 2**-110 (24 bits in
+    three 8-bit pieces), and within 2**-134 below, where bfloat16's
+    subnormal step 2**-133 is coarser than the lowest bits of ``w``. The
+    CUDA kernel multiplies the DAC codes by each piece on the tensor
+    cores."""
+    bf, f32 = torch.bfloat16, torch.float32
+    w = w.to(f32).contiguous()
+    hi = (w.view(torch.int32) & -65536).view(f32)  # exact in bf16
+    r1 = w - hi
+    mid = r1.to(bf)
+    return hi.to(bf), mid, (r1 - mid.to(f32)).to(bf)
 
 
 def analog_mvm_ref(x, w, noise, *, inp_res: float, inp_bound: float,

@@ -15,7 +15,15 @@
 * ``ops.analog_mvm`` against JAX ``ops.analog_mvm`` from the same key on
   ragged and rank-3 inputs: one ADC step (threefry normals agree to a few
   ULP, so the noise term does too).
-* The CUDA kernel against the plain version, on the card:
+* ``ref.dac_codes`` (the integer codes the CUDA prologue writes) against
+  the reference's DAC: ``codes * inp_res`` and the row scale bit-exact.
+* ``ref.split_bf16`` (the CUDA kernel's three bfloat16 pieces of an f32
+  ``w``): their sum is ``w`` exactly, at random values and at the edges.
+* An emulation of the CUDA kernel's arithmetic on the CPU (codes times the
+  pieces in float32, BK-step partial sums, ``* inp_res``, then the
+  epilogue) against JAX ``ref.analog_mvm_ref``: the one-step tolerance
+  above.
+* The CUDA kernels against the plain version, on the card:
   ``tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -151,12 +159,158 @@ def test_ops_noise_operand_and_dtype():
 
 def test_kernel_binding_takes_cuda_tensors_only():
     """The binding never runs the plain version in the kernel's place."""
-    from repro_torch.kernels.analog_matmul import analog_mvm_cuda
+    from repro_torch.kernels.analog_matmul import (analog_mvm_cuda,
+                                                   dac_codes_cuda,
+                                                   mvm_codes_cuda)
 
     x, w = torch.zeros(4, 8), torch.zeros(8, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        analog_mvm_cuda(x, w, torch.ones(4, 1), torch.zeros(4, 3), **IO)
+        analog_mvm_cuda(x, w, torch.zeros(4, 3), **IO)
     with pytest.raises(ValueError, match=r"x \(M, K\)"):
-        analog_mvm_cuda(x, torch.zeros(7, 3), torch.ones(4, 1),
-                        torch.zeros(4, 3), **IO)
+        analog_mvm_cuda(x, torch.zeros(7, 3), torch.zeros(4, 3), **IO)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dac_codes_cuda(x, inp_res=IO["inp_res"], inp_bound=IO["inp_bound"])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mvm_codes_cuda(x.to(torch.bfloat16), torch.ones(4, 1), w,
+                       torch.zeros(4, 3), torch.float32, inp_res=IO["inp_res"],
+                       out_res=IO["out_res"], out_bound=IO["out_bound"],
+                       out_noise=IO["out_noise"])
+
+
+@pytest.mark.parametrize("inp", [(1 / 300, 1.0), (1 / 128, 3.0)])
+def test_kernel_binding_refuses_codes_bfloat16_cannot_hold(inp):
+    """Codes above 256 would not be exact in bfloat16: the binding raises
+    before it looks at the tensors."""
+    from repro_torch.kernels.analog_matmul import (analog_mvm_cuda,
+                                                   dac_codes_cuda)
+
+    io = dict(IO, inp_res=inp[0], inp_bound=inp[1])
+    x, w = torch.zeros(4, 8), torch.zeros(8, 3)
+    with pytest.raises(ValueError, match="exact in bfloat16"):
+        analog_mvm_cuda(x, w, torch.zeros(4, 3), **io)
+    with pytest.raises(ValueError, match="exact in bfloat16"):
+        dac_codes_cuda(x, inp_res=inp[0], inp_bound=inp[1])
+
+
+def _jax_dac(x, inp_res, inp_bound):
+    """The reference's ABS_MAX scale and quantized input (its
+    ``analog_mvm_ref`` up to the product)."""
+    xf = jnp.asarray(x).astype(jnp.float32)
+    s = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-12)
+    xq = jnp.clip(xf / s, -inp_bound, inp_bound)
+    return np.asarray(s), np.asarray(jnp.round(xq * (1.0 / inp_res)) * inp_res)
+
+
+@pytest.mark.parametrize("shape", [(64, 784), (33, 47), (5, 1)])
+@pytest.mark.parametrize("inp", [(1 / 126, 1.0), (1 / 62, 0.5), (1 / 256, 1.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dac_codes_match_jax(shape, inp, dtype):
+    inp_res, inp_bound = inp
+    rng = np.random.default_rng(11)
+    x = (3.0 * rng.standard_normal(shape)).astype(np.float32)
+    x[0, 0] = 0.0
+    if shape[1] > 2:
+        x[1 % shape[0], :] = 0.0  # an all-zero row: s is the 1e-12 floor
+    xt = torch.from_numpy(x).to(TDT[dtype])
+    codes, s = ref.dac_codes(xt, inp_res, inp_bound)
+    js, jq = _jax_dac(jnp.asarray(x, dtype), inp_res, inp_bound)
+    assert codes.dtype == torch.float32 and tuple(s.shape) == (shape[0], 1)
+    np.testing.assert_array_equal(s.numpy(), js)
+    np.testing.assert_array_equal((codes * inp_res).numpy(), jq)
+    # integers the prologue's bfloat16 holds exactly
+    assert torch.equal(codes, torch.round(codes))
+    assert codes.abs().max().item() <= round(inp_bound / inp_res) <= 256
+    assert torch.equal(codes.to(torch.bfloat16).float(), codes)
+
+
+def _sum64(pieces):
+    return sum(p.double() for p in pieces)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_bf16_pieces_sum_to_w(seed):
+    """Random float32 over the whole exponent range down to 2**-110, where
+    the split is exact: hi + mid + lo == w (summed in float64, since
+    hi + mid can round past float32's largest value)."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1.0, 2.0, 100_000)
+    exp = rng.integers(-110, 128, 100_000)
+    sign = rng.choice([-1.0, 1.0], 100_000)
+    w = torch.from_numpy((sign * np.ldexp(mant, exp)).astype(np.float32))
+    pieces = ref.split_bf16(w)
+    assert all(p.dtype == torch.bfloat16 for p in pieces)
+    assert torch.equal(_sum64(pieces), w.double())
+    # the kernel sums them in float32, lo and mid first; that is exact too
+    # below 2**126
+    small = w.abs() < 2.0 ** 126
+    hi, mid, lo = (p.float() for p in pieces)
+    assert torch.equal(((lo + mid) + hi)[small], w[small])
+
+
+def test_split_bf16_pieces_at_the_edges():
+    f32max = np.finfo(np.float32).max
+    tiny = np.finfo(np.float32).tiny  # 2**-126, the f32 normal minimum
+    edges = np.array([0.0, -0.0, f32max, -f32max, 3.3e38, -1e38, 2.0 ** 127,
+                      1.0, -0.5, 2.0 ** -110, -(2.0 ** -110) * 1.9999999],
+                     np.float32)
+    w = torch.from_numpy(edges)
+    assert torch.equal(_sum64(ref.split_bf16(w)), w.double())
+    assert torch.equal(torch.signbit(ref.split_bf16(w)[0].float()),
+                       torch.signbit(w))
+    # bfloat16-exact values, near the normal minimum too: hi alone
+    rng = np.random.default_rng(5)
+    b = torch.from_numpy(np.concatenate([
+        rng.standard_normal(1000), tiny * rng.uniform(-4, 4, 1000),
+        tiny * np.arange(-128, 129) / 128]).astype(np.float32)
+    ).to(torch.bfloat16).float()
+    hi, mid, lo = ref.split_bf16(b)
+    assert torch.equal(hi.float(), b)
+    assert not mid.float().any() and not lo.float().any()
+    # float32 values near the normal minimum: bfloat16 cannot hold their
+    # lowest bits, so the sum is exact on multiples of bfloat16's subnormal
+    # step 2**-133 and within half of it elsewhere
+    t = torch.from_numpy((tiny * rng.uniform(-8, 8, 10_000)).astype(np.float32))
+    err = (_sum64(ref.split_bf16(t)) - t.double()).abs()
+    assert err.max().item() <= 2.0 ** -134
+    on_step = torch.from_numpy(np.ldexp(
+        rng.integers(-2 ** 16, 2 ** 16, 10_000), -133).astype(np.float32))
+    assert torch.equal(_sum64(ref.split_bf16(on_step)), on_step.double())
+
+
+def _emulate_kernel(x, w, noise, bk=32):
+    """The CUDA kernel's arithmetic on the CPU: the prologue's codes, then
+    each BK step's partial sum of codes times the bfloat16 pieces of w
+    (lo, mid, hi; a bfloat16 w is its own piece) in float32, added into the
+    running sum; then ``* inp_res`` and the plain version's epilogue."""
+    codes, s = ref.dac_codes(x, IO["inp_res"], IO["inp_bound"])
+    pieces = ((w.float(),) if w.dtype == torch.bfloat16
+              else tuple(p.float() for p in ref.split_bf16(w)[::-1]))
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for k0 in range(0, x.shape[1], bk):
+        c = codes[:, k0:k0 + bk]
+        part = torch.zeros_like(acc)
+        for p in pieces:
+            part = part + c @ p[k0:k0 + bk]
+        acc = acc + part
+    y = acc * IO["inp_res"] + IO["out_noise"] * noise
+    y = torch.clamp(y, -IO["out_bound"], IO["out_bound"])
+    y = torch.round(y * (1.0 / IO["out_res"])) * IO["out_res"]
+    return (y * s).to(x.dtype)
+
+
+@pytest.mark.parametrize("mkn", [(64, 784, 256), (512, 896, 1024),
+                                 (33, 47, 29), (17, 1, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "f32x-bf16w"])
+def test_kernel_arithmetic_matches_jax_ref(mkn, dtype):
+    xd, wd = (("float32", "bfloat16") if dtype == "f32x-bf16w"
+              else (dtype, dtype))
+    x, w, noise = _operands(*mkn, "bfloat16" if dtype != "float32"
+                            else "float32", seed=6)
+    got = _emulate_kernel(torch.from_numpy(x).to(TDT[xd]),
+                          torch.from_numpy(w).to(TDT[wd]),
+                          torch.from_numpy(noise))
+    assert got.dtype == TDT[xd]
+    want = jref.analog_mvm_ref(jnp.asarray(x, xd), jnp.asarray(w, wd),
+                               jnp.asarray(noise), **IO)
+    _assert_one_step(_f32(got), _f32(want), _scale(x), xd)
 

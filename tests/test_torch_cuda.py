@@ -12,7 +12,8 @@ the card and PyTorch alone:
   plus the rounding of the output to its dtype: four float32 ULPs or one
   bfloat16 ULP of the value) and at least 99.9 % bit-equal; the plain
   version's cuBLAS product sums in another order, which can move y across
-  an ADC rounding boundary.
+  an ADC rounding boundary. Its DAC prologue's codes and row scale are
+  bit-equal to ``ref.dac_codes``.
 * K2 ``ops.sp_filter``: ``q_new`` bit-equal, the sums within ``rtol=1e-5``
   and bit-identical from run to run.
 Each wrapper call launches its kernel once.
@@ -68,16 +69,44 @@ IO = dict(inp_res=1 / 126, inp_bound=1.0, out_res=1 / 510, out_bound=12.0,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 784), (33, 47), (5, 1), (2048, 896)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dac_codes_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.analog_matmul import dac_codes_cuda
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[1 % shape[0]] = 0.0  # a zero row: s is the 1e-12 floor
+    (x,) = _card([x], [dtype])
+    codes, s = dac_codes_cuda(x, inp_res=IO["inp_res"],
+                              inp_bound=IO["inp_bound"])
+    want_codes, want_s = ref.dac_codes(x, IO["inp_res"], IO["inp_bound"])
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.bfloat16 and codes.shape == x.shape
+    assert torch.equal(s, want_s)
+    assert torch.equal(codes.float(), want_codes)
+
+
+# the reference tests' products, ragged K (1, 47), M not a multiple of 16,
+# and shapes that take each of the kernel's three tile sizes
+@pytest.mark.cuda
 @pytest.mark.parametrize("xshape,wshape", [((64, 128), (128, 96)),
                                            ((5, 33, 47), (47, 29)),
+                                           ((17, 1), (1, 40)),
+                                           ((37, 200), (200, 130)),
                                            ((64, 784), (784, 256)),
-                                           ((512, 896), (896, 1024))])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+                                           ((512, 896), (896, 1024)),
+                                           ((1024, 256), (256, 1024)),
+                                           ((2048, 96), (96, 1536))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "f32x-bf16w"])
 def test_analog_mvm_kernel_matches_plain(cuda, xshape, wshape, dtype):
+    xd, wd = (("float32", "bfloat16") if dtype == "f32x-bf16w"
+              else (dtype, dtype))
     rng = np.random.default_rng(1)
     x, w = _card([rng.standard_normal(xshape).astype(np.float32),
                   (0.1 * rng.standard_normal(wshape)).astype(np.float32)],
-                 [dtype, dtype])
+                 [xd, wd])
+    dtype = xd
     m, n = x.numel() // xshape[-1], wshape[1]
     noise = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).cuda()
     before = ops.LAUNCHES["analog_mvm"]
@@ -92,6 +121,21 @@ def test_analog_mvm_kernel_matches_plain(cuda, xshape, wshape, dtype):
         2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -21)
     assert bool(((got - want).abs() <= tol).all())
     assert (got == want).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_analog_mvm_kernel_refuses_codes_bfloat16_cannot_hold(cuda):
+    from repro_torch.kernels.analog_matmul import analog_mvm_cuda
+
+    x, w, noise = (torch.zeros(4, 8, device="cuda"),
+                   torch.zeros(8, 3, device="cuda"),
+                   torch.zeros(4, 3, device="cuda"))
+    with pytest.raises(ValueError, match="exact in bfloat16"):
+        analog_mvm_cuda(x, w, noise, **dict(IO, inp_res=1 / 512))
+    before = ops.LAUNCHES["analog_mvm"]
+    with pytest.raises(ValueError, match="exact in bfloat16"):
+        ops.analog_mvm(x, w, None, noise=noise, **dict(IO, inp_bound=3.0))
+    assert ops.LAUNCHES["analog_mvm"] == before
 
 
 @pytest.mark.cuda
