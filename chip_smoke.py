@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               its plain PyTorch version on the card, at the listed shapes
               and at every shape of the main path, under both RNG modes
               (analog_update: f32 bit-equal), and the kernel's time beside
-              the plain version's and its memory bound
+              the plain version's and its memory bound, at the FCN's fc1
+              tile and at (896, 4864), past the 50 MB L2
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -21,10 +22,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               call, the prologue and the product kernel beside the plain
               version's, the product alone (torch.matmul) and the bound
   5. sp_filter  the SP-tracking filter through ``ops.sp_filter`` at its
-              listed shapes, the FCN's tile shapes and (896, 4864): q_new
-              bit-equal to the plain version, the sums within rtol 1e-5
-              and bit-identical from run to run; one launch per call; times
-              beside the plain version's and the memory bound
+              listed shapes, the FCN's tile shapes and (896, 4864), in f32,
+              bf16 and both mixed q/p pairs, at sizes around a vector and
+              on views at storage offsets 1-3 (the kernel's element path):
+              q_new bit-equal to the plain version, the sums within rtol
+              1e-5, bit-identical from run to run and to the kernel's
+              summation order replayed in torch; one CUDA launch per call;
+              times at (784, 256), (896, 4864) and one element beside the
+              plain version's and the memory bound
   6. quickstart  E-RIDER 32x32, 100 steps: loss and SP error fall, two
               kernel launches per step, and the card's run agrees with the
               port's CPU run (the plain path) on the same seeds
@@ -200,8 +205,12 @@ def phase_kernels(device):
     timed((512, 1024))
     # the main path's largest tile: the FCN's fc1, 784x256
     k, p, bound = timed((784, 256))
+    # past the L2: Qwen2-0.5B's MLP tile streams 122 MB from HBM a call
+    k_lm, p_lm, bound_lm = timed((896, 4864))
     return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound,
-                shape=[784, 256])
+                shape=[784, 256],
+                beyond_l2=dict(ms=k_lm, plain_ms=p_lm, bound_ms=bound_lm,
+                               shape=[896, 4864]))
 
 
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
@@ -389,61 +398,88 @@ def phase_mvm(device):
 
 # K2's shapes: the reference tests' (256, 512) and (512, 1024), the ragged
 # 2-D and 3-D cases of its wrapper tests, the FCN's E-RIDER tile shapes,
-# and Qwen2-0.5B's MLP tile (896, 4864), past the 50 MB L2.
+# and Qwen2-0.5B's MLP tile (896, 4864), past the 50 MB L2. Then the mixed
+# q/p dtype pairs, sizes around one vector and one block (the tail of
+# size % 4 elements), and views at storage offsets 1-3, which the kernel
+# walks element by element.
 SP_SHAPES = [(256, 512), (512, 1024), (33, 97), (3, 33, 97), (784, 256),
              (256, 128), (128, 10), (896, 4864)]
 SP_TAUS = [(1.0, 1.0), (0.7, 1.3)]
+SP_MIXED = [(33, 97), (784, 256), (896, 4864)]
+SP_SMALL = [(1,), (3,), (5,), (1025,)]
+SP_OFFSET = [((5,), 1), ((1025,), 2), ((33, 97), 3), ((784, 256), 1),
+             ((896, 4864), 3)]
 
 
-def sp_operands(shape, dtype, seed: int, device):
-    """Random q, p (in ``dtype``), gamma, rho, drawn on the card."""
+def sp_operands(shape, dtypes, seed: int, device, offset: int = 0):
+    """Random q, p (in ``dtypes``), gamma, rho, drawn on the card; each a
+    contiguous view at element ``offset`` of its own buffer."""
     import torch
 
     from repro_torch import prng
 
+    n = math.prod(shape)
     ks = prng.split(prng.PRNGKey(seed), 4)
-    return ((0.1 * prng.normal(ks[0], shape, device)).to(dtype),
-            (0.2 * prng.normal(ks[1], shape, device)).to(dtype),
-            torch.exp(0.1 * prng.normal(ks[2], shape, device)),
-            0.3 * prng.normal(ks[3], shape, device))
+    full = ((0.1 * prng.normal(ks[0], (n + offset,), device)).to(dtypes[0]),
+            (0.2 * prng.normal(ks[1], (n + offset,), device)).to(dtypes[1]),
+            torch.exp(0.1 * prng.normal(ks[2], (n + offset,), device)),
+            0.3 * prng.normal(ks[3], (n + offset,), device))
+    return tuple(t[offset:].view(shape) for t in full)
 
 
 def phase_sp_filter(device):
     """The SP filter through ``ops.sp_filter`` against its plain version on
     the same operands: q_new bit-equal, the sums within rtol 1e-5 (another
-    summation order) and bit-identical between two kernel runs."""
+    summation order), bit-identical between two kernel runs and to the
+    kernel's own order replayed in torch (``sums_in_launch_order``)."""
     import torch
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.sp_filter import sp_filter_cuda
+    from repro_torch.kernels import sp_filter as k
 
-    cases = [(s, torch.float32) for s in SP_SHAPES]
-    cases += [(s, torch.bfloat16) for s in SP_SHAPES[:4]]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(s, (f32, f32), 0) for s in SP_SHAPES]
+    cases += [(s, (bf16, bf16), 0) for s in SP_SHAPES[:4]]
+    cases += [(s, pair, 0) for s in SP_MIXED
+              for pair in ((f32, bf16), (bf16, f32))]
+    cases += [(s, pair, 0) for s in SP_SMALL for pair in ((f32, f32),
+                                                         (bf16, f32))]
+    cases += [(s, pair, off) for s, off in SP_OFFSET
+              for pair in ((f32, f32), (bf16, bf16))]
     ops.reset_launch_counts()
     max_err, max_rel = 0.0, 0.0
-    for i, (shape, dtype) in enumerate(cases):
+    for i, (shape, dtypes, offset) in enumerate(cases):
         tau_min, tau_max = SP_TAUS[i % 2]
         kw = dict(eta=0.3, tau_min=tau_min, tau_max=tau_max)
-        o = sp_operands(shape, dtype, 50 + i, device)
+        o = sp_operands(shape, dtypes, 50 + i, device, offset)
         q_new, gp, err = ops.sp_filter(*o, **kw)
         _, gp2, err2 = ops.sp_filter(*o, **kw)
         want = ref.sp_filter_ref(*o, **kw)
+        plan = k.launch_plan(o[0].numel(), k.vector_aligned(*o))
+        order = k.sums_in_launch_order(*o, plan=plan, **kw)
         torch.cuda.synchronize()
-        check(q_new.shape == shape and q_new.dtype == dtype
+        names = "/".join(str(d).replace("torch.", "") for d in dtypes)
+        label = f"{shape} {names} offset {offset}"
+        check(q_new.shape == shape and q_new.dtype == dtypes[0]
               and gp.shape == () and gp.dtype == torch.float32,
               f"sp_filter result {tuple(q_new.shape)} {q_new.dtype} at "
-              f"{shape}")
+              f"{label}")
+        check(plan.vector == (offset == 0), f"sp_filter path at {label}")
         same = torch.equal(q_new, want[0])
         rel = max(abs(a.item() - b.item()) / abs(b.item())
                   for a, b in ((gp, want[1]), (err, want[2])))
         repeat = torch.equal(gp, gp2) and torch.equal(err, err2)
-        print(f"sp_filter: {shape} {str(dtype).replace('torch.', '')} "
-              f"tau=({tau_min}, {tau_max}): q_new bit-equal={same}, sums "
+        in_order = torch.equal(gp, order[0]) and torch.equal(err, order[1])
+        print(f"sp_filter: {label} tau=({tau_min}, {tau_max}) "
+              f"{'16-byte' if plan.vector else 'element'} path, "
+              f"{plan.blocks} blocks: q_new bit-equal={same}, sums "
               f"{gp.item():.7g} / {err.item():.7g} (rel diff {rel:.2e}), "
-              f"repeatable={repeat}")
-        check(same, f"sp_filter q_new differs from plain at {shape} {dtype}")
-        check(rel <= 1e-5, f"sp_filter sums off by {rel:.2e} at {shape}")
-        check(repeat, f"sp_filter sums changed between runs at {shape}")
+              f"repeatable={repeat}, launch order={in_order}")
+        check(same, f"sp_filter q_new differs from plain at {label}")
+        check(rel <= 1e-5, f"sp_filter sums off by {rel:.2e} at {label}")
+        check(repeat, f"sp_filter sums changed between runs at {label}")
+        check(in_order, f"sp_filter sums differ from the replayed launch "
+                        f"order at {label}")
         max_err = max(max_err, (q_new.float() - want[0].float()).abs()
                       .max().item())
         max_rel = max(max_rel, rel)
@@ -453,24 +489,25 @@ def phase_sp_filter(device):
           f"sp_filter launches {launches['sp_filter']} != {2 * len(cases)}")
 
     def timed(shape):
-        o = sp_operands(shape, torch.float32, 9, device)
+        o = sp_operands(shape, (f32, f32), 9, device)
         kw = dict(eta=0.3, tau_min=0.7, tau_max=1.3)
-        k, k_call = time_ms(lambda: sp_filter_cuda(*o, **kw))
+        t, t_call = time_ms(lambda: k.sp_filter_cuda(*o, **kw))
         p, p_call = time_ms(lambda: ref.sp_filter_ref(*o, **kw))
         # 16 B read + 4 B written per element; ~25 flops per element
         n = math.prod(shape)
         bound = max(20 * n / H100_BYTES_PER_S, 25 * n / H100_F32_FLOPS) * 1e3
-        print(f"sp_filter: {shape} f32 median device {k * 1e3:.2f} us, per "
-              f"call {k_call * 1e3:.2f} us (plain: device {p * 1e3:.2f} us, "
+        print(f"sp_filter: {shape} f32 median device {t * 1e3:.2f} us, per "
+              f"call {t_call * 1e3:.2f} us (plain: device {p * 1e3:.2f} us, "
               f"per call {p_call * 1e3:.2f} us; memory bound "
-              f"{bound * 1e3:.2f} us)")
-        return k, p, bound
+              f"{bound * 1e3:.5f} us)")
+        return dict(ms=t, plain_ms=p, bound_ms=bound, shape=list(shape))
 
-    timed((784, 256))
-    k, p, bound = timed((896, 4864))
+    fcn = timed((784, 256))
+    one = timed((1,))
+    lm = timed((896, 4864))
     return dict(launches=launches["sp_filter"], max_abs_err=max_err,
-                sums_max_rel_err=max_rel, ms=k, plain_ms=p, bound_ms=bound,
-                shape=[896, 4864])
+                sums_max_rel_err=max_rel, fcn_shape=fcn, one_element=one,
+                **lm)
 
 
 def run_quickstart(device, steps: int):

@@ -176,14 +176,11 @@ def analog_mvm_ref(x, w, noise, *, inp_res: float, inp_bound: float,
 # ---------------------------------------------------------------------------
 
 
-def sp_filter_ref(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
-                  tau_max: float):
-    """One step of the digital SP-tracking filter (12) plus telemetry.
-
-    Returns ``(q_new, gp_sq_sum, err_sq_sum)``: ``q_new = (1-eta) q + eta p``
-    in ``q``'s dtype, ``sum G_p(p)^2`` (the convergence metric of Thm 3.7)
-    and ``sum (q_new - w_sp)^2`` (the SP tracking error, ``w_sp`` from the
-    corrected eq. 110), both 0-d float32."""
+def sp_filter_terms(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
+                    tau_max: float):
+    """The element-wise part of ``sp_filter_ref``, all float32:
+    ``(q_new, G_p(p)^2, (q_new - w_sp)^2)`` before any rounding to ``q``'s
+    dtype and before the sums."""
     f32 = torch.float32
     qf, pf = q.to(f32), p.to(f32)
     gam, rh = gamma_p.to(f32), rho_p.to(f32)
@@ -192,6 +189,18 @@ def sp_filter_ref(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
     a_p = gam + rh
     a_m = gam - rh
     w_sp = (a_p - a_m) / (div(a_p, tau_max) + div(a_m, tau_min))
-    gp_sq = torch.sum(g * g)
-    err_sq = torch.sum((q_new - w_sp) ** 2)
-    return q_new.to(q.dtype), gp_sq, err_sq
+    d = q_new - w_sp
+    return q_new, g * g, d * d
+
+
+def sp_filter_ref(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
+                  tau_max: float):
+    """One step of the digital SP-tracking filter (12) plus telemetry.
+
+    Returns ``(q_new, gp_sq_sum, err_sq_sum)``: ``q_new = (1-eta) q + eta p``
+    in ``q``'s dtype, ``sum G_p(p)^2`` (the convergence metric of Thm 3.7)
+    and ``sum (q_new - w_sp)^2`` (the SP tracking error, ``w_sp`` from the
+    corrected eq. 110), both 0-d float32."""
+    q_new, g2, d2 = sp_filter_terms(q, p, gamma_p, rho_p, eta=eta,
+                                    tau_min=tau_min, tau_max=tau_max)
+    return q_new.to(q.dtype), torch.sum(g2), torch.sum(d2)

@@ -14,8 +14,11 @@ the card and PyTorch alone:
   version's cuBLAS product sums in another order, which can move y across
   an ADC rounding boundary. Its DAC prologue's codes and row scale are
   bit-equal to ``ref.dac_codes``.
-* K2 ``ops.sp_filter``: ``q_new`` bit-equal, the sums within ``rtol=1e-5``
-  and bit-identical from run to run.
+* K2 ``ops.sp_filter``: ``q_new`` bit-equal, the sums within ``rtol=1e-5``,
+  bit-identical from run to run and bit-equal to the kernel's summation
+  order replayed in torch (``sp_filter.sums_in_launch_order``), for every
+  mix of q/p dtypes, views at storage offsets (the element path), sizes
+  around a vector and a group, and calls replayed from a CUDA graph.
 Each wrapper call launches its kernel once.
 """
 import numpy as np
@@ -138,10 +141,58 @@ def test_analog_mvm_kernel_refuses_codes_bfloat16_cannot_hold(cuda):
     assert ops.LAUNCHES["analog_mvm"] == before
 
 
+# q/p dtype pairs of K2: as named, then the mixed pairs
+SP_DTYPES = {"float32": ("float32", "float32"),
+             "bfloat16": ("bfloat16", "bfloat16"),
+             "f32q-bf16p": ("float32", "bfloat16"),
+             "bf16q-f32p": ("bfloat16", "float32")}
+SP_KW = dict(eta=0.3, tau_min=0.7, tau_max=1.3)
+
+
+def _sp_operands(n, dtypes, seed, offset=0):
+    """q, p (in ``dtypes``), gamma, rho: (n,) views at element ``offset``
+    of their own buffers on the card (each view stays contiguous)."""
+    rng = np.random.default_rng(seed)
+    full = _card(
+        [(0.1 * rng.standard_normal(n + offset)).astype(np.float32),
+         (0.2 * rng.standard_normal(n + offset)).astype(np.float32),
+         np.exp(0.1 * rng.standard_normal(n + offset)).astype(np.float32),
+         (0.3 * rng.standard_normal(n + offset)).astype(np.float32)],
+        [*dtypes, "float32", "float32"])
+    return [t[offset:] for t in full]
+
+
+def _sp_check(q, p, gamma, rho, aligned=None):
+    """Two wrapper calls against the plain version and the replayed order:
+    q_new bit-equal, sums within rtol 1e-5, bit-identical between the calls
+    and to ``sums_in_launch_order`` under the binding's plan."""
+    from repro_torch.kernels import sp_filter as k
+
+    before = ops.LAUNCHES["sp_filter"]
+    q_new, gp, err = ops.sp_filter(q, p, gamma, rho, **SP_KW)
+    again = ops.sp_filter(q, p, gamma, rho, **SP_KW)
+    assert ops.LAUNCHES["sp_filter"] == before + 2
+    want = ref.sp_filter_ref(q, p, gamma, rho, **SP_KW)
+    is_aligned = k.vector_aligned(q, p, gamma, rho)
+    if aligned is not None:
+        assert is_aligned is aligned
+    order = k.sums_in_launch_order(
+        q, p, gamma, rho, plan=k.launch_plan(q.numel(), is_aligned), **SP_KW)
+    torch.cuda.synchronize()
+    assert q_new.dtype == q.dtype and q_new.shape == q.shape
+    assert gp.shape == () and gp.dtype == torch.float32
+    assert torch.equal(q_new, want[0])
+    assert torch.equal(q_new, again[0])
+    assert torch.equal(gp, again[1]) and torch.equal(err, again[2])
+    assert torch.equal(gp, order[0]) and torch.equal(err, order[1])
+    torch.testing.assert_close(gp, want[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(err, want[2], rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(33, 97), (3, 33, 97), (784, 256),
                                    (896, 4864)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", list(SP_DTYPES))
 def test_sp_filter_kernel_matches_plain(cuda, shape, dtype):
     rng = np.random.default_rng(2)
     q, p, gamma, rho = _card(
@@ -149,15 +200,52 @@ def test_sp_filter_kernel_matches_plain(cuda, shape, dtype):
          (0.2 * rng.standard_normal(shape)).astype(np.float32),
          np.exp(0.1 * rng.standard_normal(shape)).astype(np.float32),
          (0.3 * rng.standard_normal(shape)).astype(np.float32)],
-        [dtype, dtype, "float32", "float32"])
-    kw = dict(eta=0.3, tau_min=0.7, tau_max=1.3)
-    before = ops.LAUNCHES["sp_filter"]
-    q_new, gp, err = ops.sp_filter(q, p, gamma, rho, **kw)
-    again = ops.sp_filter(q, p, gamma, rho, **kw)
-    assert ops.LAUNCHES["sp_filter"] == before + 2
-    want = ref.sp_filter_ref(q, p, gamma, rho, **kw)
+        [*SP_DTYPES[dtype], "float32", "float32"])
+    _sp_check(q, p, gamma, rho, aligned=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 1025])
+@pytest.mark.parametrize("dtype", list(SP_DTYPES))
+def test_sp_filter_kernel_small_and_ragged_sizes(cuda, n, dtype):
+    """Sizes around one vector and one block: the tail of size % 4
+    elements in the last block, and the empty call (sums 0)."""
+    _sp_check(*_sp_operands(n, SP_DTYPES[dtype], 3), aligned=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, 1025, 784 * 256])
+@pytest.mark.parametrize("dtype", ["float32", "bf16q-f32p"])
+def test_sp_filter_kernel_on_offset_views(cuda, offset, n, dtype):
+    """Contiguous views at a storage offset are not 16-byte aligned, and
+    ``.contiguous()`` does not realign them: the kernel walks them element
+    by element."""
+    ops_ = _sp_operands(n, SP_DTYPES[dtype], 4, offset)
+    _sp_check(*ops_, aligned=False)
+    # one operand off the vector grid is enough to take the element path
+    q, p, gamma, rho = _sp_operands(n, SP_DTYPES[dtype], 5)
+    _sp_check(q, p, gamma, ops_[3], aligned=False)
+
+
+@pytest.mark.cuda
+def test_sp_filter_kernel_replayed_from_a_cuda_graph(cuda):
+    """Three calls captured in one graph and replayed twice give the eager
+    calls' results: the kernel puts its ticket back to 0 itself."""
+    o = _sp_operands(784 * 256, SP_DTYPES["float32"], 6)
+    kws = [dict(SP_KW, eta=eta) for eta in (0.1, 0.3, 0.5)]
+    eager = [ops.sp_filter(*o, **kw) for kw in kws]
     torch.cuda.synchronize()
-    assert torch.equal(q_new, want[0])
-    assert torch.equal(gp, again[1]) and torch.equal(err, again[2])
-    torch.testing.assert_close(gp, want[1], rtol=1e-5, atol=0)
-    torch.testing.assert_close(err, want[2], rtol=1e-5, atol=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.sp_filter(*o, **kws[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [ops.sp_filter(*o, **kw) for kw in kws]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
