@@ -38,6 +38,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               update_backend="vmap" and 30 under "fused": finite, falling
               loss, six kernel launches per step (the main path); the first
               3 steps agree with the port's CPU run on the same seeds
+  8. ckpt     the FCN on the pcm_gst preset (update_backend="fused"), fed by
+              ``Prefetcher(device="cuda")``: run A takes 10 steps with an
+              asynchronous save at step 5 carrying the GDC t0 signatures;
+              run B restores step 5 into ``abstract_state(device="cuda")``
+              and takes steps 6-10: bit-equal to run A on every leaf, six
+              kernel launches per resumed step; a CPU-template restore holds
+              the saved arrays bit for bit; ``verify=True``. Then eight
+              (896, 4864) E-RIDER tiles (Qwen2-0.5B's mlp/wi, about 1.1 GB
+              of tile state) after one fused step: a sync save in >= 2
+              chunks and a verified restore, bit-equal, with their MB/s
+  9. lifetime on the FCN's effective weights restored in phase 8: age 0 is
+              bit-exact, GDC against the manifest's signatures gives alpha
+              == 1.0 and bit-equal weights (the same signatures checked
+              on the CPU: within 1e-6 of 1); at one year every matrix has
+              drifted, every alpha > 1 and GDC lowers the error to the t0
+              weights; the card's aged weights agree with the port's CPU
+              run within rtol 4e-6 + 1e-6 * amax|w|
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -46,6 +63,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -634,6 +652,258 @@ def fcn_against_cpu(backend: str, card, batches):
                                    err_msg=f"fcn[{backend}] bias {k}")
 
 
+CKPT_STEPS, CKPT_AT = 10, 5
+LM_TILES, LM_SHAPE = 8, (896, 4864)   # Qwen2-0.5B's mlp/wi at full width
+YEAR_S = 3.1536e7
+LIFETIME_KEY_SEED = 0xD81F7           # the serving engine's lifetime key
+AGE_RTOL, AGE_ATOL = 4e-6, 1e-6       # card vs CPU, atol in units of amax|w|
+GDC_CROSS_TOL = 1e-6                  # |alpha - 1| at t0 across devices
+
+
+def gdc_extra(trainer, state):
+    """Manifest ``extra`` of a training checkpoint: the GDC t0 signature of
+    every analog matrix of ``merge_effective``."""
+    from repro_torch.core.trainer import merge_effective
+    from repro_torch.lifetime import gdc
+
+    tiles = state["tiles"]
+    eff = merge_effective(state["params"], tiles, trainer.cfg.tile)
+    paths = sorted(p for _, ps in tiles.index for p in ps)
+    return {"gdc_signatures": {p: float(v) for p, v in
+                               gdc.signature_tree(eff, paths).items()}}
+
+
+def leaves_equal(a, b, label: str) -> int:
+    """Every leaf of ``a`` bit-equal to ``b`` (same paths, dtypes; ``b`` may
+    live on another device); returns the leaf count."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+
+    fa, fb = flatten_with_path(a), flatten_with_path(b)
+    check([p for p, _ in fa] == [p for p, _ in fb], f"{label}: paths differ")
+    for (p, x), (_, y) in zip(fa, fb):
+        check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()),
+              f"{label}: leaf {p} differs")
+    return len(fa)
+
+
+def spec_tree(params, device):
+    from repro_torch.core.paths import TensorSpec, tree_map
+
+    return tree_map(lambda t: TensorSpec(t.shape, t.dtype, device), params)
+
+
+def phase_ckpt(device, root: str):
+    """Train, save, restore from an abstract template, resume bit-exactly
+    (the FCN); then the save and restore rates of a tile state at LM scale.
+    Returns the state restored at step 5 and the manifest's signatures."""
+    from repro_torch import prng
+    from repro_torch.benchmarks.common import fcn_trainer
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.paths import flatten_with_path, tree_map
+    from repro_torch.data import ImageDataset, Prefetcher
+    from repro_torch.kernels import ops
+    from repro_torch.models import convnets
+
+    fcn_dir = os.path.join(root, "fcn")
+    data = ImageDataset(n_train=CKPT_STEPS * 64, n_test=64, seed=11)
+    host_batches = list(data.epoch(0, 64))[:CKPT_STEPS]
+
+    def producer(step):
+        return host_batches[step]
+
+    trainer = fcn_trainer("fused", preset="pcm_gst")
+    params = convnets.init_convnet(prng.PRNGKey(0), convnets.ConvNetConfig(),
+                                   device)
+    state = trainer.init(prng.PRNGKey(1), params)
+    feed = Prefetcher(producer, 0, depth=2, device=device)
+    for step in range(CKPT_STEPS):
+        state, m = trainer.train_step(state, next(feed))
+        if step + 1 == CKPT_AT:
+            extra = gdc_extra(trainer, state)
+            t0 = time.perf_counter()
+            writer = ckpt.save(state, fcn_dir, CKPT_AT, asynchronous=True,
+                               extra=extra)
+            snap_s = time.perf_counter() - t0
+            saved = tree_map(lambda t: t.detach().cpu().clone(), state)
+    feed.close()
+    writer.join(timeout=120)
+    check(not writer.is_alive(), "asynchronous save did not finish")
+    print(f"ckpt: fcn run A {CKPT_STEPS} steps, loss {float(m['loss']):.4f}; "
+          f"async save at step {CKPT_AT} returned after {snap_s * 1e3:.1f} ms "
+          f"(host snapshot), {len(extra['gdc_signatures'])} GDC signatures")
+
+    trainer_b = fcn_trainer("fused", preset="pcm_gst")
+    template = trainer_b.abstract_state(spec_tree(params, device), device)
+    restored = ckpt.restore(template, fcn_dir, CKPT_AT, verify=True)
+    n = leaves_equal(restored, saved, "restore of step 5")
+    print(f"ckpt: restore of step {CKPT_AT} into abstract_state(device="
+          f"{device!r}) with verify=True: {n} leaves bit-equal to the saved "
+          f"state")
+    resumed = restored
+    feed = Prefetcher(producer, CKPT_AT, depth=2, device=device)
+    ops.reset_launch_counts()
+    for _ in range(CKPT_AT, CKPT_STEPS):
+        resumed, _ = trainer_b.train_step(resumed, next(feed))
+    launches = ops.LAUNCHES["analog_update"]
+    feed.close()
+    per_step = launches / (CKPT_STEPS - CKPT_AT)
+    check(launches == 6 * (CKPT_STEPS - CKPT_AT),
+          f"resumed steps launched the kernel {launches} times")
+    n = leaves_equal(resumed, state, "resumed run B against run A")
+    print(f"ckpt: run B (steps {CKPT_AT + 1}-{CKPT_STEPS} from the restore) "
+          f"bit-equal to run A on all {n} leaves (W, P, Qd, Qt, H, device "
+          f"parameters, opt, key, step); kernel launches {launches} "
+          f"({per_step:g} per step)")
+    on_cpu = ckpt.restore(trainer_b.abstract_state(spec_tree(params, "cpu"),
+                                                   "cpu"),
+                          fcn_dir, CKPT_AT, verify=True)
+    check(all(v.device.type == "cpu" for _, v in flatten_with_path(on_cpu)),
+          "CPU-template restore left the host")
+    n = leaves_equal(on_cpu, saved, "CPU-template restore")
+    print(f"ckpt: restore of step {CKPT_AT} into a CPU template: {n} leaves "
+          f"bit-equal to the card's saved arrays")
+    sig0 = ckpt.read_manifest(fcn_dir, CKPT_AT)["gdc_signatures"]
+    check(sig0 == extra["gdc_signatures"], "manifest signatures changed")
+    # phase 9 reads the restore that run B started from: the step writes
+    # out of place, which this holds (ROADMAP item 17 plans in-place updates)
+    leaves_equal(restored, saved, "restore of step 5 after run B")
+
+    lm_ckpt(device, os.path.join(root, "lm"))
+    return trainer_b, restored, sig0
+
+
+def lm_ckpt(device, directory: str):
+    """Save and restore rates of a tile state at LM scale: LM_TILES
+    full-width Qwen2-0.5B mlp/wi tiles."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.device import PRESETS
+    from repro_torch.core.digital_opt import DigitalOptConfig, ScheduleConfig
+    from repro_torch.core.paths import leaves
+    from repro_torch.core.plan import AnalogPlan, TilePolicy
+    from repro_torch.core.tile import TileConfig
+    from repro_torch.core.trainer import AnalogTrainer, TrainerConfig
+
+    dev = PRESETS["pcm_gst"]
+    tile = TileConfig(algorithm="erider", device_p=dev, device_w=dev,
+                      update_backend="fused", metrics="none")
+    trainer = AnalogTrainer(
+        lambda p, b, r: (sum(torch.sum(w * w) for w in leaves(p)), {}),
+        TrainerConfig(digital=DigitalOptConfig(kind="sgd"),
+                      schedule=ScheduleConfig(kind="constant", base_lr=0.01)),
+        plan=AnalogPlan.of(("**/mlp/wi", TilePolicy(tile, name="erider"))))
+    ks = prng.split(prng.PRNGKey(3), LM_TILES)
+    params = {"blocks": [{"mlp": {"wi": 0.02 * prng.normal(ks[i], LM_SHAPE,
+                                                           device)}}
+                         for i in range(LM_TILES)]}
+    state = trainer.init(prng.PRNGKey(4), params)
+    state, _ = trainer.train_step(state, None)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(state, directory, 1)
+    save_s = time.perf_counter() - t0
+    manifest = ckpt.read_manifest(directory, 1)
+    nbytes = sum(math.prod(m["shape"]) * (2 if m["dtype"] == "bfloat16" else
+                                          np.dtype(m["dtype"]).itemsize)
+                 for m in manifest["arrays"].values())
+    chunks = sorted({m["file"] for m in manifest["arrays"].values()})
+    template = trainer.abstract_state(spec_tree(params, device), device)
+    t0 = time.perf_counter()
+    restored = ckpt.restore(template, directory, 1, verify=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n = leaves_equal(restored, state, "LM-scale restore")
+    check(len(chunks) >= 2, f"LM-scale state took {len(chunks)} chunk(s)")
+    card = smi_line() if device == "cuda" else "cpu"
+    print(f"ckpt: {LM_TILES} x {LM_SHAPE} E-RIDER tiles, {n} leaves, "
+          f"{nbytes} bytes "
+          f"in {len(chunks)} chunks: sync save {save_s:.3f} s "
+          f"({nbytes / save_s / 1e6:.1f} MB/s), restore with verify=True "
+          f"{restore_s:.3f} s ({nbytes / restore_s / 1e6:.1f} MB/s), "
+          f"bit-equal; on {card}")
+
+
+def phase_lifetime(device, trainer, restored, sig0):
+    """Age and drift-compensate the effective weights restored in phase 8."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.paths import flatten_with_path, tree_map
+    from repro_torch.core.trainer import merge_effective
+    from repro_torch.lifetime import (age_params, correct_params,
+                                      lifetime_cfg_map)
+
+    eff = merge_effective(restored["params"], restored["tiles"],
+                          trainer.cfg.tile)
+    cfg_map = lifetime_cfg_map(eff, restored["tiles"],
+                               trainer.cfg.tile.device_w)
+    check(sorted(cfg_map) == sorted(sig0), "analog paths != signature paths")
+    key = prng.PRNGKey(LIFETIME_KEY_SEED)
+    leaves_equal(age_params(eff, cfg_map, 0.0, key), eff, "age 0")
+    corr0, alpha0 = correct_params(eff, sig0)
+    check(all(a == 1.0 for a in alpha0.values()),
+          f"alpha at t0 is not exactly 1: {alpha0}")
+    leaves_equal(corr0, eff, "GDC at t0")
+    print(f"lifetime: age 0 bit-exact; GDC against the manifest's "
+          f"{len(sig0)} signatures: alpha == 1.0 exactly, weights bit-equal")
+    # the card's signatures checked on the CPU: another summation order
+    _, alpha_cpu = correct_params(tree_map(lambda t: t.cpu(), eff), sig0)
+    off = max(abs(a - 1.0) for a in alpha_cpu.values())
+    check(off <= GDC_CROSS_TOL, f"CPU alpha against the card's signatures "
+          f"off 1 by {off}")
+    print(f"lifetime: the card's t0 signatures checked on the CPU: "
+          f"max |alpha - 1| = {off:.3g} (gate {GDC_CROSS_TOL})")
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aged = age_params(eff, cfg_map, YEAR_S, key)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    age_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    corr, alpha = correct_params(aged, sig0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    gdc_ms = (time.perf_counter() - t0) * 1e3
+    flat = dict(flatten_with_path(eff))
+    aged_flat, corr_flat = dict(flatten_with_path(aged)), \
+        dict(flatten_with_path(corr))
+    for p in sorted(cfg_map):
+        w0, wa, wc = flat[p], aged_flat[p], corr_flat[p]
+        norm = torch.linalg.vector_norm(w0).item()
+        raw = torch.linalg.vector_norm(wa - w0).item() / norm
+        gdc = torch.linalg.vector_norm(wc - w0).item() / norm
+        print(f"lifetime: {p} at one year: alpha {alpha[p]:.6f}, relative "
+              f"error to t0 {raw:.4f} raw, {gdc:.4f} after GDC")
+        check(not torch.equal(wa, w0), f"{p} did not drift")
+        check(alpha[p] > 1.0, f"{p} alpha {alpha[p]} <= 1")
+        check(gdc < raw, f"GDC did not lower the error of {p}")
+    # the same inputs on the CPU
+    aged_cpu = age_params(tree_map(lambda t: t.cpu(), eff), cfg_map, YEAR_S, key)
+    cpu_flat = dict(flatten_with_path(aged_cpu))
+    worst = 0.0
+    for p, wa in flatten_with_path(aged):
+        want = cpu_flat[p]
+        got = wa.cpu()
+        amax = flat[p].abs().max().item()
+        excess = ((got - want).abs() - AGE_RTOL * want.abs()).max().item()
+        worst = max(worst, excess / amax)
+        check(excess <= AGE_ATOL * amax,
+              f"{p}: card's aged weights off the CPU run")
+    print(f"lifetime: one year, card against CPU: within rtol {AGE_RTOL} + "
+          f"{AGE_ATOL} * amax|w| (largest excess over rtol {worst:.3g} amax); "
+          f"age_params {age_ms:.2f} ms, correct_params {gdc_ms:.2f} ms "
+          f"(host clock, synchronized)")
+
+
 def main() -> int:
     import torch
 
@@ -667,6 +937,13 @@ def main() -> int:
         n, med = phase_fcn(device, backend)
         launches += n
         print(f"fcn[{backend}]: {med:.2f} ms/step on {card}")
+    root = os.path.join(ROOT, "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        trainer, restored, sig0 = phase_ckpt(device, root)
+        phase_lifetime(device, trainer, restored, sig0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kern["launches"] = launches
     print(json.dumps({"kernels": [

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import prng
-from ..core.device import DeviceConfig
+from ..core.device import PRESETS, DeviceConfig
 from ..core.digital_opt import DigitalOptConfig, ScheduleConfig
 from ..core.plan import AnalogPlan, TilePolicy
 from ..core.tile import TileConfig
@@ -26,9 +26,10 @@ ERIDER_HP = dict(grad_norm="absmean", buffered_transfer=True, lr_p=5.0,
                  lr_w=0.2, gamma=0.1, eta=0.05, chopper_p=0.1)
 
 
-def fcn_trainer(backend: str) -> AnalogTrainer:
-    """The FCN's E-RIDER trainer under ``update_backend=backend``."""
-    dev = DeviceConfig(**FCN_DEVICE)
+def fcn_trainer(backend: str, preset: str = "") -> AnalogTrainer:
+    """The FCN's E-RIDER trainer under ``update_backend=backend``, on the
+    benchmark's devices or on the named ``PRESETS`` entry."""
+    dev = PRESETS[preset] if preset else DeviceConfig(**FCN_DEVICE)
     tile = TileConfig(algorithm="erider", device_p=dev, device_w=dev,
                       update_backend=backend, **ERIDER_HP)
     return AnalogTrainer(

@@ -18,9 +18,7 @@ import torch
 
 from .core.plan import TilePolicy, policy_from_json
 from .core.tile import TileBank, TileState
-from .core.trainer import TrainState
-
-_HOST_KEYS = ("seed_w", "seed_p")
+from .core.trainer import HOST_LEAVES, TrainState
 
 
 def tensor(x, device="cuda") -> torch.Tensor:
@@ -45,7 +43,7 @@ def params(tree, device="cuda"):
 def tile_state(d: Dict[str, Any], device="cuda") -> TileState:
     return TileState(
         (k, None if v is None else
-         params(v, "cpu" if k in _HOST_KEYS else device))
+         params(v, "cpu" if k in HOST_LEAVES else device))
         for k, v in d.items())
 
 

@@ -22,6 +22,7 @@ import torch
 from .. import prng
 from ..kernels import fastrng
 from ..kernels import ref as kref
+from .paths import TensorSpec
 
 DeviceParams = Dict[str, torch.Tensor]
 
@@ -139,6 +140,12 @@ def sample_device(key, shape, cfg: DeviceConfig, method: str = "threefry",
                + w_star * (cfg.tau_min - cfg.tau_max))
         rho = _clip_pm(num / den, gamma)
     return {"gamma": gamma, "rho": rho}
+
+
+def abstract_device(shape, dtype=torch.float32, device="cuda") -> DeviceParams:
+    """TensorSpec stand-in of ``sample_device``'s result (no allocation)."""
+    s = TensorSpec(tuple(shape), dtype, device)
+    return {"gamma": s, "rho": s}
 
 
 # ---------------------------------------------------------------------------

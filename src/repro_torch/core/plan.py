@@ -233,6 +233,12 @@ def policy_from_json(d: dict) -> TilePolicy:
 _LEGACY_WARNED = False
 
 
+def _reset_legacy_warning() -> None:
+    """Test hook: re-arm the one-time deprecation warning."""
+    global _LEGACY_WARNED
+    _LEGACY_WARNED = False
+
+
 def legacy_plan(tile: TileConfig, analog_filter) -> AnalogPlan:
     """Map the deprecated ``(cfg.tile, analog_filter)`` pair onto a one-rule
     plan, warning once per process."""

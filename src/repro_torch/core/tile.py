@@ -25,8 +25,8 @@ import torch
 
 from .. import prng
 from ..kernels import ref as kref
-from .device import PRESETS, DeviceConfig, sample_device
-from .paths import flatten_with_path, structure, tree_map
+from .device import PRESETS, DeviceConfig, abstract_device, sample_device
+from .paths import TensorSpec, flatten_with_path, structure, tree_map
 
 ALGORITHMS = ("sgd", "ttv1", "ttv2", "agad", "residual", "rider", "erider")
 
@@ -144,6 +144,35 @@ def init_tile(key, w0: torch.Tensor, cfg: TileConfig,
     return st
 
 
+def abstract_tile(shape, cfg: TileConfig, device="cuda") -> TileState:
+    """TensorSpec skeleton of a tile on ``device`` (a restore template; no
+    allocation). Seeds are host leaves, as ``init_tile`` makes them."""
+    need = _needs(cfg.algorithm, cfg.buffered_transfer)
+    shape = tuple(shape)
+    dt = cfg.state_dtype
+
+    def arr(dtype=dt, s=shape):
+        return TensorSpec(s, dtype, device)
+
+    seed = TensorSpec((2,), torch.int64, "cpu")
+    return TileState(
+        W=arr(),
+        t=arr(torch.int32, ()),
+        scale=arr(torch.float32, ()),
+        dev_w=abstract_device(shape, dt, device) if cfg.store_device else None,
+        seed_w=None if cfg.store_device else seed,
+        P=arr() if need["P"] else None,
+        Qd=arr() if need["Qd"] else None,
+        Qt=arr() if need["Qt"] else None,
+        H=arr(torch.float32) if need["H"] else None,
+        c=arr(torch.float32, ()) if need["chopper"] else None,
+        prog=arr(torch.int32, ()) if cfg.algorithm == "erider" else None,
+        dev_p=(abstract_device(shape, dt, device)
+               if (need["dev_p"] and cfg.store_device) else None),
+        seed_p=(None if (cfg.store_device or not need["dev_p"]) else seed),
+    )
+
+
 def expected_pulses(dw, dw_min: float, bl: int = 0):
     """Expected pulse count of an update (telemetry for Fig. 4)."""
     n = kref.div(torch.abs(dw.to(torch.float32)), dw_min)
@@ -212,15 +241,22 @@ def class_partition(groups: Dict[str, TileState], index, policies=None):
 
 def _stack_states(states):
     """Stack same-structure states along a new leading axis (a view for a
-    singleton)."""
-    if len(states) == 1:
-        return tree_map(lambda leaf: leaf.unsqueeze(0), states[0])
-    return tree_map(lambda *ls: torch.stack(ls), *states)
+    singleton); TensorSpec leaves stack to a spec."""
+    def stk(*ls):
+        if isinstance(ls[0], TensorSpec):
+            return TensorSpec((len(ls),) + ls[0].shape, ls[0].dtype,
+                              ls[0].device)
+        return ls[0].unsqueeze(0) if len(ls) == 1 else torch.stack(ls)
+    return tree_map(stk, *states)
 
 
 def _class_member(state, ci: int):
     """Member group ``ci`` of a class stack (a view)."""
-    return tree_map(lambda leaf: leaf[ci], state)
+    def sl(leaf):
+        if isinstance(leaf, TensorSpec):
+            return TensorSpec(leaf.shape[1:], leaf.dtype, leaf.device)
+        return leaf[ci]
+    return tree_map(sl, state)
 
 
 class TileBank:
@@ -297,6 +333,15 @@ class TileBank:
         cname, ci = self._class_of[g]
         return tree_map(lambda leaf: leaf[ci, i], self.classes[cname])
 
+    # -- tree walking (``core.paths``): class stacks in class_index order,
+    # as the JAX package flattens a TileBank ---------------------------------
+    def tree_children(self):
+        return [(c, self.classes[c]) for c, _ in self.class_index]
+
+    def tree_rebuild(self, classes) -> "TileBank":
+        return TileBank.from_classes(classes, self.index, self.class_index,
+                                     self.policies)
+
     def __repr__(self):
         return (f"TileBank({len(self._where)} tiles in "
                 f"{len(self._class_of)} groups / {len(self.classes)} "
@@ -335,6 +380,12 @@ def group_policies(index, policies) -> Optional[Dict[str, Any]]:
     if not policies:
         return None
     return {g: policies[paths[0]] for g, paths in index}
+
+
+def abstract_tile_group(shape, n: int, cfg: TileConfig, device="cuda") -> TileState:
+    """TensorSpec skeleton of an ``n``-tile stacked group."""
+    return tree_map(lambda s: TensorSpec((n,) + s.shape, s.dtype, s.device),
+                    abstract_tile(shape, cfg, device))
 
 
 def stack_tiles(per_tile: Dict[str, TileState], index, policies=None) -> TileBank:

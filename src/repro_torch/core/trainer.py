@@ -33,12 +33,17 @@ import torch
 from .. import prng
 from . import algorithms as alg
 from .digital_opt import DigitalOptConfig, ScheduleConfig, apply_opt, init_opt, lr_at
-from .paths import flatten_with_path, tree_map, tree_map_with_path
+from .paths import TensorSpec, flatten_with_path, tree_map, tree_map_with_path
 from .plan import AnalogPlan, TilePolicy, legacy_plan, plan_partition
-from .tile import (TileBank, TileConfig, _class_member, group_policies,
-                   group_tiles, init_tile, stack_tiles)
+from .tile import (TileBank, TileConfig, _class_member, abstract_tile,
+                   abstract_tile_group, group_policies, group_tiles,
+                   init_tile, stack_tiles)
 
 logger = logging.getLogger("repro_torch.plan")
+
+# leaf names the port keeps on the host: the step counter, the key and the
+# tile seeds (key data, see ``prng``)
+HOST_LEAVES = ("key", "step", "seed_p", "seed_w")
 
 
 def _crc_fold(key, name: str):
@@ -72,6 +77,16 @@ def default_analog_filter(path: str, leaf) -> bool:
         return False
     lowered = path.lower()
     return not any(s in lowered for s in ("embed", "vocab", "lm_head", "pos"))
+
+
+def partition_params(params, analog_filter: PathPredicate):
+    """Split a param tree into (digital tree with None at analog slots,
+    {path: leaf} analog dict)."""
+    analog = {p: leaf for p, leaf in flatten_with_path(params)
+              if analog_filter(p, leaf)}
+    digital = tree_map_with_path(
+        lambda p, leaf: None if p in analog else leaf, params)
+    return digital, analog
 
 
 def _group_tile_cfg(bank: TileBank, group: str, default: TileConfig) -> TileConfig:
@@ -270,6 +285,45 @@ class AnalogTrainer:
             params=digital,
             tiles=tiles,
             opt=init_opt(digital, self.cfg.digital),
+        )
+
+    def abstract_state(self, params_shapes, device="cuda") -> TrainState:
+        """TensorSpec state on ``device`` (a restore template; allocates
+        nothing). ``params_shapes`` is a tree of TensorSpecs or tensors;
+        the step counter, key and tile seeds are host leaves, as ``init``
+        makes them."""
+        specs = tree_map(
+            lambda leaf: TensorSpec(tuple(leaf.shape), leaf.dtype, device),
+            params_shapes)
+        digital, analog, policies = plan_partition(specs, self.plan)
+        self._remember_path_cfgs(analog, policies)
+        if self.cfg.engine == "grouped":
+            index = group_tiles({p: w.shape for p, w in analog.items()},
+                                self.cfg.tile, policies)
+            pols = group_policies(index, policies)
+            tiles = TileBank(
+                {g: abstract_tile_group(
+                    analog[paths[0]].shape, len(paths),
+                    (pols or {}).get(g, TilePolicy(self.cfg.tile)).tile,
+                    device)
+                 for g, paths in index},
+                index, pols)
+        else:
+            tiles = {p: abstract_tile(w.shape,
+                                      policies[p].tile or self.cfg.tile, device)
+                     for p, w in sorted(analog.items())}
+        # init_opt on allocation-free meta tensors gives the opt structure
+        meta = init_opt(tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                       device="meta"), digital),
+                        self.cfg.digital)
+        opt = tree_map(lambda m: TensorSpec(tuple(m.shape), m.dtype, device),
+                       meta)
+        return TrainState(
+            step=TensorSpec((), torch.int32, "cpu"),
+            key=TensorSpec((2,), torch.int64, "cpu"),
+            params=digital,
+            tiles=tiles,
+            opt=opt,
         )
 
     # -- step -------------------------------------------------------------

@@ -1,9 +1,13 @@
-"""Deterministic procedural image data (MNIST stand-in), numpy only.
+"""Deterministic synthetic datasets, numpy only.
 
-A copy of ``procedural_images`` and ``ImageDataset`` from the JAX package's
-``data/synthetic.py`` (the port imports nothing of that package): per-class
-smooth prototypes + structured noise + random +-1 px shifts, the same bytes
-from the same seeds.
+A copy of the JAX package's ``data/synthetic.py`` (the port imports nothing
+of that package), the same bytes from the same seeds:
+
+* ``BigramLM``: token streams from a fixed random bigram table (top-8
+  successors per token), deterministic in (seed, step), so host h of H can
+  slice its rows of the same global batch;
+* ``procedural_images`` / ``ImageDataset``: the MNIST stand-in, per-class
+  smooth prototypes + structured noise + random +-1 px shifts.
 """
 from __future__ import annotations
 
@@ -11,6 +15,28 @@ import dataclasses
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class BigramLM:
+    vocab: int
+    seed: int = 0
+    concentration: float = 0.3  # lower -> peakier transitions (more learnable)
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        logits = rng.gumbel(size=(self.vocab, self.vocab)) / self.concentration
+        top = np.argsort(-logits, axis=1)[:, :8]
+        self._succ = top.astype(np.int32)
+
+    def batch(self, step: int, batch: int, seq_len: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        toks = np.empty((batch, seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=batch)
+        choices = rng.integers(0, 8, size=(batch, seq_len))
+        for t in range(seq_len):
+            toks[:, t + 1] = self._succ[toks[:, t], choices[:, t]]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def procedural_images(n: int, *, n_classes: int = 10, size: int = 28,

@@ -4,6 +4,9 @@
   example, imports ``jax`` or the ``repro`` package (AST scan).
 * The port's config dataclasses carry the reference's field names and
   defaults (dtypes compared by name), and its rule tables are the same.
+* The on-disk and stream constants are the reference's: the checkpoint
+  chunk size, the lifetime RNG salts, and GDC's row-block count,
+  reference-input salt and seed.
 * ``chip_smoke.py`` refuses to run without a card: non-zero exit, no
   result line.
 """
@@ -70,6 +73,7 @@ def _defaults(cls):
     "core.trainer.TrainerConfig", "core.digital_opt.DigitalOptConfig",
     "core.digital_opt.ScheduleConfig", "models.convnets.ConvNetConfig",
     "core.plan.TilePolicy", "core.plan.AnalogPlan",
+    "data.synthetic.BigramLM",
 ])
 def test_config_fields_and_defaults_match_reference(name):
     mod, cls = name.rsplit(".", 1)
@@ -77,6 +81,19 @@ def test_config_fields_and_defaults_match_reference(name):
     port = getattr(importlib.import_module("repro_torch." + mod), cls)
     assert _defaults(port) == _defaults(ref)
     assert list(_defaults(port)) == list(_defaults(ref))  # same field order
+
+
+@pytest.mark.parametrize("name", [
+    "checkpoint.ckpt._CHUNK_BYTES", "lifetime.drift.SALT_NU",
+    "lifetime.drift.SALT_READ", "lifetime.drift.SALT_PROG",
+    "lifetime.drift.SALT_VERIFY", "lifetime.gdc.GDC_CHUNKS",
+    "lifetime.gdc.SALT_REF", "lifetime.gdc._REF_SEED",
+])
+def test_format_constants_match_reference(name):
+    mod, const = name.rsplit(".", 1)
+    ref = getattr(importlib.import_module("repro." + mod), const)
+    port = getattr(importlib.import_module("repro_torch." + mod), const)
+    assert np.array_equal(np.asarray(port, np.int64), np.asarray(ref, np.int64))
 
 
 def test_rule_tables_and_policy_tags_match_reference():
