@@ -9,9 +9,11 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels  each kernel's wrapper (the call the trainer makes) against
               its plain PyTorch version on the card, at the listed shapes
               and at every shape of the main path, under both RNG modes
-              (analog_update: f32 bit-equal), and the kernel's time beside
-              the plain version's and its memory bound, at the FCN's fc1
-              tile and at (896, 4864), past the 50 MB L2
+              (analog_update: f32 bit-equal), the LM path's six stacked
+              bf16 tile shapes up to (24, 896, 4864) with float32 dw and
+              hash noise (bit-equal), and the kernel's time beside the
+              plain version's and its memory bound, at the FCN's fc1 tile
+              and at (896, 4864), past the 50 MB L2
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -55,6 +57,18 @@ Phases, each printing its own lines; any failure exits non-zero:
               drifted, every alpha > 1 and GDC lowers the error to the t0
               weights; the card's aged weights agree with the port's CPU
               run within rtol 4e-6 + 1e-6 * amax|w|
+ 10. lm       the training CLI in process (``repro_torch.launch.train.main``):
+              (a) Qwen2-0.5B at full width and depth, batch 8, seq 128,
+              E-RIDER, the non-smoke tile config (bf16 state, hash noise),
+              the bigram stream over 8192 token ids, 8 steps: finite loss
+              and sp_err at every step, the loss falling, 2 kernel
+              launches per analog path per step; prints the median step
+              time, the peak allocated memory and the tile state's bytes;
+              (b) the smoke config's first 3 steps on the
+              card against the port's CPU run, with the smoke tile config
+              (f32, threefry) and with the non-smoke one (bf16, hash); (c) a
+              restart from the CLI's step-6 checkpoint, bit-equal to the
+              unbroken 8-step run, its manifest carrying the GDC signatures
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -134,15 +148,16 @@ def time_ms(fn, reps: int = 20, rounds: int = 15):
     return median_of(graph.replay), median_of(eager)
 
 
-def update_operands(shape, dtype, seed: int, device):
-    """Random w, dw, gamma, rho of the pulse update, drawn on the card."""
+def update_operands(shape, dtype, seed: int, device, dw_dtype=None):
+    """Random w, dw, gamma, rho of the pulse update, drawn on the card
+    (``dw`` in ``dw_dtype``, default ``dtype``)."""
     import torch
 
     from repro_torch import prng
 
     ks = prng.split(prng.PRNGKey(seed), 4)
     w = prng.uniform(ks[0], shape, -0.8, 0.8, device).to(dtype)
-    dw = (0.05 * prng.normal(ks[1], shape, device)).to(dtype)
+    dw = (0.05 * prng.normal(ks[1], shape, device)).to(dw_dtype or dtype)
     gamma = torch.exp(0.1 * prng.normal(ks[2], shape, device))
     rho = 0.3 * prng.normal(ks[3], shape, device)
     return w, dw, gamma, rho
@@ -155,6 +170,14 @@ def update_operands(shape, dtype, seed: int, device):
 SWEEP_SHAPES = [(8, 128), (300, 700), (512, 1024), (4, 300, 700)]
 MAIN_PATH_SHAPES = [(32, 32), (784, 256), (256, 128), (128, 10),
                     (1, 784, 256), (1, 256, 128), (1, 128, 10)]
+# Phase 10's path: Qwen2-0.5B at full width and depth
+# (src/repro/configs/qwen2_0_5b.py: 24 layers, d_model 896, 14 heads (2 KV)
+# x 64, d_ff 4864) trained by the CLI (update_backend="vmap"), which hands
+# the wrapper each analog path's whole stacked leaf: bfloat16 w (the
+# non-smoke tile state), float32 dw, hash noise. wq/wo, wk/wv, wi/wg,
+# mlp/wo, then the 2-D stacks bq/ln1/ln2 and bk/bv.
+LM_PATH_SHAPES = [(24, 896, 896), (24, 896, 128), (24, 896, 4864),
+                  (24, 4864, 896), (24, 896), (24, 128)]
 
 
 def phase_kernels(device):
@@ -175,9 +198,13 @@ def phase_kernels(device):
              for rng in ("threefry", "hash")]
     cases += [(s, torch.float32, bl, rng) for s in MAIN_PATH_SHAPES
               for bl in (0, 10) for rng in ("threefry", "hash")]
+    lm_cases = len(cases)
+    cases += [(s, torch.bfloat16, 0, "hash") for s in LM_PATH_SHAPES]
     max_err_f32 = 0.0
     for i, (shape, dtype, bl, rng) in enumerate(cases):
-        w, dw, gamma, rho = update_operands(shape, dtype, 7 + i, device)
+        lm = i >= lm_cases
+        w, dw, gamma, rho = update_operands(
+            shape, dtype, 7 + i, device, torch.float32 if lm else None)
         noise = ops.make_noise(prng.PRNGKey(100 + i), shape, device, rng)
         before = ops.LAUNCHES["analog_update"]
         got = ops.analog_update(w, dw, gamma, rho, None, noise=noise, bl=bl,
@@ -191,30 +218,43 @@ def phase_kernels(device):
         err = (got.float() - want.float()).abs().max().item()
         same = torch.equal(got, want)
         print(f"kernels: analog_update {shape} "
-              f"{str(dtype).replace('torch.', '')} bl={bl} {rng}: "
+              f"{str(dtype).replace('torch.', '')}"
+              f"{' (dw float32)' if lm else ''} bl={bl} {rng}: "
               f"bit-equal={same} max_abs_diff={err:.3g}")
-        if dtype == torch.float32:
+        if lm:  # the LM path's tiles: the same f32 math, the same RN cast
+            check(same, f"bf16 kernel differs from plain at LM tile {shape}")
+        elif dtype == torch.float32:
             check(same, f"f32 kernel differs from plain at {shape} bl={bl} "
                         f"{rng}")
             max_err_f32 = max(max_err_f32, err)
         else:  # same f32 math, one round-to-nearest cast
             check(err <= 2.0 ** -7, f"bf16 kernel off by {err}")
+        del w, dw, gamma, rho, noise, got, want
     print(f"kernels: {len(cases)} wrapper calls checked, f32 max abs diff "
-          f"{max_err_f32:.3g}")
+          f"{max_err_f32:.3g}; the LM path's {len(LM_PATH_SHAPES)} bf16 tile "
+          f"shapes bit-equal")
 
-    def timed(shape):
-        """The kernel alone (its binding, int32 bits) and the plain version."""
-        w, dw, gamma, rho = update_operands(shape, torch.float32, 9, device)
+    def timed(shape, dtype=torch.float32, reps=20, rounds=15):
+        """The kernel alone (its binding, int32 bits) and the plain version,
+        ``w`` in ``dtype`` and float32 ``dw``, as on the trainer's path."""
+        w, dw, gamma, rho = update_operands(shape, dtype, 9, device,
+                                            torch.float32)
         ku, kz = prng.split(prng.PRNGKey(9))
         ops_ = (w, dw, gamma, rho,
                 prng.bits(ku, shape, device).to(torch.int32),
                 prng.normal(kz, shape, device))
-        k, k_call = time_ms(lambda: analog_update_cuda(*ops_, bl=10, **kw))
-        p, p_call = time_ms(lambda: ref.analog_update_ref(*ops_, bl=10, **kw))
+        k, k_call = time_ms(lambda: analog_update_cuda(*ops_, bl=10, **kw),
+                            reps, rounds)
+        p, p_call = time_ms(lambda: ref.analog_update_ref(*ops_, bl=10, **kw),
+                            reps, rounds)
         n = math.prod(shape)
-        # 24 B read + 4 B written per element; ~30 flops per element
-        bound = max(28 * n / H100_BYTES_PER_S, 30 * n / H100_F32_FLOPS) * 1e3
-        print(f"kernels: analog_update {shape} f32 median device "
+        # w read and written, dw, gamma, rho, ubits and zeta read (28 B per
+        # float32 element, 24 with bf16 w); ~30 flops per element
+        wb = torch.finfo(dtype).bits // 8
+        bound = max((2 * wb + 20) * n / H100_BYTES_PER_S,
+                    30 * n / H100_F32_FLOPS) * 1e3
+        print(f"kernels: analog_update {shape} "
+              f"{str(dtype).replace('torch.', '')} median device "
               f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: "
               f"device {p * 1e3:.2f} us, per call {p_call * 1e3:.2f} us; "
               f"memory bound {bound * 1e3:.2f} us)")
@@ -225,10 +265,14 @@ def phase_kernels(device):
     k, p, bound = timed((784, 256))
     # past the L2: Qwen2-0.5B's MLP tile streams 122 MB from HBM a call
     k_lm, p_lm, bound_lm = timed((896, 4864))
+    # the LM path's largest launch: the stacked mlp/wi of all 24 layers
+    k_st, p_st, bound_st = timed(LM_PATH_SHAPES[2], torch.bfloat16, 3, 5)
     return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound,
                 shape=[784, 256],
                 beyond_l2=dict(ms=k_lm, plain_ms=p_lm, bound_ms=bound_lm,
-                               shape=[896, 4864]))
+                               shape=[896, 4864]),
+                lm_stack=dict(ms=k_st, plain_ms=p_st, bound_ms=bound_st,
+                              shape=list(LM_PATH_SHAPES[2]), dtype="bfloat16"))
 
 
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
@@ -660,19 +704,6 @@ AGE_RTOL, AGE_ATOL = 4e-6, 1e-6       # card vs CPU, atol in units of amax|w|
 GDC_CROSS_TOL = 1e-6                  # |alpha - 1| at t0 across devices
 
 
-def gdc_extra(trainer, state):
-    """Manifest ``extra`` of a training checkpoint: the GDC t0 signature of
-    every analog matrix of ``merge_effective``."""
-    from repro_torch.core.trainer import merge_effective
-    from repro_torch.lifetime import gdc
-
-    tiles = state["tiles"]
-    eff = merge_effective(state["params"], tiles, trainer.cfg.tile)
-    paths = sorted(p for _, ps in tiles.index for p in ps)
-    return {"gdc_signatures": {p: float(v) for p, v in
-                               gdc.signature_tree(eff, paths).items()}}
-
-
 def leaves_equal(a, b, label: str) -> int:
     """Every leaf of ``a`` bit-equal to ``b`` (same paths, dtypes; ``b`` may
     live on another device); returns the leaf count."""
@@ -704,6 +735,7 @@ def phase_ckpt(device, root: str):
     from repro_torch.core.paths import flatten_with_path, tree_map
     from repro_torch.data import ImageDataset, Prefetcher
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
     from repro_torch.models import convnets
 
     fcn_dir = os.path.join(root, "fcn")
@@ -721,7 +753,7 @@ def phase_ckpt(device, root: str):
     for step in range(CKPT_STEPS):
         state, m = trainer.train_step(state, next(feed))
         if step + 1 == CKPT_AT:
-            extra = gdc_extra(trainer, state)
+            extra = train.ckpt_extra(trainer, state)
             t0 = time.perf_counter()
             writer = ckpt.save(state, fcn_dir, CKPT_AT, asynchronous=True,
                                extra=extra)
@@ -904,6 +936,180 @@ def phase_lifetime(device, trainer, restored, sig0):
           f"(host clock, synchronized)")
 
 
+# Phase 10: the training CLI. (a) Qwen2-0.5B at full width and depth
+# (src/repro/configs/qwen2_0_5b.py) with the CLI's defaults: batch 8, seq
+# 128, E-RIDER, the non-smoke tile config (bfloat16 state, hash noise,
+# device parameters redrawn from seeds), tokens from the first 8192 ids.
+# (b) The smoke config on the card against the port's CPU run. (c) A
+# restart from the CLI's checkpoint.
+LM_STEPS = 8
+LM_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
+           "--algorithm", "erider", "--log-every", "1",
+           # the bigram stream's table is (V, V) float64 on the host:
+           # 185 GB at 151936 ids; the model keeps its full vocabulary
+           "--data-vocab", "8192"]
+LM_SMOKE_ARGV = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "4", "--seq",
+                 "64", "--log-every", "1"]
+LM_CHECK_STEPS = 3
+LM_PATHS = 12                 # analog paths of the plan (ln1/ln2/b* included)
+
+
+def run_cli(argv):
+    """``repro_torch.launch.train.main`` in this process; returns (state,
+    history, stdout). The signal handlers its PreemptionHandler installs
+    are put back afterwards."""
+    import contextlib
+    import io
+    import signal
+
+    from repro_torch.launch import train
+
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            state, hist = train.main(argv)
+    finally:
+        for s, h in saved.items():
+            signal.signal(s, h)
+        print(buf.getvalue(), end="")
+    return state, hist, buf.getvalue()
+
+
+def tile_state_bytes(state) -> int:
+    from repro_torch.core.paths import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(state["tiles"]))
+
+
+def phase_lm(device, card: str):
+    """(a): full width, full depth, through ``train.main``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    state, hist, _ = run_cli(LM_ARGV + ["--steps", str(LM_STEPS),
+                                        "--device", device])
+    launches = ops.LAUNCHES["analog_update"]
+    peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()   # the final state, held
+    bank = state["tiles"]
+    n_paths = sum(len(ps) for _, ps in bank.index)
+    shapes = sorted({tuple(st["W"].shape[2:]) for st in bank.classes.values()})
+    dtypes = {str(st["W"].dtype) for st in bank.classes.values()}
+    tbytes = tile_state_bytes(state)
+    del state
+    losses = [m["loss"] for m in hist]
+    check(len(hist) == LM_STEPS, f"lm logged {len(hist)} of {LM_STEPS} steps")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["tile/sp_err"])
+              for m in hist), "lm: non-finite loss or sp_err")
+    check(n_paths == LM_PATHS, f"lm plan has {n_paths} analog paths")
+    check(dtypes == {"torch.bfloat16"}, f"lm tile state dtypes {dtypes}")
+    med = statistics.median(m["step_s"] for m in hist[1:]) * 1e3
+    tail = statistics.mean(losses[-3:])
+    print(f"lm: qwen2-0.5b full width, {LM_STEPS} steps, loss {losses[0]:.4f} "
+          f"-> {tail:.4f} (mean of the last 3), kernel launches {launches} "
+          f"({launches / LM_STEPS:g} per step, {n_paths} analog paths), tile "
+          f"shapes {shapes}")
+    print(f"lm: median {med:.2f} ms/step (host clock, synchronized, first "
+          f"step dropped), peak allocated {peak / 2 ** 30:.3f} GiB "
+          f"({before / 2 ** 30:.3f} GiB before, {resident / 2 ** 30:.3f} GiB "
+          f"held by the final state), tile state {tbytes} bytes, on {card}")
+    check(launches == 2 * n_paths * LM_STEPS,
+          f"lm launches {launches} != {2 * n_paths * LM_STEPS}")
+    check(tail < losses[0], "lm loss did not fall")
+    return dict(launches=launches, step_ms=med, peak_bytes=peak,
+                tile_bytes=tbytes)
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+
+    x = torch.clamp_min(x.abs(), 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def lm_against_cpu(tiles: str):
+    """(b): the smoke config's first steps on the card against the port's CPU
+    run from the same seeds (the plain path, held to the JAX package by the
+    CPU tests). Loss within rtol 1e-5 and the digital embedding within
+    rtol 1e-5 (the FCN phase's float32 tolerances). Tile state (W, P, Qd,
+    Qt): float32 ("smoke" tiles) within 1e-5 on all but at most 0.1 % of
+    the elements (flipped stochastic-rounding pulses); bfloat16 ("full"
+    tiles) bit-equal on all but at most 0.1 % of the elements, each of
+    those off by at most one pulse (2 * dw_min; the response is below 2) or
+    one bfloat16 ULP."""
+    import numpy as np
+    import torch
+
+    argv = LM_SMOKE_ARGV + ["--steps", str(LM_CHECK_STEPS), "--tiles", tiles]
+    card, card_hist, _ = run_cli(argv + ["--device", "cuda"])
+    cpu, cpu_hist, _ = run_cli(argv + ["--device", "cpu"])
+    for i, (g, w) in enumerate(zip(card_hist, cpu_hist)):
+        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        print(f"lm[{tiles}]: step {i} loss card {g['loss']:.7g} vs cpu "
+              f"{w['loss']:.7g} (rel {rel:.2e})")
+        check(rel <= 1e-5, f"lm[{tiles}] step {i} loss off the CPU run")
+    dw_min = 2e-4 if tiles == "smoke" else 1e-4
+    for c, want_st in cpu["tiles"].classes.items():
+        counts = []
+        for leaf in ("W", "P", "Qd", "Qt"):
+            got = card["tiles"].classes[c][leaf].cpu()
+            want = want_st[leaf]
+            check(got.dtype == want.dtype, f"lm[{tiles}] {c}/{leaf} dtype")
+            diff = (got.float() - want.float()).abs()
+            if tiles == "smoke":
+                off = diff > 1e-5
+            else:
+                off = diff > 0
+                lim = torch.maximum(bf16_ulp(torch.maximum(got.float().abs(),
+                                                           want.float().abs())),
+                                    torch.full_like(diff, 2 * dw_min))
+                check(bool((diff <= lim).all()),
+                      f"lm[{tiles}] {c}/{leaf} off by more than a pulse")
+            counts.append(f"{leaf} {int(off.sum())} (max {diff.max().item():.3g})")
+            check(off.float().mean().item() <= 1e-3,
+                  f"lm[{tiles}] {c}/{leaf} off the CPU run")
+        print(f"lm[{tiles}]: {c} ({want_st['W'][0, 0].numel()} elements a "
+              f"member) after {LM_CHECK_STEPS} steps, elements off the CPU "
+              f"run: {', '.join(counts)}")
+    np.testing.assert_allclose(card["params"]["embed"].float().cpu().numpy(),
+                               cpu["params"]["embed"].float().numpy(),
+                               rtol=1e-5, atol=1e-7, err_msg=f"lm[{tiles}] embed")
+
+
+def lm_restart(root: str):
+    """(c): run A trains 8 steps with checkpoints every 3 (async at 3 and 6,
+    the last at 8); the run is then cut after its step-6 checkpoint (step 8
+    removed) and run B restarts from the same directory. The cosine
+    schedule spans --steps, so the unbroken run B must equal is an 8-step
+    run: run A."""
+    from repro_torch.checkpoint import ckpt
+
+    argv = LM_SMOKE_ARGV + ["--ckpt-dir", root, "--device", "cuda",
+                            "--steps", "8"]
+    state_a, _, _ = run_cli(argv + ["--ckpt-every", "3"])
+    check(ckpt.latest_step(root) == 8, "run A did not save step 8")
+    sigs = ckpt.read_manifest(root, 6).get("gdc_signatures", {})
+    paths = sorted(p for _, ps in state_a["tiles"].index for p in ps)
+    check(sorted(sigs) == paths, "step 6 manifest lacks gdc_signatures")
+    shutil.rmtree(os.path.join(root, "step_000000008"))
+    state_b, hist_b, out = run_cli(argv)
+    check("restored checkpoint at step 6" in out, "run B did not restore 6")
+    check([m["step"] for m in hist_b] == [6, 7], "run B steps")
+    n = leaves_equal(state_b, state_a, "lm restart against the unbroken run")
+    print(f"lm: restart from the step-6 checkpoint ({len(sigs)} GDC "
+          f"signatures in its manifest): steps 6-7 bit-equal to the unbroken "
+          f"8-step run on all {n} leaves")
+
+
+
 def main() -> int:
     import torch
 
@@ -945,7 +1151,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    kern["launches"] = launches
+    lm = phase_lm(device, card)
+    for tiles in ("smoke", "full"):
+        lm_against_cpu(tiles)
+    lm_root = os.path.join(ROOT, "build", "lm_smoke")
+    shutil.rmtree(lm_root, ignore_errors=True)
+    try:
+        lm_restart(lm_root)
+    finally:
+        shutil.rmtree(lm_root, ignore_errors=True)
+    print(f"lm: {lm['step_ms']:.2f} ms/step on {card}")
+
+    kern["launches"] = launches + lm["launches"]
+    kern["lm_launches"] = lm["launches"]
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_update.cu",

@@ -11,15 +11,13 @@ digital exclusions (embeddings / vocab heads / positional tables).
 """
 from __future__ import annotations
 
+from .configs.base import DIGITAL_PATH_PATTERNS
 from .core.device import PRESETS, DeviceConfig  # noqa: F401
 from .core.plan import (  # noqa: F401
     DIGITAL, AnalogPlan, TilePolicy, plan_partition, policy_from_json,
     policy_to_json)
 from .core.tile import TileConfig  # noqa: F401
 from .core.trainer import AnalogTrainer, TrainerConfig  # noqa: F401
-
-# the JAX package's configs.base.DIGITAL_PATH_PATTERNS
-DIGITAL_PATH_PATTERNS = ("embed", "vocab", "lm_head", "pos")
 
 #: Few-state HfO2 ReRAM (hardest preset) under RIDER (Alg. 2).
 RERAM_HFO2_RIDER = TilePolicy.of("rider", "reram_hfo2", name="reram-hfo2-rider")

@@ -1,7 +1,10 @@
 """Where one training step of the PyTorch port spends its time on the card.
 
-Runs the paper's FCN step (``repro_torch.benchmarks.common``) for a few warm-up
-steps, then ``--steps`` steps under ``torch.profiler``, and prints:
+Runs the paper's FCN step (``repro_torch.benchmarks.common``), or with
+``--model lm`` the training CLI's step on Qwen2-0.5B at full width and
+depth (batch 8, seq 128, E-RIDER, bf16 tiles with hash noise, the bigram
+stream over 8192 ids, as ``chip_smoke.py`` phase 10 trains it), for a few
+warm-up steps, then ``--steps`` steps under ``torch.profiler``, and prints:
   * the wall time per step (host clock around steps that end in a
     synchronize; profiler on, so a little above the untraced time),
   * device busy time per step (sum of the CUDA kernels' device time) and
@@ -11,11 +14,40 @@ steps, then ``--steps`` steps under ``torch.profiler``, and prints:
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.benchmarks.step_profile \
                       --backend fused --steps 10
+                  PYTHONPATH=src python -m repro_torch.benchmarks.step_profile \
+                      --model lm --warmup 1 --steps 2
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+
+def lm_run(backend: str, steps: int):
+    """The training CLI's trainer, state and batches (on the card) for
+    Qwen2-0.5B at full width, E-RIDER under ``update_backend=backend``."""
+    import dataclasses
+
+    import torch
+
+    from .. import api, prng
+    from ..configs import get_config
+    from ..core.trainer import AnalogTrainer
+    from ..data import BigramLM
+    from ..launch import train
+    from ..models.lm import LM
+
+    model = LM(get_config("qwen2-0.5b"))
+    cli = train.make_trainer(model, "erider", False, steps)
+    plan = api.plan_from_spec("erider", lambda a: dataclasses.replace(
+        train.make_tile_cfg(a, False), update_backend=backend))
+    trainer = AnalogTrainer(model.loss, cli.cfg, plan=plan)
+    state = trainer.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), "cuda"))
+    data = BigramLM(vocab=8192, seed=7)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in data.batch(s, 8, 128).items()}
+               for s in range(steps)]
+    return trainer, state, batches
 
 
 def main(argv=None):
@@ -25,6 +57,7 @@ def main(argv=None):
     from .common import fcn_run
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="fcn", choices=("fcn", "lm"))
     ap.add_argument("--backend", default="fused", choices=("vmap", "fused"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
@@ -33,8 +66,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
 
-    trainer, state, batches = fcn_run(args.backend, "cuda",
-                                      args.warmup + args.steps)
+    n = args.warmup + args.steps
+    if args.model == "lm":
+        trainer, state, batches = lm_run(args.backend, n)
+    else:
+        trainer, state, batches = fcn_run(args.backend, "cuda", n)
     for b in batches[:args.warmup]:
         state, _ = trainer.train_step(state, b)
     torch.cuda.synchronize()
@@ -57,7 +93,7 @@ def main(argv=None):
     k1 = sum(t for name, (_, t) in by_name.items()
              if "analog_update_kernel" in name) / 1e3 / args.steps
     name = torch.cuda.get_device_name(0)
-    print(f"profile[{args.backend}] on {name}: wall {wall_ms:.2f} ms/step, "
+    print(f"profile[{args.model}, {args.backend}] on {name}: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {len(kernels) / args.steps:.0f} "
           f"kernel launches/step, analog_update kernel {k1:.4f} ms/step")

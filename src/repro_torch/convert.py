@@ -5,9 +5,10 @@ leaf), so this module needs neither JAX nor ``repro``. Both packages can
 then step from the same state: ``train_state`` rebuilds a ``TrainState``
 (TileBank classes, index, class_index, policies, opt, key, step), and
 ``params`` a parameter tree. uint32 arrays (keys, seeds) become int64
-tensors, the port's uint32 form; keys, seeds and the step counter stay on
-the host, every other tensor goes to ``device``. ``to_numpy`` goes back,
-for comparisons.
+tensors, the port's uint32 form, and bfloat16 arrays bfloat16 tensors of
+the same bits; keys, seeds and the step counter stay on the host, every
+other tensor goes to ``device``. ``to_numpy`` goes back, for comparisons
+(bfloat16 as float32, exactly).
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ def tensor(x, device="cuda") -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: the same 16 bits
+        bits = np.array(a, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -94,5 +98,7 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     if torch.is_tensor(tree):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        # numpy has no bfloat16: widen it, exactly, to float32
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return tree

@@ -1,1 +1,2 @@
-"""Distribution helpers of the port (rule templates so far)."""
+"""Distribution helpers of the port: rule templates and the fault-tolerance
+runtime so far."""

@@ -1,2 +1,3 @@
-"""Models of the port (the paper's FCN so far)."""
-from . import convnets  # noqa: F401
+"""Models of the port: the paper's FCN and the decoder-only dense-attention
+LMs (``lm.LM``)."""
+from . import attention, blocks, common, convnets, lm, moe  # noqa: F401

@@ -28,6 +28,10 @@ Each wrapper call launches its kernel once.
   card agrees with the CPU within ``rtol=4e-6`` + ``1e-6 * amax|w|``.
   Signatures taken on the card and checked on the CPU sum in another
   order: alpha is held within 1e-6 of 1, not to exactly 1.
+* The LM training path: K1 bit-equal on a stacked bfloat16 tile with
+  float32 dw and hash noise; the smoke LM's logits on the card within 2e-6
+  of their largest magnitude of the CPU's; two CLI steps on the card with
+  two kernel launches per analog path per step.
 """
 import numpy as np
 import pytest
@@ -360,3 +364,77 @@ def test_gdc_signature_from_the_card_checked_on_the_cpu(cuda, shape):
     out, alpha = correct_params({"w": w}, sig)
     assert abs(alpha["w"] - 1.0) <= 1e-6, alpha
     np.testing.assert_allclose(out["w"].numpy(), w.numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 96, 160), (4, 200)])
+def test_analog_update_kernel_on_a_stacked_bf16_tile(cuda, shape):
+    """The LM path's operands: a bf16 stacked tile (the CLI's non-smoke
+    state), float32 dw and hash noise; bit-equal to the plain version."""
+    from repro_torch import prng
+
+    kw = dict(dw_min=1e-4, tau_min=1.0, tau_max=1.0, sigma_c2c=0.05)
+    rng = np.random.default_rng(4)
+    w, dw, gamma, rho = _card(
+        [rng.uniform(-0.8, 0.8, shape).astype(np.float32),
+         (1e-3 * rng.standard_normal(shape)).astype(np.float32),
+         np.exp(0.1 * rng.standard_normal(shape)).astype(np.float32),
+         (0.3 * rng.standard_normal(shape)).astype(np.float32)],
+        ["bfloat16", "float32", "float32", "float32"])
+    noise = ops.make_noise(prng.PRNGKey(5), shape, "cuda", "hash")
+    before = ops.LAUNCHES["analog_update"]
+    got = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+    assert ops.LAUNCHES["analog_update"] == before + 1
+    want = ref.analog_update_ref(w, dw, gamma, rho, *noise, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lm_forward_on_the_card_matches_the_cpu(cuda):
+    """The qwen2 smoke LM (float32) on the card against the CPU from the
+    same parameters: logits within 2e-6 of their largest magnitude, loss
+    within rtol 1e-6 (cuBLAS sums in another order; TF32 off)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import tree_map
+    from repro_torch.models.lm import LM
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model = LM(get_config("qwen2-0.5b", smoke=True))
+    params = model.init(prng.PRNGKey(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 512, (2, 32)).astype(np.int32))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    with torch.no_grad():
+        want, _ = model.forward(params, toks)
+        got, _ = model.forward(tree_map(lambda t: t.cuda(), params), toks.cuda())
+        loss_cpu, _ = model.loss(params, batch, None)
+        loss_card, _ = model.loss(tree_map(lambda t: t.cuda(), params),
+                                  {k: v.cuda() for k, v in batch.items()}, None)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 2e-6 * want.abs().max().item(), err
+    np.testing.assert_allclose(loss_card.item(), loss_cpu.item(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_cli_on_the_card(cuda):
+    """Two steps of the smoke LM through the CLI on the card: finite loss,
+    two kernel launches per analog path per step (12 paths)."""
+    import signal
+
+    from repro_torch.launch import train
+
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    ops.reset_launch_counts()
+    try:
+        state, hist = train.main(["--smoke", "--steps", "2", "--batch", "2",
+                                  "--seq", "16", "--log-every", "1",
+                                  "--tiles", "full"])
+    finally:  # the CLI's PreemptionHandler took them
+        for s, h in saved.items():
+            signal.signal(s, h)
+    assert ops.LAUNCHES["analog_update"] == 2 * 12 * 2
+    assert all(np.isfinite(m["loss"]) for m in hist) and len(hist) == 2
+    assert all(st["W"].is_cuda and st["W"].dtype == torch.bfloat16
+               for st in state["tiles"].classes.values())

@@ -1,7 +1,7 @@
 """The port stands alone and mirrors the reference's configuration surface.
 
 * No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the port's
-  example, imports ``jax`` or the ``repro`` package (AST scan).
+  examples, imports ``jax`` or the ``repro`` package (AST scan).
 * The port's config dataclasses carry the reference's field names and
   defaults (dtypes compared by name), and its rule tables are the same.
 * The on-disk and stream constants are the reference's: the checkpoint
@@ -29,7 +29,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "examples", "torch_quickstart.py")]
+           os.path.join(ROOT, "examples", "torch_quickstart.py"),
+           os.path.join(ROOT, "examples", "torch_lm_analog_training.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -73,7 +74,9 @@ def _defaults(cls):
     "core.trainer.TrainerConfig", "core.digital_opt.DigitalOptConfig",
     "core.digital_opt.ScheduleConfig", "models.convnets.ConvNetConfig",
     "core.plan.TilePolicy", "core.plan.AnalogPlan",
-    "data.synthetic.BigramLM",
+    "data.synthetic.BigramLM", "configs.base.ModelConfig",
+    "configs.base.ShapeSpec", "distributed.fault.StragglerMonitor",
+    "distributed.fault.RestartPolicy",
 ])
 def test_config_fields_and_defaults_match_reference(name):
     mod, cls = name.rsplit(".", 1)
