@@ -69,6 +69,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               (f32, threefry) and with the non-smoke one (bf16, hash); (c) a
               restart from the CLI's step-6 checkpoint, bit-equal to the
               unbroken 8-step run, its manifest carrying the GDC signatures
+ 11. lm_zoo   the other six archs: (a) the smoke configs of mixtral-8x7b,
+              deepseek-v2-236b, minicpm3-4b, recurrentgemma-9b, mamba2-2.7b
+              and seamless-m4t-large-v2 (fed frames), 3 E-RIDER steps on
+              the card from a state drawn on the CPU against the same steps
+              on the CPU (320 tokens: MoE's einsum dispatch): loss within
+              rtol 1e-5, f32 tiles within 1e-5 but for <= 0.1 % of the
+              elements, each a flipped pulse, 2 K1 launches per analog
+              path per step; a CLI restart from the step-6 checkpoint
+              bit-equal to the unbroken run for mixtral-8x7b (256 tokens:
+              the gather dispatch), minicpm3-4b and mamba2-2.7b;
+              (b) minicpm3-4b and (c) mamba2-2.7b at full
+              width, depth cut to 8 layers, through the CLI's trainer
+              (bf16 hash tiles, batch 8, seq 128 / 512, 6 steps): finite
+              loss and sp_err, the loss falling, 2 K1 launches per analog
+              path per step; prints ms/step, peak memory and tile bytes.
+              Phase 3 also holds K1 bit-equal on mixtral-8x7b's 4-D expert
+              stack (1, 8, 4096, 14336), bf16, and times it
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -267,12 +284,78 @@ def phase_kernels(device):
     k_lm, p_lm, bound_lm = timed((896, 4864))
     # the LM path's largest launch: the stacked mlp/wi of all 24 layers
     k_st, p_st, bound_st = timed(LM_PATH_SHAPES[2], torch.bfloat16, 3, 5)
+    moe = k1_moe_stack(device, kw)
     return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound,
                 shape=[784, 256],
                 beyond_l2=dict(ms=k_lm, plain_ms=p_lm, bound_ms=bound_lm,
                                shape=[896, 4864]),
                 lm_stack=dict(ms=k_st, plain_ms=p_st, bound_ms=bound_st,
-                              shape=list(LM_PATH_SHAPES[2]), dtype="bfloat16"))
+                              shape=list(LM_PATH_SHAPES[2]), dtype="bfloat16"),
+                moe_stack=moe)
+
+
+# Mixtral-8x7B's expert up-projection at depth 1
+# (src/repro/configs/mixtral_8x7b.py: 8 experts, d_model 4096, d_ff 14336):
+# the 4-D (n_periods, E, d, f) leaf full-width MoE training would hand the
+# wrapper, which flattens it to a 2-D view (``ops._view2d``). 470 M elements.
+MOE_STACK = (1, 8, 4096, 14336)
+
+
+def k1_moe_stack(device, kw):
+    """K1 through ``ops.analog_update`` on the 4-D MoE stack, bf16 w, f32
+    dw, hash noise: bit-equal to its plain version; then the kernel alone
+    (its binding, on the 2-D views the wrapper passes) and the plain version
+    timed beside the memory bound (24 B/element). Operands come from torch's
+    generator (seeded): threefry draws of 470 M elements would take tens of
+    GB of int64 temporaries."""
+    import gc
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.analog_update import analog_update_cuda
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+
+    def draw(fn):
+        return fn(MOE_STACK, generator=gen, device=device)
+
+    w = (draw(torch.rand) * 1.6 - 0.8).to(torch.bfloat16)
+    dw = 0.05 * draw(torch.randn)
+    gamma = torch.exp(0.1 * draw(torch.randn))
+    rho = 0.3 * draw(torch.randn)
+    noise = ops.make_noise(prng.PRNGKey(18), MOE_STACK, device, "hash")
+    before = ops.LAUNCHES["analog_update"]
+    got = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+    check(ops.LAUNCHES["analog_update"] == before + 1,
+          "wrapper did not launch the kernel on the 4-D stack")
+    want = ref.analog_update_ref(w, dw, gamma, rho, *noise, **kw)
+    torch.cuda.synchronize()
+    same = (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got, want))
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    print(f"kernels: analog_update {MOE_STACK} bfloat16 (dw float32, 4-D, "
+          f"through ops._view2d) hash: bit-equal={same} max_abs_diff={err:.3g}")
+    check(same, f"bf16 kernel differs from plain on the 4-D stack {MOE_STACK}")
+    operands = (w, dw, gamma, rho, noise[0].to(torch.int32), noise[1])
+    del noise
+    views = [ops._view2d(t).contiguous() for t in operands]
+    k, k_call = time_ms(lambda: analog_update_cuda(*views, **kw), 3, 5)
+    p, _ = time_ms(lambda: ref.analog_update_ref(*operands, **kw), 2, 3)
+    n = math.prod(MOE_STACK)
+    bound = max(24 * n / H100_BYTES_PER_S, 30 * n / H100_F32_FLOPS) * 1e3
+    print(f"kernels: analog_update {MOE_STACK} bfloat16 median device "
+          f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: device "
+          f"{p * 1e3:.2f} us; memory bound {bound * 1e3:.2f} us, "
+          f"{bound / k:.0%} of it reached)")
+    del operands, views, w, dw, gamma, rho
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=k, plain_ms=p, bound_ms=bound, shape=list(MOE_STACK),
+                dtype="bfloat16")
 
 
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
@@ -1084,7 +1167,7 @@ def lm_against_cpu(tiles: str):
                                rtol=1e-5, atol=1e-7, err_msg=f"lm[{tiles}] embed")
 
 
-def lm_restart(root: str):
+def lm_restart(root: str, smoke_argv=tuple(LM_SMOKE_ARGV)):
     """(c): run A trains 8 steps with checkpoints every 3 (async at 3 and 6,
     the last at 8); the run is then cut after its step-6 checkpoint (step 8
     removed) and run B restarts from the same directory. The cosine
@@ -1092,8 +1175,8 @@ def lm_restart(root: str):
     run: run A."""
     from repro_torch.checkpoint import ckpt
 
-    argv = LM_SMOKE_ARGV + ["--ckpt-dir", root, "--device", "cuda",
-                            "--steps", "8"]
+    argv = list(smoke_argv) + ["--ckpt-dir", root, "--device", "cuda",
+                               "--steps", "8"]
     state_a, _, _ = run_cli(argv + ["--ckpt-every", "3"])
     check(ckpt.latest_step(root) == 8, "run A did not save step 8")
     sigs = ckpt.read_manifest(root, 6).get("gdc_signatures", {})
@@ -1104,10 +1187,250 @@ def lm_restart(root: str):
     check("restored checkpoint at step 6" in out, "run B did not restore 6")
     check([m["step"] for m in hist_b] == [6, 7], "run B steps")
     n = leaves_equal(state_b, state_a, "lm restart against the unbroken run")
-    print(f"lm: restart from the step-6 checkpoint ({len(sigs)} GDC "
+    print(f"lm[{argv[1]}]: restart from the step-6 checkpoint ({len(sigs)} GDC "
           f"signatures in its manifest): steps 6-7 bit-equal to the unbroken "
           f"8-step run on all {n} leaves")
 
+
+
+# Phase 11: the rest of the LM zoo. (a) The smoke configs of the six archs
+# with MoE, MLA, RG-LRU, SSD or an encoder, 3 E-RIDER steps on the card
+# from a state drawn on the CPU, against the same steps on the CPU; 4 x 80
+# tokens, so the MoE archs take the einsum dispatch; seamless is fed
+# frames, as its LM is.
+# (b) MiniCPM3-4B (src/repro/configs/minicpm3_4b.py: d_model 2560, 40
+# heads, q_lora 768, kv_lora 256, qk 64+32, v 64, d_ff 6400, vocab 73448)
+# and (c) Mamba2-2.7B (src/repro/configs/mamba2_2_7b.py: d_model 2560,
+# d_inner 5120, 80 SSD heads of 64, d_state 128, chunk 256, vocab 50280,
+# tied embeddings) at full width, each with its depth cut to 8 layers (62
+# and 64 in the configs), through the CLI's trainer (``make_trainer``, bf16
+# hash-noise tiles, ``update_backend="vmap"``), tokens from the first 8192
+# ids, 6 steps; Mamba2 at seq 512, so SSD runs two chunks of 256. (a)
+# also restarts the CLI on the card, bit-equal, for one arch of each new
+# family (MoE, MLA, SSD).
+LM_ZOO = ["mixtral-8x7b", "deepseek-v2-236b", "minicpm3-4b",
+          "recurrentgemma-9b", "mamba2-2.7b", "seamless-m4t-large-v2"]
+ZOO_BATCH, ZOO_SEQ = 4, 80
+ZOO_RESTART = ["mixtral-8x7b", "minicpm3-4b", "mamba2-2.7b"]
+FULL_WIDTH = [("minicpm3-4b", 128), ("mamba2-2.7b", 512)]
+FULL_LAYERS, FULL_BATCH, FULL_STEPS = 8, 8, 6
+
+
+def to_device(state, device):
+    """A train state with every leaf on ``device`` but the host leaves
+    (key, step, tile seeds)."""
+    from repro_torch.core.paths import tree_map_with_path
+    from repro_torch.core.trainer import HOST_LEAVES
+
+    return tree_map_with_path(
+        lambda p, t: t if p.rsplit("/", 1)[-1] in HOST_LEAVES else t.to(device),
+        state)
+
+
+def zoo_batches(cfg, steps: int):
+    import numpy as np
+    import torch
+
+    from repro_torch.data import BigramLM
+
+    data = BigramLM(vocab=cfg.vocab, seed=7)
+    rng = np.random.default_rng(18)
+    out = []
+    for s in range(steps):
+        b = {k: torch.from_numpy(v) for k, v in
+             data.batch(s, ZOO_BATCH, ZOO_SEQ).items()}
+        if cfg.frontend:
+            b["frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+                (ZOO_BATCH, ZOO_SEQ, cfg.d_model))).astype(np.float32))
+        out.append(b)
+    return out
+
+
+def zoo_against_cpu(arch: str) -> int:
+    """(a) for one arch: the CLI's trainer with the smoke tile config (f32,
+    threefry), its state drawn on the CPU and carried to the card, 3 steps
+    on each. Loss within rtol 1e-5; tile state (W, P, Qd, Qt) within 1e-5
+    on all but at most 0.1 % of the elements, each of those off by a
+    flipped stochastic-rounding pulse: at least a tenth of dw_min and at
+    most 2 * dw_min (the response is below 2); every digital leaf (the
+    embedding and any other leaf outside the tile bank) within rtol 1e-5,
+    as phase 10b holds the embedding; 2 K1 launches per analog path per
+    step on the card. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config(arch, smoke=True))
+    trainer = train.make_trainer(model, "erider", True, LM_CHECK_STEPS)
+    cpu = trainer.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), "cpu"))
+    card = to_device(cpu, "cuda")
+    batches = zoo_batches(model.cfg, LM_CHECK_STEPS)
+    n_paths = sum(len(ps) for _, ps in cpu["tiles"].index)
+    ops.reset_launch_counts()
+    card_hist = []
+    for b in batches:
+        card, m = trainer.train_step(card, {k: v.cuda() for k, v in b.items()})
+        card_hist.append({k: float(v) for k, v in m.items()})
+    launches = ops.LAUNCHES["analog_update"]
+    cpu_hist = []
+    for b in batches:
+        cpu, m = trainer.train_step(cpu, b)
+        cpu_hist.append({k: float(v) for k, v in m.items()})
+    rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            for g, w in zip(card_hist, cpu_hist)]
+    off_n, n_el, min_off, max_off = 0, 0, math.inf, 0.0
+    pulse = 2e-4                      # dw_min of the smoke tile config
+    for c, want_st in cpu["tiles"].classes.items():
+        for leaf in ("W", "P", "Qd", "Qt"):
+            got = card["tiles"].classes[c][leaf].cpu()
+            want = want_st[leaf]
+            check(got.dtype == want.dtype == torch.float32,
+                  f"zoo[{arch}] {c}/{leaf} dtype")
+            diff = (got - want).abs()
+            off = diff > 1e-5
+            check(off.float().mean().item() <= 1e-3,
+                  f"zoo[{arch}] {c}/{leaf} off the CPU run")
+            if bool(off.any()):
+                min_off = min(min_off, diff[off].min().item())
+                max_off = max(max_off, diff[off].max().item())
+            off_n += int(off.sum())
+            n_el += off.numel()
+    digital = flatten_with_path(cpu["params"])
+    got_digital = dict(flatten_with_path(card["params"]))
+    check(sorted(got_digital) == sorted(p for p, _ in digital),
+          f"zoo[{arch}] digital leaves differ")
+    worst = 0.0
+    for p, want in digital:
+        got = got_digital[p].float().cpu().numpy()
+        want = want.float().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"zoo[{arch}] {p}")
+        worst = max(worst, float(np.max(np.abs(got - want)
+                                        / (1e-7 + 1e-5 * np.abs(want)))))
+    print(f"zoo[{arch}]: {n_paths} analog paths, {launches} K1 launches in "
+          f"{LM_CHECK_STEPS} steps; loss card vs cpu rel "
+          f"{', '.join(f'{r:.2e}' for r in rels)} (step 0 {card_hist[0]['loss']:.6g}); "
+          f"tile elements off by > 1e-5: {off_n} of {n_el}"
+          + (f" (smallest {min_off:.3g}, largest {max_off:.3g})" if off_n
+             else "")
+          + f"; {len(digital)} digital leaves, the largest diff "
+          f"{worst:.3f} x its tolerance (rtol 1e-5, atol 1e-7)")
+    check(all(math.isfinite(h["loss"]) for h in card_hist),
+          f"zoo[{arch}] non-finite loss")
+    check(max(rels) <= 1e-5, f"zoo[{arch}] loss off the CPU run")
+    check(min_off >= 0.1 * pulse, f"zoo[{arch}] an element off by less than "
+                                   f"a tenth of a pulse ({min_off})")
+    check(max_off <= 2 * pulse, f"zoo[{arch}] an element off by more than "
+                                f"a pulse ({max_off})")
+    check(launches == 2 * n_paths * LM_CHECK_STEPS,
+          f"zoo[{arch}] launches {launches} != {2 * n_paths * LM_CHECK_STEPS}")
+    return launches
+
+
+def lm_full_width(arch: str, seq: int, card: str):
+    """(b), (c): one arch at full width, depth cut to FULL_LAYERS, through
+    the CLI's ``make_trainer`` and ``trainer.jit_step()``: finite loss and
+    sp_err at every step, the loss falling (mean of the last 3 below the
+    first), 2 K1 launches per analog path per step. Records ms/step
+    (median over steps 2-6, host clock, synchronized), the peak allocated
+    memory, the tile state's bytes and the launches."""
+    import gc
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.benchmarks.step_profile import cut_depth
+    from repro_torch.configs import get_config
+    from repro_torch.data import BigramLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    cfg = cut_depth(get_config(arch), FULL_LAYERS)
+    model = LM(cfg)
+    trainer = train.make_trainer(model, "erider", False, FULL_STEPS)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state = trainer.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), "cuda"))
+    data = BigramLM(vocab=8192, seed=7)
+    step_fn = trainer.jit_step()
+    bank = state["tiles"]
+    n_paths = sum(len(ps) for _, ps in bank.index)
+    n_analog = sum(st["W"].numel() for st in bank.classes.values())
+    largest = max(st["W"][0, 0].numel() for st in bank.classes.values())
+    tbytes = tile_state_bytes(state)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    hist = []
+    for s in range(FULL_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch(s, FULL_BATCH, seq).items()}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hist.append(dict(loss=float(m["loss"]), sp_err=float(m["tile/sp_err"]),
+                         step_s=dt))
+    launches = ops.LAUNCHES["analog_update"]
+    peak = torch.cuda.max_memory_allocated()
+    dtypes = {str(st["W"].dtype) for st in bank.classes.values()}
+    del state, bank, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    med = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
+    tail = statistics.mean(losses[-3:])
+    print(f"lm[{arch}]: full width, {FULL_LAYERS} of {get_config(arch).n_layers}"
+          f" layers, batch {FULL_BATCH} x seq {seq}, {FULL_STEPS} steps, loss "
+          f"{losses[0]:.4f} -> {tail:.4f} (mean of the last 3), sp_err "
+          f"{hist[0]['sp_err']:.4g} -> {hist[-1]['sp_err']:.4g}; {n_paths} "
+          f"analog paths, {n_analog} analog elements (largest leaf "
+          f"{largest}), tile dtypes {sorted(dtypes)}; K1 launches {launches} "
+          f"({launches / FULL_STEPS:g} per step)")
+    print(f"lm[{arch}]: median {med:.2f} ms/step (host clock, synchronized, "
+          f"first step dropped), peak allocated {peak / 2 ** 30:.3f} GiB "
+          f"({before / 2 ** 30:.3f} GiB before), tile state {tbytes} bytes, "
+          f"on {card}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["sp_err"])
+              for h in hist), f"lm[{arch}]: non-finite loss or sp_err")
+    check(dtypes == {"torch.bfloat16"}, f"lm[{arch}] tile dtypes {dtypes}")
+    check(tail < losses[0], f"lm[{arch}] loss did not fall")
+    check(launches == 2 * n_paths * FULL_STEPS,
+          f"lm[{arch}] launches {launches} != {2 * n_paths * FULL_STEPS}")
+    return dict(launches=launches, step_ms=med, peak_bytes=peak,
+                tile_bytes=tbytes, analog_elements=n_analog, layers=FULL_LAYERS,
+                seq=seq)
+
+
+def phase_lm_zoo(card: str):
+    import torch
+
+    t0 = time.time()
+    zoo = sum(zoo_against_cpu(arch) for arch in LM_ZOO)
+    # (a) also: a CLI restart on the card, bit-equal to the unbroken run,
+    # for one arch of each new family; mixtral at 256 tokens a step takes
+    # MoE's gather path, which (a)'s 320 tokens do not
+    root = os.path.join(ROOT, "build", "lm_zoo_smoke")
+    for arch in ZOO_RESTART:
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            lm_restart(root, ["--arch", arch, "--smoke", "--batch", "4",
+                              "--seq", "64", "--log-every", "1"])
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    full = {arch: lm_full_width(arch, seq, card) for arch, seq in FULL_WIDTH}
+    torch.cuda.synchronize()
+    print(f"lm_zoo: phase 11 took {time.time() - t0:.1f} s")
+    return zoo, full
 
 
 def main() -> int:
@@ -1162,8 +1485,16 @@ def main() -> int:
         shutil.rmtree(lm_root, ignore_errors=True)
     print(f"lm: {lm['step_ms']:.2f} ms/step on {card}")
 
-    kern["launches"] = launches + lm["launches"]
+    zoo, full = phase_lm_zoo(card)
+    for arch, r in full.items():
+        print(f"lm[{arch}]: {r['step_ms']:.2f} ms/step, peak "
+              f"{r['peak_bytes'] / 2 ** 30:.3f} GiB on {card}")
+
+    kern["launches"] = (launches + lm["launches"] + zoo
+                        + sum(r["launches"] for r in full.values()))
     kern["lm_launches"] = lm["launches"]
+    kern["zoo_launches"] = zoo
+    kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_update.cu",

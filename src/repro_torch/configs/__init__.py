@@ -1,7 +1,8 @@
 """Architecture registry: the 10 architectures of the JAX package's configs.
 
-Plain data, so all ten are here; building one whose layer kinds are not
-ported yet raises ``NotImplementedError`` (``models.blocks``).
+Plain data. All ten build, run forward and train in the port
+(``models.lm.LM``); the cache modes of serving raise
+``NotImplementedError`` (``models.blocks.check_ported``).
 """
 from __future__ import annotations
 

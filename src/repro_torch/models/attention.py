@@ -1,8 +1,11 @@
-"""Full-sequence grouped-query attention (+ qk-norm / bias, sliding window).
+"""Full-sequence attention: grouped-query (+ qk-norm / bias, sliding
+window), multi-head latent attention (MLA) and cross-attention.
 
-Port of the full-sequence GQA path of the JAX package's
-``models/attention.py``: ``init_attn``, the chunked memory-efficient core
-with its FlashAttention-style backward, and ``attn_forward``. The forward
+Port of the full-sequence paths of the JAX package's
+``models/attention.py``: ``init_attn``, ``init_mla``, the chunked
+memory-efficient core with its FlashAttention-style backward,
+``attn_forward``, ``mla_forward`` (expanded, or absorbed under
+``cfg.mla_absorbed``) and ``cross_forward``. The forward
 runs an online softmax over KV chunks, so live scores are O(Sq * chunk);
 the backward (``_Flash.backward``) recomputes the probabilities per chunk
 from ``(q, k, v, out, lse)``. Autograd through the chunk loop would keep
@@ -12,8 +15,7 @@ This is plain PyTorch in the reference's order of operations: ``q`` scaled
 by ``Dk ** -0.5`` in its storage dtype, scores and accumulators in
 float32, masked scores at ``NEG_INF``, ``l`` floored at 1e-37, the output
 cast to ``q``'s dtype. ``F.scaled_dot_product_attention`` would sum in
-another order. MLA, cross-attention and the decode / prefill / paged
-paths come with later slices.
+another order. The decode / prefill / paged paths come with serving.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from .. import prng
 from ..configs.base import ModelConfig
-from .common import apply_mrope, apply_rope, dense_init, dot, rms_norm, zeros
+from .common import (apply_mrope, apply_rope, dense_init, dot, einsum,
+                     rms_norm, zeros)
 
 NEG_INF = -2.0e38
 
@@ -50,6 +53,28 @@ def init_attn(key, cfg: ModelConfig, cross: bool = False, device="cuda") -> Dict
         p["qn"] = zeros((D,), cfg.dtype, device)
         p["kn"] = zeros((D,), cfg.dtype, device)
     return p
+
+
+def init_mla(key, cfg: ModelConfig, device="cuda") -> Dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope, v, ql, kvl = (cfg.qk_nope, cfg.qk_rope, cfg.v_head_dim,
+                              cfg.q_lora, cfg.kv_lora)
+    ks = prng.split(key, 7)
+
+    def dense(k, shape):
+        return dense_init(k, shape, cfg.dtype, device=device)
+
+    return {
+        "wdq": dense(ks[0], (d, ql)),
+        "qln": zeros((ql,), cfg.dtype, device),
+        "wuq": dense(ks[1], (ql, H * (nope + rope))),
+        "wdkv": dense(ks[2], (d, kvl)),
+        "kvln": zeros((kvl,), cfg.dtype, device),
+        "wuk": dense(ks[3], (kvl, H * nope)),
+        "wuv": dense(ks[4], (kvl, H * v)),
+        "wkr": dense(ks[5], (d, rope)),
+        "wo": dense(ks[6], (H * v, d)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -223,3 +248,82 @@ def attn_forward(p, x, cfg: ModelConfig, *, kind: str, positions, causal=True):
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk)
     return dot(out.reshape(x.shape[0], x.shape[1], -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    H, nope, rope = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    ql = rms_norm(dot(x, p["wdq"]), p["qln"], cfg.norm_eps)
+    q = dot(ql, p["wuq"]).reshape(B, S, H, nope + rope)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_base)
+    return q_nope, q_pe
+
+
+def _mla_kv_latent(p, x, cfg: ModelConfig, positions):
+    ckv = rms_norm(dot(x, p["wdkv"]), p["kvln"], cfg.norm_eps)  # (B,S,kvl)
+    k_pe = apply_rope(dot(x, p["wkr"])[:, :, None, :], positions,
+                      cfg.rope_base)[:, :, 0]
+    return ckv, k_pe
+
+
+def mla_forward(p, x, cfg: ModelConfig, *, positions, causal=True):
+    """Train/prefill MLA, in one of two forms of the same math: expanded
+    (per-head K/V materialized from the latent) or, under
+    ``cfg.mla_absorbed``, absorbed (attention directly against the shared
+    latent ``c_kv ++ k_pe``, one KV head)."""
+    if cfg.mla_absorbed:
+        return _mla_forward_absorbed(p, x, cfg, positions=positions,
+                                     causal=causal)
+    B, S, _ = x.shape
+    H, nope, v_dim = cfg.n_heads, cfg.qk_nope, cfg.v_head_dim
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    k_nope = dot(ckv, p["wuk"]).reshape(B, S, H, nope)
+    v = dot(ckv, p["wuv"]).reshape(B, S, H, v_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, cfg.qk_rope)],
+                  dim=-1)
+    out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return dot(out.reshape(B, S, H * v_dim), p["wo"])
+
+
+def _mla_forward_absorbed(p, x, cfg: ModelConfig, *, positions, causal=True):
+    B, S, _ = x.shape
+    H, nope, v_dim, kvl, rope = (cfg.n_heads, cfg.qk_nope, cfg.v_head_dim,
+                                 cfg.kv_lora, cfg.qk_rope)
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    wuk = p["wuk"].reshape(kvl, H, nope)
+    q_lat = einsum("bqhn,khn->bqhk", q_nope, wuk)             # (B,S,H,kvl)
+    # flash scales by (kvl+rope)^-1/2; the true scale is (nope+rope)^-1/2
+    fix = ((kvl + rope) / (nope + rope)) ** 0.5
+    q = torch.cat([q_lat, q_pe], dim=-1)
+    q = q * torch.full((), fix, dtype=q_lat.dtype, device=q.device)
+    k = torch.cat([ckv, k_pe], dim=-1)[:, :, None, :]          # (B,S,1,kvl+r)
+    v = ckv[:, :, None, :]                                     # (B,S,1,kvl)
+    o_lat = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    wuv = p["wuv"].reshape(kvl, H, v_dim)
+    out = einsum("bqhk,khv->bqhv", o_lat, wuv)
+    return dot(out.reshape(B, S, H * v_dim), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_forward(p, x, enc_out, cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    Se = enc_out.shape[1]
+    q = dot(x, p["wq"]).reshape(B, S, H, D)
+    k = dot(enc_out, p["wk"]).reshape(B, Se, KV, D)
+    v = dot(enc_out, p["wv"]).reshape(B, Se, KV, D)
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return dot(out.reshape(B, S, H * D), p["wo"])

@@ -1,21 +1,23 @@
 """Layer blocks and the period stack (the full-sequence ``fwd`` mode).
 
-Port of the JAX package's ``models/blocks.py`` for the dense-attention
-layer kinds. A model stack = ``prefix`` layers (unrolled) + ``body`` =
+Port of the JAX package's ``models/blocks.py``. A model stack = ``prefix``
+layers (unrolled; e.g. DeepSeek's leading dense-FFN layer) + ``body`` =
 cfg.pattern repeated cfg.n_periods times, its parameters stacked along a
 leading ``n_periods`` axis per position in the period + ``tail`` layers
-(unrolled). Every layer is pre-norm -> attention -> residual -> pre-norm
--> MLP -> residual.
+(unrolled; e.g. RecurrentGemma's trailing [rec, rec]). Every layer kind is
+pre-norm -> sequence mixer (attention, MLA, RG-LRU or SSD) -> residual ->
+pre-norm -> MLP or MoE -> residual; SSD blocks have no separate MLP.
+Decoder stacks of enc-dec models carry a cross-attention sub-block.
 
 Where the reference scans the periods (``lax.scan``), the port loops over
 ``leaf[i]`` of the stacked leaves, so a gradient reaches the stacked leaf
-and the analog tiles hold the stacked 3-D arrays. ``cfg.remat`` wraps one
+and the analog tiles hold the stacked arrays. ``cfg.remat`` wraps one
 period in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps
 ``period_fn``.
 
-Layer kinds and blocks that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them; so do
-the cache modes (prefill, decode, paged), which come with serving.
+Only mode ``"fwd"`` is ported. The cache modes (``prefill``, ``chunk``,
+``decode`` and the paged decode) and their cache and state makers come
+with serving, and raise ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -29,31 +31,21 @@ from ..configs.base import ModelConfig
 from ..core.paths import tree_map
 from . import attention as attn
 from . import moe as moe_mod
+from . import recurrent as rec_mod
 from .common import rms_norm, zeros
 
-_NOT_PORTED = {
-    "moe": "MoE (ROADMAP.md queue 1 item 12b)",
-    "mla": "MLA (ROADMAP.md queue 1 item 12b)",
-    "rec": "the RG-LRU block (ROADMAP.md queue 1 item 12b)",
-    "ssm": "the Mamba-2 SSD block (ROADMAP.md queue 1 item 12b)",
-    "cross": "cross-attention and the encoder (ROADMAP.md queue 1 item 12b)",
-}
+SERVING_MODES = ("prefill", "chunk", "decode")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{_NOT_PORTED[what]} is not ported yet")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` needs a block the port does
-    not have yet."""
-    for kind in cfg.layer_kinds:
-        if kind not in ("attn", "attn_local"):
-            raise _not_ported(kind)
-    if cfg.n_experts:
-        raise _not_ported("moe")
-    if cfg.is_encdec:
-        raise _not_ported("cross")
+def check_ported(mode: str) -> None:
+    """Raise ``NotImplementedError`` for the modes serving brings."""
+    if mode in SERVING_MODES:
+        raise NotImplementedError(
+            f"mode {mode!r} comes with serving (ROADMAP.md queue 1 item 14): "
+            f"the {', '.join(SERVING_MODES)} modes and their caches and "
+            f"recurrent states are not ported yet")
+    if mode != "fwd":
+        raise ValueError(mode)
 
 
 # ---------------------------------------------------------------------------
@@ -61,38 +53,70 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _layer_is_moe(cfg: ModelConfig, global_idx: int) -> bool:
+    return bool(cfg.n_experts) and global_idx >= cfg.first_dense_layers
+
+
 def init_layer(key, cfg: ModelConfig, kind: str, global_idx: int,
                cross: bool = False, device="cuda") -> Dict:
     ks = prng.split(key, 4)
     d = cfg.d_model
-    if kind not in ("attn", "attn_local"):
-        raise _not_ported(kind)
-    if cfg.n_experts and global_idx >= cfg.first_dense_layers:
-        raise _not_ported("moe")
+    p: Dict[str, Any] = {"ln1": zeros((d,), cfg.dtype, device)}
+    if kind in ("attn", "attn_local"):
+        p["attn"] = attn.init_attn(ks[0], cfg, device=device)
+    elif kind == "mla":
+        p["attn"] = attn.init_mla(ks[0], cfg, device=device)
+    elif kind == "rec":
+        p["mix"] = rec_mod.init_rglru(ks[0], cfg, device=device)
+    elif kind == "ssm":
+        p["mix"] = rec_mod.init_ssm(ks[0], cfg, device=device)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm":
+        p["ln2"] = zeros((d,), cfg.dtype, device)
+        if _layer_is_moe(cfg, global_idx):
+            p["moe"] = moe_mod.init_moe(ks[1], cfg, device=device)
+        else:
+            p["mlp"] = moe_mod.init_mlp(ks[1], cfg, device=device)
     if cross:
-        raise _not_ported("cross")
-    return {"ln1": zeros((d,), cfg.dtype, device),
-            "attn": attn.init_attn(ks[0], cfg, device=device),
-            "ln2": zeros((d,), cfg.dtype, device),
-            "mlp": moe_mod.init_mlp(ks[1], cfg, device=device)}
+        p["lnx"] = zeros((d,), cfg.dtype, device)
+        p["cross"] = attn.init_attn(ks[2], cfg, cross=True, device=device)
+    return p
 
 
 def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
-                positions=None, causal: bool = True):
+                positions=None, enc_out=None, causal: bool = True):
     """Returns (x_out, aux_loss, new_cache); mode ``"fwd"`` only."""
-    if mode != "fwd":
-        raise NotImplementedError(
-            f"mode {mode!r} comes with serving (ROADMAP.md queue 1 item 14)")
-    if kind not in ("attn", "attn_local"):
-        raise _not_ported(kind)
+    check_ported(mode)
     rs = cfg.residual_scale
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix = attn.attn_forward(p["attn"], h, cfg, kind=kind, positions=positions,
-                            causal=causal)
+    if kind in ("attn", "attn_local"):
+        mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
+                                positions=positions, causal=causal)
+    elif kind == "mla":
+        mix = attn.mla_forward(p["attn"], h, cfg, positions=positions,
+                               causal=causal)
+    elif kind == "rec":
+        mix = rec_mod.rglru_forward(p["mix"], h, cfg)
+    elif kind == "ssm":
+        mix = rec_mod.ssm_forward(p["mix"], h, cfg)
+    else:
+        raise ValueError(kind)
     x = x + rs * mix
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + rs * moe_mod.mlp_forward(p["mlp"], h2, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+
+    if "cross" in p:
+        hx = rms_norm(x, p["lnx"], cfg.norm_eps)
+        x = x + rs * attn.cross_forward(p["cross"], hx, enc_out, cfg)
+
+    if kind != "ssm":
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            ff, aux = moe_mod.moe_forward(p["moe"], h2, cfg)
+        else:
+            ff = moe_mod.mlp_forward(p["mlp"], h2, cfg)
+        x = x + rs * ff
+    return x, aux, None
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +146,6 @@ def init_stack(key, cfg: ModelConfig, cross: bool = False, device="cuda") -> Dic
     """Parameters of the stack. The body's leaves of position j in the
     period stack the ``n_periods`` layers drawn from ``split(fold_in(key,
     kidx), n_periods)``, as the reference's vmapped init draws them."""
-    check_ported(cfg)
     prefix, period, tail, n_periods = stack_structure(cfg)
     params: Dict[str, Any] = {"prefix": {}, "body": {}, "tail": {}}
     kidx = 0
@@ -149,15 +172,15 @@ def init_stack(key, cfg: ModelConfig, cross: bool = False, device="cuda") -> Dic
 
 
 def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
-                positions=None, causal: bool = True):
+                positions=None, enc_out=None, causal: bool = True):
     """Returns (x, aux_total, new_caches); mode ``"fwd"`` only."""
-    check_ported(cfg)
+    check_ported(mode)
     prefix, period, tail, n_periods = stack_structure(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_layer(p, x, kind):
         return apply_layer(p, x, cfg, kind, mode, positions=positions,
-                           causal=causal)
+                           enc_out=enc_out, causal=causal)
 
     for i, kind in enumerate(prefix):
         x, aux, _ = run_layer(params["prefix"][f"l{i}"], x, kind)

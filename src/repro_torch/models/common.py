@@ -60,6 +60,26 @@ def dot(a, b):
     return a.to(dt) @ b.to(dt)
 
 
+def take_rows(table, ids):
+    """``table[ids]`` (rows of a 2-D table), with a backward that sums each
+    row's gradients in a fixed order on either device: on CUDA an indexed
+    read (its ``index_put_`` sorts the ids first; ``F.embedding``'s
+    backward is not bit-reproducible there), on the CPU ``F.embedding``
+    (an indexed read's ``index_put_`` adds in parallel there)."""
+    if table.is_cuda:
+        return table[ids]
+    return F.embedding(ids, table)
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum`` in the promoted dtype of its operands, as
+    ``jnp.einsum`` promotes."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
 # ---------------------------------------------------------------------------
 # norms / activations
 # ---------------------------------------------------------------------------

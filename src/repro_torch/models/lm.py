@@ -1,19 +1,22 @@
-"""Top-level decoder-only language model.
+"""Top-level language models: decoder-only and encoder-decoder.
 
 Port of the training path of the JAX package's ``models/lm.py``:
 
   init(key, device) -> params          (abstract_params(device) allocates nothing)
   forward(params, tokens, frames) -> (logits, aux)
-  loss(params, batch, rng) -> (loss, aux)   (next-token CE with z-loss)
+  loss(params, batch, rng) -> (loss, aux)   (next-token CE with z-loss,
+                                             plus the MoE aux loss)
 
-The [vlm] frontend is the reference's stub: ``frames`` are precomputed
-patch embeddings, fused additively with the token embeddings. Caches,
-prefill, decode and paged serving come with serving (ROADMAP.md queue 1
-item 14); the encoder of the enc-dec model with item 12b, so an enc-dec
-config raises ``NotImplementedError``.
+Modality frontends are the reference's stubs: ``frames`` are precomputed
+frame/patch embeddings; the VLM fuses them additively with the token
+embeddings, the audio enc-dec feeds them to its encoder (a bidirectional
+attention stack, ``_encoder_cfg``) whose output the decoder's
+cross-attention reads. Caches, prefill, decode and paged serving come with
+serving (ROADMAP.md queue 1 item 14).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
@@ -21,8 +24,9 @@ import torch
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec, tree_map
-from .blocks import apply_stack, check_ported, init_stack
-from .common import dot, embed_init, rms_norm, softmax_cross_entropy, zeros
+from .blocks import apply_stack, init_stack
+from .common import (dot, embed_init, rms_norm, softmax_cross_entropy,
+                     take_rows, zeros)
 
 
 class LM:
@@ -34,7 +38,6 @@ class LM:
         """Parameters from a host key (``prng.PRNGKey``), drawn on
         ``device`` as the JAX package draws them from the same key."""
         cfg = self.cfg
-        check_ported(cfg)  # before the embedding's draw, not after it
         ks = prng.split(key, 4)
         params: Dict[str, Any] = {
             "embed": embed_init(ks[0], (cfg.vocab, cfg.d_model), cfg.dtype,
@@ -45,6 +48,12 @@ class LM:
         if not cfg.tied_embeddings:
             params["head"] = embed_init(ks[2], (cfg.d_model, cfg.vocab),
                                         cfg.dtype, device)
+        if cfg.is_encdec:
+            params["enc"] = {
+                "stack": init_stack(ks[3], _encoder_cfg(cfg), cross=False,
+                                    device=device),
+                "ln_f": zeros((cfg.d_model,), cfg.dtype, device),
+            }
         return params
 
     def abstract_params(self, device="cuda") -> Dict:
@@ -56,7 +65,7 @@ class LM:
     # ------------------------------------------------------------- embeddings
     def _embed(self, params, tokens, frames=None):
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        x = take_rows(params["embed"], tokens.long())
         if cfg.embed_scale:
             scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                             dtype=torch.float32))
@@ -71,16 +80,48 @@ class LM:
         head = params["embed"].T if cfg.tied_embeddings else params["head"]
         return dot(x, head)
 
+    def _encode(self, params, frames):
+        cfg = self.cfg
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                             f"encoder reads the batch's 'frames'")
+        x = frames.to(cfg.dtype)
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        x, _, _ = apply_stack(params["enc"]["stack"], x, _encoder_cfg(cfg),
+                              "fwd", positions=pos, causal=False)
+        return rms_norm(x, params["enc"]["ln_f"], cfg.norm_eps)
+
     # ---------------------------------------------------------------- forward
     def forward(self, params, tokens, frames=None):
         cfg = self.cfg
+        enc_out = self._encode(params, frames) if cfg.is_encdec else None
         x = self._embed(params, tokens, frames)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, aux, _ = apply_stack(params["stack"], x, cfg, "fwd",
-                                positions=positions)
+                                positions=positions, enc_out=enc_out)
         return self._logits(params, x), aux
 
     def loss(self, params, batch, rng) -> Tuple[torch.Tensor, Dict]:
-        logits, _ = self.forward(params, batch["tokens"], batch.get("frames"))
-        return softmax_cross_entropy(logits, batch["labels"])
+        cfg = self.cfg
+        logits, aux_moe = self.forward(params, batch["tokens"],
+                                       batch.get("frames"))
+        loss, aux = softmax_cross_entropy(logits, batch["labels"])
+        if cfg.n_experts:
+            loss = loss + cfg.aux_loss_coef * aux_moe
+            aux["moe_aux"] = aux_moe
+        return loss, aux
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Encoder stack config: bidirectional full attention, n_enc_layers."""
+    return dataclasses.replace(
+        cfg,
+        n_layers=cfg.n_enc_layers,
+        pattern=("attn",),
+        n_periods=cfg.n_enc_layers,
+        tail=(),
+        first_dense_layers=0,
+        n_experts=0,
+        n_enc_layers=0,
+    )

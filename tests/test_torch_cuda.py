@@ -32,6 +32,13 @@ Each wrapper call launches its kernel once.
   float32 dw and hash noise; the smoke LM's logits on the card within 2e-6
   of their largest magnitude of the CPU's; two CLI steps on the card with
   two kernel launches per analog path per step.
+* The rest of the LM zoo (MoE, MLA, RG-LRU, SSD, enc-dec): each smoke
+  LM's logits and MoE aux loss on the card within 2e-6 of the CPU's (320
+  tokens: MoE's einsum dispatch; 128: its gather dispatch); the gathers of
+  the model path (the embedding read, MoE's expert selection and ragged
+  permutations, SSD's head repeat) give bit-identical gradients from run
+  to run on the card, where ``F.embedding`` and ``index_select`` with
+  repeated ids add with atomics.
 """
 import numpy as np
 import pytest
@@ -438,3 +445,79 @@ def test_train_cli_on_the_card(cuda):
     assert all(np.isfinite(m["loss"]) for m in hist) and len(hist) == 2
     assert all(st["W"].is_cuda and st["W"].dtype == torch.bfloat16
                for st in state["tiles"].classes.values())
+
+
+ZOO = ["mixtral-8x7b", "deepseek-v2-236b", "minicpm3-4b", "recurrentgemma-9b",
+       "mamba2-2.7b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [80, 32])
+@pytest.mark.parametrize("arch", ZOO)
+def test_lm_zoo_forward_on_the_card_matches_the_cpu(cuda, arch, seq):
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import tree_map
+    from repro_torch.models.lm import LM
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch, smoke=True)
+    model = LM(cfg)
+    params = model.init(prng.PRNGKey(0), device="cpu")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, seq)).astype(np.int32))
+    frames = None
+    if cfg.frontend:
+        frames = torch.from_numpy((0.1 * rng.standard_normal(
+            (4, seq, cfg.d_model))).astype(np.float32))
+    with torch.no_grad():
+        want, aux = model.forward(params, toks, frames)
+        got, aux_card = model.forward(
+            tree_map(lambda t: t.cuda(), params), toks.cuda(),
+            None if frames is None else frames.cuda())
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 2e-6 * want.abs().max().item(), err
+    np.testing.assert_allclose(aux_card.item(), aux.item(), rtol=2e-6)
+
+
+@pytest.mark.cuda
+def test_model_gathers_are_reproducible_on_the_card(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe
+
+    gen = torch.Generator(device="cuda")
+    ids = torch.randint(0, 64, (8, 4096), device="cuda", generator=gen)
+    gate = torch.randint(0, 8, (256, 2), device="cuda", generator=gen)
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b", smoke=True),
+                              moe_impl="ragged")
+
+    def grads(fn, *shapes):
+        gen.manual_seed(1)
+        ins = [torch.randn(s, device="cuda", generator=gen).requires_grad_(True)
+               for s in shapes]
+        out = fn(*ins)
+        return torch.autograd.grad(out, ins, torch.ones_like(out))
+
+    def ragged(x, wi, wg, wo):
+        p = {"router": torch.zeros(64, 8, device="cuda"), "wi": wi, "wg": wg,
+             "wo": wo}
+        xt = x.reshape(1, 256, 64)
+        _, gv, _, _ = moe.route(p, xt, cfg)
+        # 512 (token, slot) pairs on 8 experts: each row of wi read 64 times
+        return moe._ragged_moe(p, xt, gv, gate.reshape(1, 256, 2), cfg)
+
+    cases = {
+        "take_rows": (lambda w: common.take_rows(w, ids), [(64, 256)]),
+        "select_experts": (lambda w: moe._select_experts(w, gate),
+                           [(8, 64, 32)]),
+        "ragged": (ragged, [(256, 64), (8, 64, 32), (8, 64, 32), (8, 32, 64)]),
+        "ssd_head_repeat": (lambda x: x.reshape(8, 512, 1, 1, 128).expand(
+            8, 512, 1, 80, 128).reshape(8, 512, 80, 128), [(8, 512, 1, 128)]),
+    }
+    for name, (fn, shapes) in cases.items():
+        first = grads(fn, *shapes)
+        for _ in range(4):
+            again = grads(fn, *shapes)
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), name

@@ -15,10 +15,18 @@ Tolerances (float32 unless stated):
   dense-attention archs, from the JAX package's parameters converted with
   ``repro_torch.convert.params``: logits within 2e-6 of their largest
   magnitude, loss within ``rtol=1e-6``, every gradient leaf within 1e-5 of
-  its largest magnitude.
+  its largest magnitude (``check_forward_loss_and_grads``, which the files
+  of the other block families, ``test_torch_{moe,mla,recurrent,encdec}``,
+  run on their archs).
 * ``LM.init`` against JAX's ``init`` from the same key: the same tree,
   shapes and dtypes; values at most 4 float32 ULP apart
   (``prng.normal`` is at most 3 ULP off ``jax.random.normal``).
+  ``abstract_params`` of all ten archs at full width against
+  ``jax.eval_shape``: the same paths, shapes and dtypes. The depth cut of
+  the card's full-width runs (``step_profile.cut_depth``) keeps every
+  other field; their plans' analog paths and elements, exact.
+* Every arch inits; the modes serving brings (``prefill``, ``chunk``,
+  ``decode``) raise ``NotImplementedError`` naming ROADMAP item 14.
 * The analog plan of the qwen2 smoke config: ``describe_plan``, the
   TileBank index and class index identical.
 * Three analog train steps of the qwen2 smoke config (E-RIDER,
@@ -34,8 +42,10 @@ Tolerances (float32 unless stated):
   pulse (``2 * dw_min``: the response is below 2) or one bfloat16 ULP.
   The pulse-update wrapper runs 2 x 12 = 24 times a step under ``vmap``
   (two arrays per analog path) and 2 x 7 = 14 under ``fused`` (two per
-  scan class).
+  scan class) (``check_analog_train_steps``; deepseek-v2-236b and
+  mamba2-2.7b in ``test_torch_{moe,recurrent}_train.py``).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -58,7 +68,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models.lm import LM as JLM  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core.device import DeviceConfig  # noqa: E402
 from repro_torch.core.digital_opt import DigitalOptConfig, ScheduleConfig  # noqa: E402
 from repro_torch.core.paths import TensorSpec, flatten_with_path, tree_map_with_path  # noqa: E402
@@ -66,12 +76,10 @@ from repro_torch.core.tile import TileConfig  # noqa: E402
 from repro_torch.core.trainer import AnalogTrainer, TrainerConfig  # noqa: E402
 from repro_torch.core.trainer import default_analog_filter  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import attention, common  # noqa: E402
+from repro_torch.models import attention, blocks, common  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 
 DENSE = ["gemma3-4b", "qwen2-0.5b", "qwen2-vl-2b", "qwen3-14b"]
-NOT_PORTED = ["deepseek-v2-236b", "mamba2-2.7b", "minicpm3-4b",
-              "mixtral-8x7b", "recurrentgemma-9b", "seamless-m4t-large-v2"]
 B, S = 2, 32
 
 
@@ -188,8 +196,11 @@ def _batch(cfg):
     return batch
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_lm_forward_loss_and_grads_match_jax(arch):
+def check_forward_loss_and_grads(arch):
+    """``LM.forward`` / ``LM.loss`` / every gradient of the smoke config of
+    ``arch`` against the JAX package's, from JAX's parameters converted
+    (the reference's ``test_forward_and_grads``, B=2, S=32). The MoE aux
+    loss rides in the loss and its own ``moe_aux`` entry."""
     (jm, jp), tm = _jax_lm(arch), LM(get_config(arch, smoke=True))
     tp = convert.params(jax.tree.map(np.asarray, jp), "cpu")
     batch = _batch(jm.cfg)
@@ -197,11 +208,17 @@ def test_lm_forward_loss_and_grads_match_jax(arch):
     tb = {k: _t(v) for k, v in batch.items()}
     with torch.no_grad():
         logits, aux = tm.forward(tp, tb["tokens"], tb.get("frames"))
-    assert logits.shape == (B, S, jm.cfg.vocab) and float(aux) == 0.0
+    assert logits.shape == (B, S, jm.cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    if not jm.cfg.n_experts:
+        assert float(aux) == 0.0
 
     def jloss_fn(p):  # jm.loss, with the logits kept: one compile
-        jlogits, _ = jm.forward(p, jb["tokens"], jb.get("frames"))
+        jlogits, jaux_moe = jm.forward(p, jb["tokens"], jb.get("frames"))
         loss, aux = jcommon.softmax_cross_entropy(jlogits, jb["labels"])
+        if jm.cfg.n_experts:
+            loss = loss + jm.cfg.aux_loss_coef * jaux_moe
+            aux["moe_aux"] = jaux_moe
         return loss, (aux, jlogits)
 
     (jloss, (jaux, jlogits)), jgrads = jax.jit(
@@ -210,17 +227,24 @@ def test_lm_forward_loss_and_grads_match_jax(arch):
     leaves = {p: leaf.requires_grad_(True) for p, leaf in flatten_with_path(tp)}
     loss, aux = tm.loss(tree_map_with_path(lambda p, _: leaves[p], tp), tb, None)
     grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert loss.item() > 0
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
-    np.testing.assert_allclose(float(aux["ce"]), float(jaux["ce"]), rtol=1e-6)
+    assert sorted(aux) == sorted(jaux)
+    for k in ("ce", "moe_aux"):
+        if k in jaux:
+            np.testing.assert_allclose(aux[k].item(), float(jaux[k]),
+                                       rtol=1e-6, err_msg=k)
     assert float(aux["accuracy"]) == float(jaux["accuracy"])
     jflat = dict(flatten_with_path(jax.tree.map(np.asarray, jgrads)))
     assert sorted(jflat) == sorted(leaves)
     for p, g in zip(leaves, grads):
+        assert bool(torch.isfinite(g).all()), p
         _close(g, jflat[p], 1e-5, p)
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_lm_init_matches_jax(arch):
+def check_init(arch):
+    """``LM.init`` against JAX's ``init`` from the same key: the same tree,
+    shapes and dtypes; values at most 4 float32 ULP apart."""
     _, jp = _jax_lm(arch)
     tp = LM(get_config(arch, smoke=True)).init(prng.PRNGKey(0), device="cpu")
     want = flatten_with_path(jax.tree.map(np.asarray, jp))
@@ -229,7 +253,20 @@ def test_lm_init_matches_jax(arch):
     for (p, t), (_, a) in zip(got, want):
         assert tuple(t.shape) == a.shape and str(t.dtype) == f"torch.{a.dtype}", p
         ulp = np.spacing(np.abs(a)).astype(np.float32)
-        assert np.all(np.abs(t.numpy() - a) <= 4 * ulp), p
+        off = np.abs(t.numpy() - a) / ulp
+        worst = np.unravel_index(np.argmax(off), off.shape)
+        assert off[worst] <= 4, (p, worst, float(off[worst]), a[worst],
+                                 t.numpy()[worst])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_lm_forward_loss_and_grads_match_jax(arch):
+    check_forward_loss_and_grads(arch)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_lm_init_matches_jax(arch):
+    check_init(arch)
 
 
 def test_abstract_params_allocate_nothing_and_match_init():
@@ -247,10 +284,63 @@ def test_abstract_params_allocate_nothing_and_match_init():
     assert all(s.dtype == torch.bfloat16 for _, s in flatten_with_path(full))
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_full_width_abstract_params_match_jax(arch):
+    """``abstract_params`` of every arch at full width (the 4-D expert
+    stacks, the float32 SSD leaves, the encoder tree) against
+    ``jax.eval_shape`` of the reference's ``init``: the same paths, shapes
+    and dtypes, drawing nothing."""
+    want = flatten_with_path(JLM(jget(arch)).abstract_params())
+    got = flatten_with_path(LM(get_config(arch)).abstract_params(device="cpu"))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, t), (_, a) in zip(got, want):
+        assert tuple(t.shape) == a.shape, p
+        assert str(t.dtype) == f"torch.{np.dtype(a.dtype).name}", p
+
+
+@pytest.mark.parametrize("arch,n_paths,n_analog,largest", [
+    ("minicpm3-4b", 15, 689_426_432, 188_026_880),
+    ("mamba2-2.7b", 14, 321_689_472, 104_857_600)])
+def test_depth_cut_of_the_full_width_runs(arch, n_paths, n_analog, largest):
+    """The full-width LM runs on the card (``chip_smoke.py`` phase 11,
+    ``benchmarks/step_profile.py --layers 8``) cut the depth to 8 layers and
+    nothing else: the plan of the CLI's trainer over the cut tree, its
+    analog paths, elements and largest leaf (bf16 tiles, 8 B an element)."""
+    from repro_torch.benchmarks.step_profile import cut_depth
+    from repro_torch.launch import train
+
+    full = get_config(arch)
+    cfg = cut_depth(full, 8)
+    assert cfg.n_layers == cfg.n_periods == 8
+    assert dataclasses.replace(cfg, n_layers=full.n_layers,
+                               n_periods=full.n_periods) == full
+    model = LM(cfg)
+    trainer = train.make_trainer(model, "erider", False, 6)
+    state = trainer.abstract_state(model.abstract_params(device="cpu"),
+                                   device="cpu")
+    bank = state["tiles"]
+    sizes = [int(np.prod(st["W"].shape)) for st in bank.classes.values()]
+    assert sum(len(ps) for _, ps in bank.index) == n_paths
+    assert sum(sizes) == n_analog
+    assert max(int(np.prod(st["W"].shape[2:])) for st in
+               bank.classes.values()) == largest
+    assert {st["W"].dtype for st in bank.classes.values()} == {torch.bfloat16}
+    with pytest.raises(ValueError, match="cannot cut"):
+        cut_depth(get_config("recurrentgemma-9b"), 8)   # a tail
+    with pytest.raises(ValueError, match="cannot cut"):
+        cut_depth(get_config("deepseek-v2-236b"), 8)    # a dense prefix
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_unported_arch_raises_at_init(arch):
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        LM(get_config(arch, smoke=True)).init(prng.PRNGKey(0), device="cpu")
+    """Every arch inits; the modes serving brings (ROADMAP item 14) raise
+    ``NotImplementedError`` naming it, before any layer runs."""
+    cfg = get_config(arch, smoke=True)
+    params = LM(cfg).init(prng.PRNGKey(0), device="cpu")
+    x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
+    for mode in ("prefill", "chunk", "decode"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            blocks.apply_stack(params["stack"], x, cfg, mode)
 
 
 def test_entry_points_default_to_the_card():
@@ -301,8 +391,8 @@ def _carry(js):
     }, "cpu")
 
 
-def _trainers(backend: str, tiles: str):
-    """Both packages' trainers on the qwen2 smoke model: the reference's
+def _trainers(backend: str, tiles: str, arch: str = "qwen2-0.5b"):
+    """Both packages' trainers on the smoke model of ``arch``: the reference's
     ``test_analog_train_step_smoke`` set-up (``tiles="smoke"``, float32
     state, threefry noise), or the training CLI's non-smoke tile config
     and optimizer (``tiles="full"``: bfloat16 state, hash noise, device
@@ -311,7 +401,7 @@ def _trainers(backend: str, tiles: str):
 
     from repro_torch.launch import train
 
-    jm, tm = _jax_lm("qwen2-0.5b")[0], LM(get_config("qwen2-0.5b", smoke=True))
+    jm, tm = _jax_lm(arch)[0], LM(get_config(arch, smoke=True))
     if tiles == "full":
         sched = dict(kind="cosine", base_lr=0.1, total_steps=3)
         jtr = JTrainer(jm.loss, JTrainerConfig(
@@ -345,8 +435,15 @@ def _bf16_ulp(x):
 @pytest.mark.parametrize("backend,tiles,calls", [
     ("vmap", "smoke", 24), ("fused", "smoke", 14), ("vmap", "full", 24)])
 def test_analog_train_step_matches_jax(backend, tiles, calls, monkeypatch):
-    jm, jtr, ttr = _trainers(backend, tiles)
-    js = jtr.init(jax.random.PRNGKey(1), _jax_lm("qwen2-0.5b")[1])
+    check_analog_train_steps("qwen2-0.5b", backend, tiles, calls, monkeypatch)
+
+
+def check_analog_train_steps(arch, backend, tiles, calls, monkeypatch):
+    """Three analog train steps of the smoke config of ``arch`` in both
+    packages from one state carried with ``convert.train_state``; the
+    pulse-update wrapper runs ``calls`` times a step."""
+    jm, jtr, ttr = _trainers(backend, tiles, arch)
+    js = jtr.init(jax.random.PRNGKey(1), _jax_lm(arch)[1])
     ts = _carry(js)
     count = [0]
     wrapped = ops.analog_update

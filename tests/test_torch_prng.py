@@ -5,7 +5,15 @@ Tolerances: integer bits are bit-exact; uniforms and bernoulli draws are
 bit-exact (the port emulates XLA-CPU's fused multiply-add in the scaling);
 normals are within 4 float32 ULP (XLA-CPU's ``log1p``/``sqrt`` differ from
 torch's by up to 2 ULP on some inputs).
+
+In a fresh process that has imported the port, the first multi-threaded
+call of each CPU math kernel the draws use returns the same values as the
+next one (``repro_torch._init_cpu_vector_math``).
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -145,3 +153,34 @@ def test_hash_normal_matches_exact_inverse_cdf(monkeypatch):
     err = np.abs(got - exact)
     assert err.mean() < 1e-4, err.mean()
     assert err.max() < 0.02, err.max()
+
+
+_FIRST_CALL = """
+import sys
+import repro_torch, torch
+g = torch.Generator().manual_seed(0)
+w = torch.rand(512, 640, generator=g) * 0.9 + 0.05
+op = getattr(torch, sys.argv[1])
+first = op(w)
+sys.exit(0 if torch.equal(first, op(w)) else 1)
+"""
+_KERNELS = ("sqrt", "exp", "log", "log1p", "tanh", "sin")
+
+
+def test_first_threaded_math_call_after_import_is_right():
+    """torch's CPU build can return wrong values (on one thread's share of
+    the elements) from the first call into MKL's vector math of a process
+    when it runs on several threads, in some fresh processes. The port
+    makes that first call on one thread when it is imported. Six fresh
+    processes, one after the other, each with another kernel first, check
+    the result after the import. This is a check, not a guard of the
+    warm-up: without it the fault shows in some processes only (the
+    threads must meet), so six can all miss it."""
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    for name in _KERNELS:   # one at a time: the race needs the cores
+        out = subprocess.run([sys.executable, "-c", _FIRST_CALL, name],
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, (name, out.stderr[-2000:])

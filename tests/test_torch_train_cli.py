@@ -15,9 +15,11 @@ the JAX package's (``repro.launch.train``).
   name), a mesh is refused, and ``--data-vocab`` (the port's own flag)
   bounds the token stream.
 """
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -82,6 +84,48 @@ def test_train_cli_with_restart(tmp_path):
     out2 = _run_cli(common + ["--steps", "8"])
     assert "restored checkpoint at step 6" in out2
     assert "[train] step=7 " in out2
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """A smoke run is thousands of small ops; the test workers share the
+    machine's cores, where one intra-op thread a worker runs them several
+    times faster than a full pool each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def run_cli(argv):
+    """``train.main(argv)`` with one intra-op thread."""
+    with _one_thread():
+        return train.main(argv)
+
+
+def check_cli_restart(arch, root, extra=()):
+    """``train.main`` on the smoke config of ``arch`` (``--device cpu``): a
+    4-step run with checkpoints every 2 against the same run cut after its
+    step-2 checkpoint and restarted, bit-equal on every leaf; every logged
+    loss and ``tile/sp_err`` finite. Returns the unbroken run's history."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--ckpt-dir",
+            str(root), "--steps", "4", "--log-every", "1", *extra]
+    state_a, hist_a = run_cli(argv + ["--ckpt-every", "2"])
+    assert [m["step"] for m in hist_a] == [0, 1, 2, 3]
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["tile/sp_err"])
+               for m in hist_a)
+    assert ckpt.latest_step(str(root)) == 4
+    shutil.rmtree(os.path.join(str(root), "step_000000004"))
+    state_b, hist_b = run_cli(argv)
+    assert [m["step"] for m in hist_b] == [2, 3]
+    a = dict(flatten_with_path(convert.to_numpy(state_a)))
+    b = dict(flatten_with_path(convert.to_numpy(state_b)))
+    assert sorted(a) == sorted(b)
+    for p in a:
+        assert np.array_equal(a[p], b[p]), p
+    return hist_a
 
 
 def _jax_state_template(spec: str):
