@@ -86,6 +86,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               path per step; prints ms/step, peak memory and tile bytes.
               Phase 3 also holds K1 bit-equal on mixtral-8x7b's 4-D expert
               stack (1, 8, 4096, 14336), bf16, and times it
+ 12. serve    serving (``repro_torch.serving``, ``launch/serve.py``):
+              (a) the smoke configs of qwen2-0.5b, qwen3-14b, gemma3-4b
+              (also with a prompt past its 16-token window), qwen2-vl-2b and
+              mixtral-8x7b on the reference tests' workload (5 requests,
+              prompt 10, gen 4+-2, 2 lanes, page 4, a shared 8-token
+              prefix, chunk 8): the continuous engine's tokens equal the
+              fixed driver's on the card, and both equal the CPU run's on
+              the same parameters; serving launches no K1/K2/K3;
+              (b) Qwen2-0.5B at full width and depth trained 2 steps by the
+              CLI (48 K1 launches), checkpointed, then served by the serve
+              CLI aged one year with GDC (16 requests, prompt 128, gen 32,
+              8 lanes, page 16, chunk 64) and by the fixed driver: the
+              manifest validates with t0 signatures from the checkpoint,
+              32 tokens a request, each stream equal to the fixed driver's
+              up to a first difference at a near-tie (top two logits
+              within 2 bf16 ULPs); prints tokens/s, TTFT/TPOT p50/p99, the
+              decode step, peak memory, save/restore seconds
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -1432,6 +1449,304 @@ def phase_lm_zoo(card: str):
     print(f"lm_zoo: phase 11 took {time.time() - t0:.1f} s")
     return zoo, full
 
+# Phase 12: serving. (a) The five page-pool smoke archs (qwen2-0.5b,
+# qwen3-14b, gemma3-4b, qwen2-vl-2b, mixtral-8x7b) on the workload of the
+# reference's tests/test_serving_engine.py (5 requests, prompt 10, gen 4+-2,
+# 2 lanes, page 4, a common 8-token prefix, chunk 8, prefix sharing), and
+# gemma3 with a prompt longer than its 16-token window. (b) Qwen2-0.5B at
+# full width and depth (src/repro/configs/qwen2_0_5b.py), trained for 2
+# steps by the CLI (phase 10's argv), checkpointed, then served by the
+# serve CLI from that checkpoint aged one year and drift-compensated: 16
+# requests, prompt 128, gen 32, the dense family's defaults (8 lanes, page
+# 16, chunk 64), prompts over the first 8192 ids; and again through the
+# fixed-batch driver, batch 8.
+SERVE_ARCHS = ["qwen2-0.5b", "qwen3-14b", "gemma3-4b", "qwen2-vl-2b",
+               "mixtral-8x7b"]
+SERVE_CASES = [(a, 10) for a in SERVE_ARCHS] + [("gemma3-4b", 24)]
+SERVE_STEPS = 2
+SERVE_ARGV = ["--arch", "qwen2-0.5b", "--algorithm", "erider", "--age", "1yr",
+              "--gdc", "on", "--requests", "16", "--prompt-len", "128",
+              "--gen", "32", "--data-vocab", "8192", "--device", "cuda"]
+SERVE_BATCH, SERVE_GEN = 8, 32
+
+
+def serve_smoke_run(arch: str, prompt_len: int, params, model):
+    """(fixed tokens, continuous tokens, prefill signatures) of one smoke
+    case on the device of ``params``."""
+    from repro_torch.launch.serve import build_workload, run_fixed
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    wl = build_workload(model.cfg, 5, prompt_len, 4, gen_spread=2,
+                        prefix_len=8)
+    fixed = run_fixed(model, params, [r.clone() for r in wl], batch=5)
+    max_len = prompt_len + max(r.max_new_tokens for r in wl)
+    tw = -(-max_len // 4)
+    ecfg = EngineConfig(lanes=2, page_size=4, num_pages=2 * tw + 1 + 4,
+                        max_len=max_len, prefill_chunk=8, prefix_share=True)
+    engine = ServeEngine(model, params, ecfg)
+    cont, _ = engine.run(wl)
+    return fixed, cont, sorted(engine.prefill_signatures)
+
+
+def same_tokens(a, b) -> bool:
+    import numpy as np
+
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def serve_smoke():
+    """(a): on the card, the continuous engine's tokens equal the fixed
+    driver's for every request, and both equal the port's CPU run on the
+    same parameters (drawn on the CPU and moved); serving launches no
+    kernel of K1, K2 or K3."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM
+
+    launches = dict(ops.LAUNCHES)
+    for arch, prompt_len in SERVE_CASES:
+        model = LM(get_config(arch, smoke=True))
+        cpu = model.init(prng.PRNGKey(0), "cpu")
+        card = tree_map(lambda t: t.cuda(), cpu)
+        fixed, cont, sigs = serve_smoke_run(arch, prompt_len, card, model)
+        fixed_cpu, cont_cpu, _ = serve_smoke_run(arch, prompt_len, cpu, model)
+        check(same_tokens(cont, fixed),
+              f"serve[{arch}, prompt {prompt_len}]: continuous != fixed on "
+              f"the card")
+        check(same_tokens(fixed, fixed_cpu) and same_tokens(cont, cont_cpu),
+              f"serve[{arch}, prompt {prompt_len}]: the card's tokens != the "
+              f"CPU's")
+        n_tok = sum(len(v) for v in cont.values())
+        print(f"serve[{arch}, prompt {prompt_len}]: {len(cont)} requests, "
+              f"{n_tok} tokens: continuous == fixed on the card == the CPU "
+              f"run; prefill signatures (Cb, Bb, tw) {sigs}")
+    check(dict(ops.LAUNCHES) == launches,
+          f"serving launched a kernel: {launches} -> {dict(ops.LAUNCHES)}")
+
+
+def run_serve(argv):
+    """``repro_torch.launch.serve.main`` in this process; returns (results,
+    summary, engine, seconds)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    results, summary, engine = serve.main(argv)
+    torch.cuda.synchronize()
+    return results, summary, engine, time.perf_counter() - t0
+
+
+def fixed_top2(model, params, workload):
+    """The fixed-batch driver again, recording the two largest logits of
+    every row at every step: {request_id: (32, 2) float32}, and its tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import run_fixed
+    from repro_torch.serving import sample_greedy
+
+    rec = []
+
+    def top2(logits):
+        rec.append(torch.topk(logits[:, -1].float(), 2, dim=-1).values.cpu())
+
+    def prefill(params, feed, cache):
+        logits, cache = model.prefill(params, feed, cache)
+        top2(logits)
+        return logits, cache
+
+    def step(params, tok, cache, pos):
+        logits, cache = model.decode_step(params, tok, cache, pos)
+        top2(logits)
+        return sample_greedy(logits), cache
+
+    tokens = run_fixed(model, params, workload, SERVE_BATCH,
+                       fns=(prefill, step))
+    out = {}
+    for i, r in enumerate(workload):
+        g, lane = divmod(i, SERVE_BATCH)
+        out[r.request_id] = np.stack(
+            [rec[g * SERVE_GEN + j][lane].numpy() for j in range(SERVE_GEN)])
+    return out, tokens
+
+
+def serve_full(root: str, card: str):
+    """(b): train, checkpoint, restore, age, compensate and serve
+    Qwen2-0.5B at full width and depth. Gates: 2 K1 launches per analog
+    path per training step and none while serving; the manifest validates,
+    its lifetime block names the checkpoint's t0 signatures and carries the
+    drift scales; every request has 32 tokens; each request's stream
+    equals the fixed driver's up to its first difference, if it has one,
+    and there the fixed driver's two largest logits lie within 2 bfloat16
+    ULPs of the largest's magnitude (a near-tie that another summation
+    order may break either way)."""
+    import gc
+    import json as _json
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.digital_opt import DigitalOptConfig, ScheduleConfig
+    from repro_torch.core.trainer import AnalogTrainer, TrainerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_workload, parse_age
+    from repro_torch.launch.train import make_plan
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import load_effective_params, schema
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist, _ = run_cli(LM_ARGV + [
+        "--steps", str(SERVE_STEPS), "--ckpt-dir", root, "--ckpt-every",
+        str(SERVE_STEPS), "--device", "cuda"])
+    train_s = time.perf_counter() - t0
+    n_paths = sum(len(ps) for _, ps in state["tiles"].index)
+    check(ops.LAUNCHES["analog_update"] == 2 * n_paths * SERVE_STEPS,
+          f"serve: training launched K1 {ops.LAUNCHES['analog_update']} times")
+    timed = os.path.join(root, "timed_save")
+    t0 = time.perf_counter()
+    ckpt.save(state, timed, SERVE_STEPS)
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(timed, ignore_errors=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = LM(get_config("qwen2-0.5b"))
+    trainer = AnalogTrainer(
+        model.loss,
+        TrainerConfig(digital=DigitalOptConfig(kind="sgdm"),
+                      schedule=ScheduleConfig(kind="constant", base_lr=0.0)),
+        plan=make_plan("erider", False))
+    template = trainer.abstract_state(model.abstract_params("cuda"), "cuda")
+    t0 = time.perf_counter()
+    restored = ckpt.restore(template, root)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del restored, template
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = dict(ops.LAUNCHES)
+    out = os.path.join(root, "out")
+    os.makedirs(out, exist_ok=True)
+    man_path = os.path.join(out, "manifest.json")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cont, summary, engine, cont_s = run_serve(SERVE_ARGV + [
+        "--ckpt-dir", root, "--log-json", os.path.join(out, "log.jsonl"),
+        "--manifest", man_path, "--dump-tokens",
+        os.path.join(out, "continuous.json")])
+    peak = torch.cuda.max_memory_allocated()
+    sigs = sorted(engine.prefill_signatures)
+    ecfg = engine.ecfg
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    fixed, fsummary, _, fixed_s = run_serve(SERVE_ARGV + [
+        "--ckpt-dir", root, "--engine", "fixed", "--batch", str(SERVE_BATCH),
+        "--dump-tokens", os.path.join(out, "fixed.json")])
+    check(dict(ops.LAUNCHES) == launches, "serve: serving launched a kernel")
+
+    with open(man_path) as f:
+        manifest = _json.load(f)
+    schema.validate_manifest(manifest)
+    with open(os.path.join(out, "log.jsonl")) as f:
+        for line in f:
+            schema.validate_log_line(_json.loads(line))
+    life = manifest.get("lifetime", {})
+    check(life.get("t0_signature") == "checkpoint",
+          f"serve: t0_signature {life.get('t0_signature')}")
+    check(bool(life.get("drift_scale")), "serve: no drift_scale")
+    check(life.get("age_s") == parse_age("1yr") and life.get("gdc") is True,
+          "serve: lifetime block")
+    check(len(cont) == 16 and all(len(v) == SERVE_GEN for v in cont.values()),
+          "serve: a request without 32 tokens")
+    check(set(fixed) == set(cont), "serve: fixed and continuous requests")
+    firsts = {}
+    for rid in sorted(cont):
+        a, b = cont[rid], fixed[rid]
+        diff = [j for j in range(SERVE_GEN) if a[j] != b[j]]
+        if diff:
+            firsts[rid] = diff[0]
+    # the fixed driver once more, in process, recording its two top logits
+    # at every step: it must reproduce the CLI's tokens, and every first
+    # difference must sit at a near-tie
+    t0 = time.perf_counter()
+    params, _ = load_effective_params(
+        model, root, "erider", False, age_s=parse_age("1yr"), gdc=True,
+        with_report=True, device="cuda")
+    workload = build_workload(model.cfg, 16, 128, SERVE_GEN, data_vocab=8192)
+    top2, again = fixed_top2(model, params, workload)
+    del params
+    check(same_tokens(again, fixed), "serve: the fixed driver is not "
+                                     "reproducible")
+    gaps = []
+    for rid in sorted(top2):
+        hi, lo = top2[rid][:, 0], top2[rid][:, 1]
+        ulp = bf16_ulp(torch.from_numpy(hi).abs()).numpy()
+        gaps.append(float(((hi - lo) / ulp).min()))
+    ties = 0
+    for rid, j in firsts.items():
+        hi, lo = (float(v) for v in top2[rid][j])
+        ulp = float(bf16_ulp(torch.tensor(abs(hi))))
+        print(f"serve: {rid} first differs at token {j}: fixed top logits "
+              f"{hi!r} / {lo!r}, gap {hi - lo:.6g} = {(hi - lo) / ulp:g} "
+              f"bf16 ULP")
+        check(hi - lo <= 2 * ulp, f"serve: {rid} differs at token {j} "
+                                  f"without a near-tie")
+        ties += 1
+    print(f"serve: the fixed driver's top-two logit gap, smallest over each "
+          f"request's 32 steps: median {statistics.median(gaps):g}, least "
+          f"{min(gaps):g} bf16 ULP (a gap of <= 2 is a near-tie; near-tie "
+          f"check {time.perf_counter() - t0:.1f} s)")
+    lat = manifest["latency_s"]
+    steps = manifest["throughput"]["steps"]
+    print(f"serve: qwen2-0.5b full width and depth, trained {SERVE_STEPS} "
+          f"steps ({train_s:.1f} s with its checkpoint), aged 1 yr, GDC "
+          f"({len(life['drift_scale'])} scan classes, t0 signatures from the "
+          f"checkpoint); continuous: {ecfg.lanes} lanes, page "
+          f"{ecfg.page_size}, chunk {manifest['engine']['prefill_chunk']}, "
+          f"{ecfg.num_pages} pages; requests equal to the fixed driver's: "
+          f"{16 - len(firsts)} of 16, the rest at near-ties: {ties}")
+    print(f"serve: {summary['tokens_per_s']:.2f} tokens/s continuous "
+          f"({summary['generated_tokens']} tokens in {summary['wall_s']:.3f} "
+          f"s, {steps} decode steps), {fsummary['tokens_per_s']:.2f} tokens/s "
+          f"fixed (batch {SERVE_BATCH}), on {card}")
+    print(f"serve: TTFT p50 {lat['ttft']['p50'] * 1e3:.2f} ms, p99 "
+          f"{lat['ttft']['p99'] * 1e3:.2f} ms; TPOT p50 "
+          f"{lat['tpot']['p50'] * 1e3:.2f} ms, p99 {lat['tpot']['p99'] * 1e3:.2f}"
+          f" ms; decode step median {lat['gap']['p50'] * 1e3:.2f} ms (the "
+          f"pooled inter-token gap), on {card}")
+    print(f"serve: peak allocated {peak / 2 ** 30:.3f} GiB during the "
+          f"continuous CLI run ({before / 2 ** 30:.3f} GiB before; restore, "
+          f"age, GDC and serving), on {card}")
+    print(f"serve: save {save_s:.2f} s (sync, no signatures), restore "
+          f"{restore_s:.2f} s (abstract template, on the card), CLI runs "
+          f"{cont_s:.1f} s continuous / {fixed_s:.1f} s fixed (restore, "
+          f"lifetime, workload and serving), on {card}")
+    print(f"serve: prefill signatures (Cb, Bb, tw) {sigs}")
+    return dict(tokens_per_s=summary["tokens_per_s"],
+                step_ms=lat["gap"]["p50"] * 1e3, peak_bytes=peak,
+                train_launches=2 * n_paths * SERVE_STEPS)
+
+
+def phase_serve(card: str):
+    t0 = time.time()
+    serve_smoke()
+    root = os.path.join(ROOT, "build", "serve_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        full = serve_full(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"serve: phase 12 took {time.time() - t0:.1f} s")
+    return full
+
 
 def main() -> int:
     import torch
@@ -1490,8 +1805,13 @@ def main() -> int:
         print(f"lm[{arch}]: {r['step_ms']:.2f} ms/step, peak "
               f"{r['peak_bytes'] / 2 ** 30:.3f} GiB on {card}")
 
+    serve = phase_serve(card)
+    print(f"serve: {serve['tokens_per_s']:.2f} tokens/s, decode step "
+          f"{serve['step_ms']:.2f} ms on {card}")
+
     kern["launches"] = (launches + lm["launches"] + zoo
-                        + sum(r["launches"] for r in full.values()))
+                        + sum(r["launches"] for r in full.values())
+                        + serve["train_launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
     kern["full_width"] = full

@@ -1,8 +1,10 @@
 """Architecture registry: the 10 architectures of the JAX package's configs.
 
 Plain data. All ten build, run forward and train in the port
-(``models.lm.LM``); the cache modes of serving raise
-``NotImplementedError`` (``models.blocks.check_ported``).
+(``models.lm.LM``); the page-pool attention archs (qwen2-0.5b, qwen3-14b,
+gemma3-4b, qwen2-vl-2b, mixtral-8x7b) also serve, and the serve caches of
+the others raise ``NotImplementedError`` (``models.blocks.check_ported``,
+ROADMAP item 14b). ``serving.py`` holds the per-family serving defaults.
 """
 from __future__ import annotations
 

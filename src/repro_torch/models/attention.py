@@ -15,7 +15,20 @@ This is plain PyTorch in the reference's order of operations: ``q`` scaled
 by ``Dk ** -0.5`` in its storage dtype, scores and accumulators in
 float32, masked scores at ``NEG_INF``, ``l`` floored at 1e-37, the output
 cast to ``q``'s dtype. ``F.scaled_dot_product_attention`` would sum in
-another order. The decode / prefill / paged paths come with serving.
+another order.
+
+The serve half (grouped-query attention only; MLA's latent cache waits
+for ROADMAP item 14b): the dense decode cache of the fixed-batch driver
+(``make_attn_cache``, ``attn_prefill``, ``attn_decode``; a ring buffer
+under a sliding window), and the paged KV pools of the continuous engine
+(``make_paged_attn_cache``, ``attn_decode_paged``, ``attn_chunk_paged``,
+``commit_prefill_pages``). Where JAX returns new pools from
+``.at[].set``, the port writes into the caller's cache tensors in place
+(``index_copy_`` on flat views) and returns the same dict, so a decode
+step copies no pool. Two reads differ from ``jnp``'s semantics in torch
+and are clamped first: an index past a page-table row (``jnp`` clamps a
+gather, and fills ``take_along_axis`` with INT_MIN, which the reference
+then masks).
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ import torch
 
 from .. import prng
 from ..configs.base import ModelConfig
+from ..core.paths import TensorSpec
 from .common import (apply_mrope, apply_rope, dense_init, dot, einsum,
                      rms_norm, zeros)
 
@@ -248,6 +262,300 @@ def attn_forward(p, x, cfg: ModelConfig, *, kind: str, positions, causal=True):
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk)
     return dot(out.reshape(x.shape[0], x.shape[1], -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# decode attention and the dense decode cache (fixed-batch driver)
+# ---------------------------------------------------------------------------
+
+
+def _softmax(s):
+    """``jax.nn.softmax`` over the last axis in its order of operations:
+    ``exp(s - max)`` divided by its sum (torch's softmax multiplies by the
+    sum's reciprocal)."""
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def _decode_core(q, k, v, valid):
+    """One query per row over a cache: q (B,1,H,Dk); k/v (B,Sc,KV,D*);
+    ``valid`` (B or 1, Sc) bool. Float32 scores, ``q`` scaled by
+    ``Dk ** -0.5`` in float32, as the reference's decode attention."""
+    B, _, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    G = H // KV
+    qg = (q.to(torch.float32) * (Dk ** -0.5)).reshape(B, KV, G, Dk)
+    s = _f32_einsum("bkgd,bckd->bkgc", qg, k)
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    out = _f32_einsum("bkgc,bckd->bkgd", _softmax(s), v)
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def decode_attention(q, k, v, *, k_pos, pos, window: int = 0):
+    """Single-token attention over a cache. q: (B, 1, H, Dk); k/v:
+    (B, Sc, KV, D*); k_pos: (Sc,) stored absolute positions (-1 = empty
+    slot); pos: the current position (an int or a 0-d tensor)."""
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    if window and window > 0:
+        valid = valid & (k_pos > pos - window)
+    return _decode_core(q, k, v, valid[None])
+
+
+def decode_attention_lanes(q, k, v, *, k_pos, pos, window: int = 0):
+    """Single-token attention where every lane sits at its own position:
+    k_pos (B, Sc) logical positions per lane (-1 = empty slot), pos (B,)
+    the position each lane writes this step."""
+    valid = (k_pos >= 0) & (k_pos <= pos[:, None])
+    if window and window > 0:
+        valid = valid & (k_pos > (pos[:, None] - window))
+    return _decode_core(q, k, v, valid)
+
+
+def attn_prefill(p, x, cfg: ModelConfig, *, kind: str, positions, cache):
+    """Full-sequence forward that also fills the dense KV cache (in place).
+    A sliding-window cache shorter than the prompt keeps the last ``Sc``
+    positions in ring order (slot = pos % Sc)."""
+    q, k, v = _qkv(p, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+    window = cfg.window if kind == "attn_local" else 0
+    out = chunked_attention(q, k, v, causal=True, window=window,
+                            chunk=cfg.attn_chunk)
+    out = dot(out.reshape(x.shape[0], x.shape[1], -1), p["wo"])
+    S = x.shape[1]
+    Sc = cache["k"].shape[1]
+    dt = cache["k"].dtype
+    if Sc >= S:
+        cache["k"][:, :S] = k.to(dt)
+        cache["v"][:, :S] = v.to(dt)
+        cache["pos"][:S] = torch.arange(S, dtype=torch.int32,
+                                        device=cache["pos"].device)
+    else:
+        kpos = torch.arange(S - Sc, S, dtype=torch.int32, device=k.device)
+        perm = torch.argsort(kpos % Sc)
+        cache["k"].copy_(k[:, S - Sc:][:, perm].to(dt))
+        cache["v"].copy_(v[:, S - Sc:][:, perm].to(dt))
+        cache["pos"].copy_(kpos[perm])
+    return out, cache
+
+
+def attn_decode(p, x, cfg: ModelConfig, *, kind: str, pos, cache):
+    """One-token decode at position ``pos`` (an int: every row of the
+    batch writes the same slot). cache: {'k','v': (B,Sc,KV,D), 'pos':
+    (Sc,)}, written in place."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    posb = torch.full((B, 1), int(pos), dtype=torch.int64, device=x.device)
+    q, k = _rope_qk(q, k, posb, cfg)
+    Sc = cache["k"].shape[1]
+    slot = int(pos) % Sc  # ring when local; Sc >= S_max when global
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = int(pos)
+    window = cfg.window if kind == "attn_local" else 0
+    out = decode_attention(q, cache["k"], cache["v"], k_pos=cache["pos"],
+                           pos=int(pos), window=window)
+    return dot(out.reshape(B, 1, -1), p["wo"]), cache
+
+
+def _cache_leaves(shapes, abstract: bool, device):
+    if abstract:
+        return {n: TensorSpec(s, dt, device) for n, (s, dt) in shapes.items()}
+    return {n: torch.zeros(s, dtype=dt, device=device)
+            for n, (s, dt) in shapes.items()}
+
+
+def make_attn_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                    abstract=False, device="cuda"):
+    Sc = (min(cfg.window, seq_len) if (kind == "attn_local" and cfg.window)
+          else seq_len)
+    KV, D = cfg.n_kv, cfg.head_dim
+    c = _cache_leaves({"k": ((batch, Sc, KV, D), cfg.dtype),
+                       "v": ((batch, Sc, KV, D), cfg.dtype),
+                       "pos": ((Sc,), torch.int32)}, abstract, device)
+    if not abstract:
+        c["pos"].fill_(-1)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (continuous-batching serve engine)
+# ---------------------------------------------------------------------------
+#
+# The pool holds ``num_pages`` fixed-size pages shared by every lane; a page
+# table row (per lane) maps logical slot j -> physical slot
+# table[j // page_size] * page_size + j % page_size. Page 0 is reserved as a
+# scratch page: free lanes point their whole table row at it, so their decode
+# writes land in storage no active lane ever gathers.
+#
+# Scatters with repeated indices: ``index_copy_`` keeps an arbitrary writer
+# of a repeated slot on CUDA. Two kinds of repeats occur, and both are
+# harmless only while these facts hold: (1) free lanes, masked chunk tails
+# and invalid ring slots all write the scratch page, which no live lane
+# ever reads (its table row never maps a position it attends to page 0);
+# (2) the engine pads a prefill batch by repeating its row 0, and those rows
+# compute the same K/V from the same inputs, so every writer of their slots
+# writes the same values.
+
+
+def make_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                          abstract=False, device="cuda"):
+    KV, D = cfg.n_kv, cfg.head_dim
+    return _cache_leaves({"kp": ((num_pages, page_size, KV, D), cfg.dtype),
+                          "vp": ((num_pages, page_size, KV, D), cfg.dtype)},
+                         abstract, device)
+
+
+def _flat(pool):
+    """(P, page_size, KV, D) pool -> its (P * page_size, KV, D) view."""
+    return pool.view(pool.shape[0] * pool.shape[1], *pool.shape[2:])
+
+
+def _gather_pages(flat, table, ps: int):
+    """Every lane's pages in logical order: (B, T * ps, KV, D)."""
+    B, T = table.shape
+    gidx = (table[:, :, None] * ps
+            + torch.arange(ps, device=table.device)[None, None, :]).reshape(B, T * ps)
+    return flat[gidx]
+
+
+def attn_decode_paged(p, x, cfg: ModelConfig, *, kind: str, pos, table, cache):
+    """One-token decode against a paged KV pool.
+
+    x: (B,1,d); pos: (B,) per-lane write position; table: (B,T) page table;
+    cache: {'kp','vp': (P, page_size, KV, D)} shared pools. Writes this
+    token's K/V into each lane's page slot, then gathers the lane's pages
+    back into a (B, T*page_size, KV, D) view for ``decode_attention_lanes``.
+    A free lane's position drifts past its (all-scratch) row: its page
+    column is clamped to the row's last, as ``jnp`` clamps the read.
+    """
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    q, k = _rope_qk(q, k, pos[:, None], cfg)
+    ps = cache["kp"].shape[1]
+    kflat, vflat = _flat(cache["kp"]), _flat(cache["vp"])
+    table, pos = table.long(), pos.long()
+    T = table.shape[1]
+    col = torch.clamp(pos // ps, max=T - 1)
+    widx = table[torch.arange(B, device=x.device), col] * ps + pos % ps
+    kflat.index_copy_(0, widx, k[:, 0].to(kflat.dtype))
+    vflat.index_copy_(0, widx, v[:, 0].to(vflat.dtype))
+    kl, vl = _gather_pages(kflat, table, ps), _gather_pages(vflat, table, ps)
+    k_pos = torch.arange(T * ps, dtype=torch.int64, device=x.device)[None].expand(B, T * ps)
+    window = cfg.window if kind == "attn_local" else 0
+    out = decode_attention_lanes(q, kl, vl, k_pos=k_pos, pos=pos, window=window)
+    return dot(out.reshape(B, 1, -1), p["wo"]), cache
+
+
+def _chunk_attention(q, k, v, *, q_pos, k_pos, window: int = 0,
+                     chunk: int = 1024):
+    """Online-softmax attention with per-row masks, mirroring
+    ``_flash_fwd_impl`` update for update (the same m/l/acc recurrence,
+    einsums and casts). Masked keys contribute exactly zero
+    (``exp(NEG_INF - m) == 0``), so over a key set whose valid subset is
+    the dense path's, a one-chunk run gives the dense forward's bits: the
+    identity the engine's batched and chunked prefill rides on.
+
+    q: (B,Sq,H,Dk); k/v: (B,Sk,KV,D*); q_pos: (B,Sq) absolute positions of
+    the queries; k_pos: (B,Sk) stored positions (-1 = empty/stale slot).
+    """
+    B, Sq, H, Dk = q.shape
+    _, Sk, KV, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // KV
+    f32 = torch.float32
+    chunk = min(chunk, Sk)
+    qg = _scaled_q(q, KV)
+    kc, vc, n_chunks = _flash_chunks(k, v, chunk)
+    pad = (-Sk) % chunk
+    if pad:
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+    kpc = k_pos.reshape(B, n_chunks, chunk).transpose(0, 1)       # (n,B,chunk)
+    neg = torch.full((), NEG_INF, dtype=f32, device=q.device)
+
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, Dv), dtype=f32, device=q.device)
+    for ci in range(n_chunks):
+        kb, vb, kp = kc[ci], vc[ci], kpc[ci]
+        s = _f32_einsum("bqkgd,bckd->bqkgc", qg, kb)
+        mask = (kp[:, None, :] >= 0) & (kp[:, None, :] <= q_pos[:, :, None])
+        if window and window > 0:
+            mask = mask & (kp[:, None, :] > q_pos[:, :, None] - window)
+        s = torch.where(mask[:, :, None, None, :], s, neg)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + _f32_einsum(
+            "bqkgc,bckd->bqkgd", p.to(vb.dtype), vb)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-37)
+    return (acc / l_safe[..., None]).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def attn_chunk_paged(p, x, cfg: ModelConfig, *, kind: str, positions, lengths,
+                     table, cache):
+    """Batched bucketed/chunked prefill straight into the paged KV pools.
+
+    x: (B,Cb,d) right-padded chunk batch; positions: (B,Cb) absolute
+    positions (``start + j``); lengths: (B,) valid run per row; table: (B,T)
+    page-table rows. Scatters the chunk's K/V into each row's pages first
+    (padded slots land on the scratch page), then attends the chunk queries
+    over the row's gathered logical view (earlier chunks and shared prefix
+    pages included) under a ``k_pos <= q_pos`` mask, so one call serves
+    plain bucketed prefill, chunk continuation and prefix-shared tails.
+    The padded tail of a bucket can reach past the table's width: its page
+    column is clamped before the read (the reference reads INT_MIN there)
+    and masked to the scratch slot, as the reference masks it.
+    """
+    B, Cb, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+    ps = cache["kp"].shape[1]
+    kflat, vflat = _flat(cache["kp"]), _flat(cache["vp"])
+    table, positions = table.long(), positions.long()
+    T = table.shape[1]
+    valid = (torch.arange(Cb, device=x.device)[None, :]
+             < lengths.long()[:, None])
+    page_of = torch.gather(table, 1, torch.clamp(positions // ps, max=T - 1))
+    widx = torch.where(valid, page_of * ps + positions % ps,
+                       torch.zeros((), dtype=torch.int64, device=x.device)).reshape(-1)
+    kflat.index_copy_(0, widx, k.reshape(B * Cb, *k.shape[2:]).to(kflat.dtype))
+    vflat.index_copy_(0, widx, v.reshape(B * Cb, *v.shape[2:]).to(vflat.dtype))
+    kl, vl = _gather_pages(kflat, table, ps), _gather_pages(vflat, table, ps)
+    k_pos = torch.arange(T * ps, dtype=torch.int64, device=x.device)[None].expand(B, T * ps)
+    window = cfg.window if kind == "attn_local" else 0
+    out = _chunk_attention(q, kl, vl, q_pos=positions, k_pos=k_pos,
+                           window=window, chunk=cfg.attn_chunk)
+    return dot(out.reshape(B, Cb, -1), p["wo"]), cache
+
+
+def commit_prefill_pages(cache, dense, idx, *, stacked: bool):
+    """Scatter a batch-1 dense prefill cache {'k','v','pos'} into the paged
+    pools, in place. ``idx`` (S,) maps logical position j to its flat
+    physical slot (page-table row expanded); the dense 'pos' leaf routes
+    ring-ordered sliding-window caches (slot order != logical order,
+    invalid slots = -1, which land on the scratch page). ``stacked`` marks
+    body leaves carrying a leading period axis: every period layer saw the
+    same positions, so one routing row serves the whole stack."""
+    kp, vp = cache["kp"], cache["vp"]
+    pos_leaf = (dense["pos"][0] if stacked else dense["pos"]).long()
+    idx = idx.long().to(kp.device)
+    valid = pos_leaf >= 0
+    src = idx[torch.clamp(pos_leaf, 0, idx.shape[0] - 1)]
+    tgt = torch.where(valid, src, torch.zeros((), dtype=torch.int64,
+                                               device=src.device))
+    if stacked:
+        n, P, ps = kp.shape[0], kp.shape[1], kp.shape[2]
+        kp.view(n, P * ps, *kp.shape[3:]).index_copy_(
+            1, tgt, dense["k"][:, 0].to(kp.dtype))
+        vp.view(n, P * ps, *vp.shape[3:]).index_copy_(
+            1, tgt, dense["v"][:, 0].to(vp.dtype))
+    else:
+        _flat(kp).index_copy_(0, tgt, dense["k"][0].to(kp.dtype))
+        _flat(vp).index_copy_(0, tgt, dense["v"][0].to(vp.dtype))
+    return cache
 
 
 # ---------------------------------------------------------------------------

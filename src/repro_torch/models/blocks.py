@@ -15,37 +15,61 @@ and the analog tiles hold the stacked arrays. ``cfg.remat`` wraps one
 period in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps
 ``period_fn``.
 
-Only mode ``"fwd"`` is ported. The cache modes (``prefill``, ``chunk``,
-``decode`` and the paged decode) and their cache and state makers come
-with serving, and raise ``NotImplementedError`` naming it.
+The serve modes (``prefill``: the fixed-batch driver's dense cache;
+``chunk``: the engine's bucketed/chunked prefill into the paged pools;
+``decode``: dense, or per lane against the paged pools when a page table
+is passed) and their cache makers are ported for the page-pool attention
+kinds ``attn`` / ``attn_local``, with any FFN (dense or MoE). Caches are
+written in place: a period's cache is the ``leaf[i]`` view of the stacked
+cache leaves, as its parameters are. The serve modes of ``mla``, ``rec``,
+``ssm`` and of the cross-attention sub-block raise
+``NotImplementedError`` naming ROADMAP item 14b, before any layer runs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import prng
 from ..configs.base import ModelConfig
-from ..core.paths import tree_map
+from ..core.paths import TensorSpec, tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
 from .common import rms_norm, zeros
 
 SERVING_MODES = ("prefill", "chunk", "decode")
+PAGE_POOL_KINDS = ("attn", "attn_local")
 
 
-def check_ported(mode: str) -> None:
-    """Raise ``NotImplementedError`` for the modes serving brings."""
-    if mode in SERVING_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} comes with serving (ROADMAP.md queue 1 item 14): "
-            f"the {', '.join(SERVING_MODES)} modes and their caches and "
-            f"recurrent states are not ported yet")
-    if mode != "fwd":
+def check_ported(mode: str, cfg: Optional[ModelConfig] = None) -> None:
+    """Raise ``ValueError`` for an unknown mode, and
+    ``NotImplementedError`` for a serve mode of a layer kind whose cache is
+    not ported yet (MLA's latent rows, RG-LRU and SSD state, the
+    encoder-decoder's cross-attention cache; ROADMAP item 14b)."""
+    if mode == "fwd":
+        return
+    if mode not in SERVING_MODES:
         raise ValueError(mode)
+    if cfg is None:
+        return
+    kinds = sorted(set(cfg.layer_kinds) - set(PAGE_POOL_KINDS))
+    if kinds or cfg.is_encdec:
+        what = ", ".join(kinds + (["cross-attention"] if cfg.is_encdec else []))
+        raise NotImplementedError(
+            f"mode {mode!r} of {cfg.name}: the serve caches of {what} come "
+            f"with ROADMAP.md queue 1 item 14b (MLA latent rows, RG-LRU and "
+            f"SSD state, the cross-attention cache); the port serves the "
+            f"page-pool attention kinds {', '.join(PAGE_POOL_KINDS)}")
+
+
+def _check_kind(kind: str, cross: bool = False) -> None:
+    if kind not in PAGE_POOL_KINDS or cross:
+        raise NotImplementedError(
+            f"the serve cache of {'cross-attention' if cross else kind} "
+            f"comes with ROADMAP.md queue 1 item 14b")
 
 
 # ---------------------------------------------------------------------------
@@ -84,16 +108,46 @@ def init_layer(key, cfg: ModelConfig, kind: str, global_idx: int,
     return p
 
 
+def make_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                     enc_len: int = 0, cross: bool = False, abstract=False,
+                     device="cuda") -> Dict:
+    """The fixed-batch driver's dense decode cache of one layer."""
+    _check_kind(kind, cross)
+    return {"kv": attn.make_attn_cache(cfg, kind, batch, seq_len, abstract,
+                                       device)}
+
+
 def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
-                positions=None, enc_out=None, causal: bool = True):
-    """Returns (x_out, aux_loss, new_cache); mode ``"fwd"`` only."""
+                positions=None, cache: Optional[Dict] = None, pos=None,
+                enc_out=None, causal: bool = True, table=None, lengths=None):
+    """Returns (x_out, aux_loss, new_cache). ``table`` (B,T) page table
+    selects the paged per-lane decode; ``lengths`` (B,) is the valid run
+    per row of mode ``chunk``. The cache is written in place and
+    returned."""
     check_ported(mode)
     rs = cfg.residual_scale
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode != "fwd":
+        _check_kind(kind, "cross" in p)
     if kind in ("attn", "attn_local"):
-        mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
-                                positions=positions, causal=causal)
+        if mode == "fwd":
+            mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
+                                    positions=positions, causal=causal)
+        elif mode == "prefill":
+            mix, _ = attn.attn_prefill(p["attn"], h, cfg, kind=kind,
+                                       positions=positions, cache=cache["kv"])
+        elif mode == "chunk":
+            mix, _ = attn.attn_chunk_paged(p["attn"], h, cfg, kind=kind,
+                                           positions=positions, lengths=lengths,
+                                           table=table, cache=cache["kv"])
+        elif table is not None:
+            mix, _ = attn.attn_decode_paged(p["attn"], h, cfg, kind=kind,
+                                            pos=pos, table=table,
+                                            cache=cache["kv"])
+        else:
+            mix, _ = attn.attn_decode(p["attn"], h, cfg, kind=kind, pos=pos,
+                                      cache=cache["kv"])
     elif kind == "mla":
         mix = attn.mla_forward(p["attn"], h, cfg, positions=positions,
                                causal=causal)
@@ -116,7 +170,7 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
         else:
             ff = moe_mod.mlp_forward(p["mlp"], h2, cfg)
         x = x + rs * ff
-    return x, aux, None
+    return x, aux, (cache if (cache is not None or mode != "fwd") else None)
 
 
 # ---------------------------------------------------------------------------
@@ -171,28 +225,133 @@ def init_stack(key, cfg: ModelConfig, cross: bool = False, device="cuda") -> Dic
     return params
 
 
+def _stack_leaf(leaf, n: int, abstract: bool):
+    if abstract:
+        return TensorSpec((n,) + tuple(leaf.shape), leaf.dtype, leaf.device)
+    return leaf[None].expand((n,) + tuple(leaf.shape)).clone()
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+                     enc_len=0, cross=False, abstract=False,
+                     device="cuda") -> Dict:
+    check_ported("prefill", cfg)
+    prefix, period, tail, n_periods = stack_structure(cfg)
+    cache: Dict[str, Any] = {"prefix": {}, "body": {}, "tail": {}}
+
+    def one(kind):
+        return make_layer_cache(cfg, kind, batch, seq_len, enc_len, cross,
+                                abstract, device)
+
+    for i, kind in enumerate(prefix):
+        cache["prefix"][f"l{i}"] = one(kind)
+    for j, kind in enumerate(period):
+        if n_periods == 0:
+            continue
+        cache["body"][f"p{j}"] = tree_map(
+            lambda leaf: _stack_leaf(leaf, n_periods, abstract), one(kind))
+    for i, kind in enumerate(tail):
+        cache["tail"][f"l{i}"] = one(kind)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# paged decode caches (continuous-batching serve engine)
+# ---------------------------------------------------------------------------
+#
+# attn/attn_local — shared page pools (num_pages, page_size, KV, D); all
+#                   layers index the same per-lane page-table row. (MLA's
+#                   per-lane latent rows and rec/ssm per-lane state: item 14b.)
+
+
+def make_paged_layer_cache(cfg: ModelConfig, kind: str, lanes: int,
+                           num_pages: int, page_size: int, max_len: int,
+                           abstract=False, device="cuda") -> Dict:
+    _check_kind(kind)
+    return {"kv": attn.make_paged_attn_cache(cfg, num_pages, page_size,
+                                             abstract, device)}
+
+
+def init_paged_stack_cache(cfg: ModelConfig, lanes: int, num_pages: int,
+                           page_size: int, max_len: int, abstract=False,
+                           device="cuda") -> Dict:
+    check_ported("decode", cfg)
+    prefix, period, tail, n_periods = stack_structure(cfg)
+    cache: Dict[str, Any] = {"prefix": {}, "body": {}, "tail": {}}
+
+    def one(kind):
+        return make_paged_layer_cache(cfg, kind, lanes, num_pages, page_size,
+                                      max_len, abstract, device)
+
+    for i, kind in enumerate(prefix):
+        cache["prefix"][f"l{i}"] = one(kind)
+    for j, kind in enumerate(period):
+        if n_periods == 0:
+            continue
+        cache["body"][f"p{j}"] = tree_map(
+            lambda leaf: _stack_leaf(leaf, n_periods, abstract), one(kind))
+    for i, kind in enumerate(tail):
+        cache["tail"][f"l{i}"] = one(kind)
+    return cache
+
+
+def commit_layer_prefill(cfg: ModelConfig, kind: str, paged: Dict,
+                         dense: Dict, idx, lane, *, stacked: bool) -> Dict:
+    """Write one layer's batch-1 dense prefill cache into the paged cache
+    (in place): K/V pages at flat slots ``idx`` (S,)."""
+    _check_kind(kind)
+    attn.commit_prefill_pages(paged["kv"], dense["kv"], idx, stacked=stacked)
+    return paged
+
+
+def commit_stack_prefill(cfg: ModelConfig, paged: Dict, dense: Dict, idx,
+                         lane) -> Dict:
+    """Walk the stack structure and commit every layer's prefill cache."""
+    prefix, period, tail, n_periods = stack_structure(cfg)
+    for i, kind in enumerate(prefix):
+        commit_layer_prefill(cfg, kind, paged["prefix"][f"l{i}"],
+                             dense["prefix"][f"l{i}"], idx, lane, stacked=False)
+    for j, kind in enumerate(period):
+        if n_periods == 0:
+            continue
+        commit_layer_prefill(cfg, kind, paged["body"][f"p{j}"],
+                             dense["body"][f"p{j}"], idx, lane, stacked=True)
+    for i, kind in enumerate(tail):
+        commit_layer_prefill(cfg, kind, paged["tail"][f"l{i}"],
+                             dense["tail"][f"l{i}"], idx, lane, stacked=False)
+    return paged
+
+
 def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
-                positions=None, enc_out=None, causal: bool = True):
-    """Returns (x, aux_total, new_caches); mode ``"fwd"`` only."""
-    check_ported(mode)
+                positions=None, caches: Optional[Dict] = None, pos=None,
+                enc_out=None, causal: bool = True, table=None, lengths=None):
+    """Returns (x, aux_total, caches): ``caches`` (written in place, the
+    same dict) when given, else None."""
+    check_ported(mode, cfg)
     prefix, period, tail, n_periods = stack_structure(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run_layer(p, x, kind):
+    def run_layer(p, x, kind, cache):
         return apply_layer(p, x, cfg, kind, mode, positions=positions,
-                           enc_out=enc_out, causal=causal)
+                           cache=cache, pos=pos, enc_out=enc_out,
+                           causal=causal, table=table, lengths=lengths)
+
+    def part(name, key):
+        return caches[name][key] if caches is not None else None
 
     for i, kind in enumerate(prefix):
-        x, aux, _ = run_layer(params["prefix"][f"l{i}"], x, kind)
+        x, aux, _ = run_layer(params["prefix"][f"l{i}"], x, kind,
+                              part("prefix", f"l{i}"))
         aux_total = aux_total + aux
 
     if n_periods > 0:
         body = [params["body"][f"p{j}"] for j in range(len(period))]
+        body_c = [part("body", f"p{j}") for j in range(len(period))]
 
         def period_fn(h, aux_acc, i):
             for j, kind in enumerate(period):
+                c = tree_map(lambda l: l[i], body_c[j])
                 h, aux, _ = run_layer(tree_map(lambda l: l[i], body[j]), h,
-                                      kind)
+                                      kind, c)
                 aux_acc = aux_acc + aux
             return h, aux_acc
 
@@ -205,6 +364,7 @@ def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
                 x, aux_total = period_fn(x, aux_total, i)
 
     for i, kind in enumerate(tail):
-        x, aux, _ = run_layer(params["tail"][f"l{i}"], x, kind)
+        x, aux, _ = run_layer(params["tail"][f"l{i}"], x, kind,
+                              part("tail", f"l{i}"))
         aux_total = aux_total + aux
-    return x, aux_total, None
+    return x, aux_total, caches

@@ -11,8 +11,21 @@ Modality frontends are the reference's stubs: ``frames`` are precomputed
 frame/patch embeddings; the VLM fuses them additively with the token
 embeddings, the audio enc-dec feeds them to its encoder (a bidirectional
 attention stack, ``_encoder_cfg``) whose output the decoder's
-cross-attention reads. Caches, prefill, decode and paged serving come with
-serving (ROADMAP.md queue 1 item 14).
+cross-attention reads.
+
+The serve half, for the page-pool attention families (``attn`` /
+``attn_local`` layers, dense or MoE FFN):
+
+  init_cache(batch, seq_len) / prefill / decode_step / serve_step
+      the fixed-batch driver's dense cache (a ring buffer under a window);
+  init_paged_cache / commit_prefill / prefill_commit_batch /
+  decode_step_lanes / serve_step_lanes
+      the continuous engine's shared KV page pools.
+
+Every serve entry point runs without autograd and writes the cache it is
+given in place, returning the same dict. The serve caches of MLA, RG-LRU,
+SSD and the encoder-decoder raise ``NotImplementedError`` (ROADMAP item
+14b).
 """
 from __future__ import annotations
 
@@ -24,7 +37,8 @@ import torch
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec, tree_map
-from .blocks import apply_stack, init_stack
+from .blocks import (apply_stack, commit_stack_prefill, init_paged_stack_cache,
+                     init_stack, init_stack_cache)
 from .common import (dot, embed_init, rms_norm, softmax_cross_entropy,
                      take_rows, zeros)
 
@@ -111,6 +125,112 @@ class LM:
             loss = loss + cfg.aux_loss_coef * aux_moe
             aux["moe_aux"] = aux_moe
         return loss, aux
+
+    # ----------------------------------------------------------------- caches
+    def init_cache(self, batch: int, seq_len: int, enc_len: int = 0,
+                   abstract=False, device="cuda") -> Dict:
+        cfg = self.cfg
+        return init_stack_cache(cfg, batch, seq_len, enc_len=enc_len,
+                                cross=cfg.is_encdec, abstract=abstract,
+                                device=device)
+
+    @torch.no_grad()
+    def prefill(self, params, batch: Dict, cache: Dict):
+        """(logits (B,1,V) at the last position, cache filled in place)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens, batch.get("frames"))
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, _, cache = apply_stack(params["stack"], x, cfg, "prefill",
+                                  positions=positions, caches=cache)
+        return self._logits(params, x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, params, token, cache: Dict, pos: int):
+        """token: (B,1) int32; pos: the position being written (an int)."""
+        x = self._embed(params, token)
+        x, _, cache = apply_stack(params["stack"], x, self.cfg, "decode",
+                                  caches=cache, pos=pos)
+        return self._logits(params, x), cache
+
+    def serve_step(self, params, token, cache: Dict, pos: int):
+        """Greedy one-token serving step."""
+        from ..serving.sampling import sample_greedy
+
+        logits, cache = self.decode_step(params, token, cache, pos)
+        return sample_greedy(logits), cache
+
+    # ------------------------------------------------------- paged serving
+    def init_paged_cache(self, lanes: int, num_pages: int, page_size: int,
+                         max_len: int, abstract=False, device="cuda") -> Dict:
+        """Decode cache of the continuous-batching serve engine: shared KV
+        page pools for the attention layers (page 0 reserved as scratch)."""
+        if self.cfg.is_encdec:
+            raise NotImplementedError("paged serving supports decoder-only models")
+        return init_paged_stack_cache(self.cfg, lanes, num_pages, page_size,
+                                      max_len, abstract=abstract,
+                                      device=device)
+
+    @torch.no_grad()
+    def commit_prefill(self, paged: Dict, dense: Dict, table_row, lane, *,
+                       prompt_len: int, page_size: int) -> Dict:
+        """Gather-free handoff from a batch-1 dense prefill cache into the
+        paged cache, in place: prompt K/V scattered to the lane's pages
+        (flat slot of logical j = table_row[j // page_size] * page_size +
+        j % page_size)."""
+        table_row = torch.as_tensor(table_row).long()
+        idx = (table_row[:, None] * page_size
+               + torch.arange(page_size, dtype=torch.int64,
+                              device=table_row.device)[None, :]
+               ).reshape(-1)[:prompt_len]
+        return commit_stack_prefill(self.cfg, paged, dense, idx, lane)
+
+    @torch.no_grad()
+    def prefill_commit_batch(self, params, tokens, paged: Dict, tables, lanes,
+                             starts, lengths, fresh):
+        """Batched bucketed/chunked prefill straight into the paged cache.
+
+        ``tokens`` (B,Cb) right-padded chunk tokens, ``tables`` (B,T)
+        page-table rows, ``lanes`` (B,) decode lanes, ``starts`` (B,)
+        absolute position of each row's first token, ``lengths`` (B,)
+        valid run, ``fresh`` (B,) first-chunk flag. One call per (Cb, B)
+        bucket pair serves plain batched prefill (start=0), chunk
+        continuation and prefix-shared tails. Returns (logits (B,1,V) at
+        each row's last valid token, paged). ``lanes`` and ``fresh`` address
+        per-lane state rows, which the page-pool kinds do not have (MLA,
+        RG-LRU and SSD layers: ROADMAP item 14b).
+        """
+        x = self._embed(params, tokens)
+        Cb = tokens.shape[1]
+        positions = (starts.long()[:, None]
+                     + torch.arange(Cb, device=tokens.device)[None, :])
+        x, _, paged = apply_stack(params["stack"], x, self.cfg, "chunk",
+                                  positions=positions, caches=paged,
+                                  table=tables, lengths=lengths)
+        idx = (lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+        last = torch.gather(x, 1, idx)
+        return self._logits(params, last), paged
+
+    @torch.no_grad()
+    def decode_step_lanes(self, params, token, cache: Dict, table, pos,
+                          live=None):
+        """Per-lane decode: token (B,1); table (B,T) page tables; pos (B,)
+        per-lane write positions (free lanes point at the scratch page);
+        ``live`` (B,) is the idle-lane mask of per-lane state rows, which
+        the page-pool kinds do not have."""
+        x = self._embed(params, token)
+        x, _, cache = apply_stack(params["stack"], x, self.cfg, "decode",
+                                  caches=cache, pos=pos, table=table)
+        return self._logits(params, x), cache
+
+    def serve_step_lanes(self, params, token, cache: Dict, table, pos,
+                         live=None):
+        from ..serving.sampling import sample_greedy
+
+        logits, cache = self.decode_step_lanes(params, token, cache, table,
+                                               pos, live)
+        return sample_greedy(logits), cache
 
 
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:

@@ -103,10 +103,18 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry(key, (0, data))."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: threefry(key, (0, data)). ``data`` is an int
+    or an integer tensor that broadcasts against the key's batch shape
+    (``vmap(fold_in)`` over a batch of keys and data, as the serving
+    engine's per-lane keys take it); negative data wraps to uint32 as
+    JAX's does."""
     k0, k1 = _words(key)
-    d = torch.full_like(k0, int(data) & MASK)
+    if torch.is_tensor(data):
+        d = (data.to(torch.int64) & MASK).to(k0.device)
+        k0, k1, d = torch.broadcast_tensors(k0, k1, d)
+    else:
+        d = torch.full_like(k0, int(data) & MASK)
     b0, b1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
     return torch.stack([b0, b1], dim=-1)
 
@@ -140,15 +148,55 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cuda") -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, shifted and scaled to [minval, maxval)."""
+def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """uint32 bits -> ``jax.random.uniform``'s float32: 23 random mantissa
+    bits under the exponent of 1.0, shifted and scaled to [minval, maxval)."""
     lo, hi = _f32(minval), _f32(maxval)
     span = _f32(np.float32(hi) - np.float32(lo))
-    fb = (bits(key, shape, device) >> 9) | 0x3F800000
+    fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(fma(floats, span, lo), lo)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device="cuda") -> torch.Tensor:
+    """``jax.random.uniform`` in float32."""
+    return _to_uniform(bits(key, shape, device), minval, maxval)
+
+
+def _batched_uniform(keys: torch.Tensor, shape, minval: float,
+                     maxval: float) -> torch.Tensor:
+    """``vmap(lambda k: uniform(k, shape, minval, maxval))(keys)``: one
+    float32 draw of ``shape`` per key of ``keys`` (..., 2), on the keys'
+    device, shaped ``keys.shape[:-1] + shape``."""
+    shape = tuple(int(d) for d in shape)
+    k0, k1 = _words(keys)
+    k0 = k0.reshape(k0.shape + (1,) * len(shape))
+    k1 = k1.reshape(k1.shape + (1,) * len(shape))
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=keys.device).reshape(shape)
+    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & MASK)
+    return _to_uniform(b0 ^ b1, minval, maxval)
+
+
+def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, its default mode ("low"):
+    ``-log(-log(u))``, u ~ U[tiny, 1). ``keys`` is one key (2,) or a batch
+    (..., 2); the draw is ``keys.shape[:-1] + shape`` on the keys' device,
+    each key's row as ``vmap(gumbel)`` draws it. The two logs are torch's:
+    XLA-CPU's ``log`` differs by a few ULP on some inputs."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = _batched_uniform(keys, shape, tiny, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``vmap(jax.random.categorical)(keys, logits)`` over the last axis:
+    ``argmax(gumbel(key, V) + logits)`` per row, the first maximal index as
+    ``jnp.argmax`` takes it. ``keys`` (..., 2) on the logits' device,
+    ``logits`` (..., V) float32."""
+    g = gumbel(keys.to(logits.device), (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)
 
 
 def bernoulli(key, p: float, shape=(), device="cpu") -> torch.Tensor:

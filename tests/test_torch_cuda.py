@@ -39,6 +39,11 @@ Each wrapper call launches its kernel once.
   permutations, SSD's head repeat) give bit-identical gradients from run
   to run on the card, where ``F.embedding`` and ``index_select`` with
   repeated ids add with atomics.
+* Serving (qwen2-0.5b, qwen3-14b, gemma3-4b, qwen2-vl-2b, mixtral-8x7b
+  smoke): chunk prefill and paged decode on the card within 2e-6 of the
+  CPU's largest magnitude (qwen2, gemma3); a free lane past its table row
+  runs without a device assert; the continuous engine equals the fixed
+  driver on the card, and both equal the CPU, token for token.
 """
 import numpy as np
 import pytest
@@ -521,3 +526,116 @@ def test_model_gathers_are_reproducible_on_the_card(cuda):
         for _ in range(4):
             again = grads(fn, *shapes)
             assert all(torch.equal(a, b) for a, b in zip(first, again)), name
+
+
+# ---------------------------------------------------------------------------
+# serving (the page-pool attention families)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ["qwen2-0.5b", "qwen3-14b", "gemma3-4b", "qwen2-vl-2b",
+               "mixtral-8x7b"]
+
+
+def _serve_model(arch):
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import tree_map
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config(arch, smoke=True))
+    cpu = model.init(prng.PRNGKey(0), device="cpu")
+    return model, cpu, tree_map(lambda t: t.cuda(), cpu)
+
+
+def _paged_run(model, params, device, steps=3, drift=False):
+    """A 2-row bucketed prefill into the pools, then ``steps`` per-lane
+    decode steps (lane 1 freed and past its row when ``drift``): the
+    logits of every call and the final pools, on the CPU."""
+    from repro_torch.core.paths import flatten_with_path
+
+    cfg = model.cfg
+    S = 24 if cfg.window else 10
+    T = -(-(S + 8) // 4)
+    tables = torch.stack([torch.arange(1, T + 1), torch.arange(T + 1, 2 * T + 1)]
+                         ).to(torch.int32)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    lens = torch.tensor([S, S - 3], dtype=torch.int32)
+    paged = model.init_paged_cache(2, 2 * T + 1, 4, S + 8, device=device)
+    d = torch.device(device)
+    logits, _ = model.prefill_commit_batch(
+        params, toks.to(d), paged, tables.to(d), torch.arange(2).to(d),
+        torch.zeros(2, dtype=torch.int32, device=d), lens.to(d),
+        torch.ones(2, dtype=torch.bool, device=d))
+    out = [logits.cpu()]
+    pos = lens.clone()
+    live = torch.ones(2, dtype=torch.bool)
+    for i in range(steps):
+        if drift and i == steps - 1:
+            tables[1] = 0
+            pos[1] = 3 * T * 4 + 1
+            live[1] = False
+        tok = torch.argmax(out[-1][:, -1], -1).to(torch.int32)[:, None]
+        logits, _ = model.decode_step_lanes(params, tok.to(d), paged,
+                                            tables.to(d), pos.to(d), live.to(d))
+        out.append(logits.cpu())
+        pos = pos + 1
+    return out, {p: t.cpu() for p, t in flatten_with_path(paged)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma3-4b"])
+def test_paged_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """Chunk prefill and paged decode (gemma3: a prompt past its 16-token
+    window) on the card against the CPU from the same parameters: logits
+    and the pools within 2e-6 of their largest magnitude (cuBLAS sums in
+    another order; TF32 off); then a free lane whose position drifted past
+    its all-scratch table row runs without a device assert (its page column
+    is clamped) and leaves lane 0's logits within the same tolerance (the
+    free lane's own logits read the scratch page and are discarded)."""
+    model, cpu, card = _serve_model(arch)
+    with torch.no_grad():
+        want, want_pools = _paged_run(model, cpu, "cpu", drift=True)
+        got, got_pools = _paged_run(model, card, "cuda", drift=True)
+    torch.cuda.synchronize()
+    # the free lane's own output is discarded, and the scratch page (page 0)
+    # keeps an arbitrary one of its repeated writers: neither is compared
+    got[-1], want[-1] = got[-1][:1], want[-1][:1]
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= 2e-6 * w.abs().max().item(), (i, err)
+    for p, w in want_pools.items():
+        g, w = got_pools[p][..., 1:, :, :, :], w[..., 1:, :, :, :]
+        err = (g - w).abs().max().item()
+        assert err <= 2e-6 * max(w.abs().max().item(), 1e-30), (p, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_continuous_matches_fixed_on_the_card(cuda, arch):
+    """The reference tests' workload (5 requests, prompt 10, gen 4+-2, 2
+    lanes, page 4, a shared 8-token prefix, chunk 8): on the card the
+    continuous engine gives the fixed driver's tokens, and both give the
+    CPU's; no kernel of K1/K2/K3 launches."""
+    from repro_torch.launch.serve import build_workload, run_fixed
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    model, cpu, card = _serve_model(arch)
+    launches = dict(ops.LAUNCHES)
+
+    def serve(params):
+        wl = build_workload(model.cfg, 5, 10, 4, gen_spread=2, prefix_len=8)
+        fixed = run_fixed(model, params, [r.clone() for r in wl], batch=5)
+        tw = -(-(10 + max(r.max_new_tokens for r in wl)) // 4)
+        cont, _ = ServeEngine(model, params, EngineConfig(
+            lanes=2, page_size=4, num_pages=2 * tw + 5, max_len=tw * 4,
+            prefill_chunk=8, prefix_share=True)).run(wl)
+        return fixed, cont
+
+    fixed, cont = serve(card)
+    fixed_cpu, cont_cpu = serve(cpu)
+    for rid in fixed:
+        np.testing.assert_array_equal(cont[rid], fixed[rid], err_msg=rid)
+        np.testing.assert_array_equal(fixed[rid], fixed_cpu[rid], err_msg=rid)
+        np.testing.assert_array_equal(cont[rid], cont_cpu[rid], err_msg=rid)
+    assert dict(ops.LAUNCHES) == launches

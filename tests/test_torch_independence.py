@@ -3,7 +3,9 @@
 * No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the port's
   examples, imports ``jax`` or the ``repro`` package (AST scan).
 * The port's config dataclasses carry the reference's field names and
-  defaults (dtypes compared by name), and its rule tables are the same.
+  defaults (dtypes compared by name; the serving ones too: ``EngineConfig``,
+  ``ServeDefaults``, ``ServeRequest``), and its rule tables and the
+  per-family serving defaults are the same.
 * The on-disk and stream constants are the reference's: the checkpoint
   chunk size, the lifetime RNG salts, and GDC's row-block count,
   reference-input salt and seed.
@@ -76,7 +78,8 @@ def _defaults(cls):
     "core.plan.TilePolicy", "core.plan.AnalogPlan",
     "data.synthetic.BigramLM", "configs.base.ModelConfig",
     "configs.base.ShapeSpec", "distributed.fault.StragglerMonitor",
-    "distributed.fault.RestartPolicy",
+    "distributed.fault.RestartPolicy", "serving.engine.EngineConfig",
+    "configs.serving.ServeDefaults", "serving.scheduler.ServeRequest",
 ])
 def test_config_fields_and_defaults_match_reference(name):
     mod, cls = name.rsplit(".", 1)
@@ -139,6 +142,20 @@ def test_rule_tables_and_policy_tags_match_reference():
     jplan_ = jspec("attn=rider, **=erider", lambda a: JTile(algorithm=a))
     for path in ("l0/attn/wq", "l0/mlp/wi", "embed/table"):
         assert tspec.policy_for(path, leaf).tag == jplan_.policy_for(path, leaf).tag
+
+
+def test_serve_defaults_table_matches_reference():
+    from repro.configs import get_config as jget
+    from repro.configs.serving import _FAMILY_DEFAULTS as JFAM
+    from repro.configs.serving import serve_defaults as jdefaults
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.serving import _FAMILY_DEFAULTS, serve_defaults
+
+    assert {k: dataclasses.asdict(v) for k, v in _FAMILY_DEFAULTS.items()} \
+        == {k: dataclasses.asdict(v) for k, v in JFAM.items()}
+    for arch in ARCHS:
+        assert dataclasses.asdict(serve_defaults(get_config(arch))) \
+            == dataclasses.asdict(jdefaults(jget(arch)))
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -1,8 +1,8 @@
 """The port's lifetime subsystem against the JAX package's, on the CPU.
 
 * The reference's ``tests/test_lifetime.py`` replayed on the port, except
-  ``test_parse_age_units``, which tests the serving CLI (``launch/serve``,
-  not ported yet). "Across jit" becomes "across calls".
+  ``test_parse_age_units``, which tests the serving CLI and is replayed in
+  ``tests/test_torch_serve_cli.py``. "Across jit" becomes "across calls".
 * Same inputs through both packages: ``apply_lifetime`` and
   ``program_weights`` within ``rtol=4e-6`` plus ``atol=1e-6 * amax|w|``.
   The hash normals agree to a few float32 ULP (XLA-CPU's ``sqrt`` and

@@ -25,8 +25,9 @@ Tolerances (float32 unless stated):
   ``jax.eval_shape``: the same paths, shapes and dtypes. The depth cut of
   the card's full-width runs (``step_profile.cut_depth``) keeps every
   other field; their plans' analog paths and elements, exact.
-* Every arch inits; the modes serving brings (``prefill``, ``chunk``,
-  ``decode``) raise ``NotImplementedError`` naming ROADMAP item 14.
+* Every arch inits; the serve modes (``prefill``, ``chunk``, ``decode``)
+  run for the page-pool attention archs and raise ``NotImplementedError``
+  naming ROADMAP item 14b for the others.
 * The analog plan of the qwen2 smoke config: ``describe_plan``, the
   TileBank index and class index identical.
 * Three analog train steps of the qwen2 smoke config (E-RIDER,
@@ -333,13 +334,26 @@ def test_depth_cut_of_the_full_width_runs(arch, n_paths, n_analog, largest):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_unported_arch_raises_at_init(arch):
-    """Every arch inits; the modes serving brings (ROADMAP item 14) raise
+    """Every arch inits. The serve modes of the page-pool attention archs
+    run (a dense prefill fills its cache); those of the archs with MLA,
+    RG-LRU, SSD or cross-attention layers (ROADMAP item 14b) raise
     ``NotImplementedError`` naming it, before any layer runs."""
     cfg = get_config(arch, smoke=True)
-    params = LM(cfg).init(prng.PRNGKey(0), device="cpu")
+    model = LM(cfg)
+    params = model.init(prng.PRNGKey(0), device="cpu")
     x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
+    if set(cfg.layer_kinds) <= {"attn", "attn_local"} and not cfg.is_encdec:
+        cache = model.init_cache(1, 6, device="cpu")
+        pos = torch.arange(4)[None]
+        with torch.no_grad():
+            y, _, out = blocks.apply_stack(params["stack"], x, cfg, "prefill",
+                                           positions=pos, caches=cache)
+        assert out is cache and y.shape == x.shape
+        assert all(int(leaf[..., :4].min()) == 0
+                   for p_, leaf in flatten_with_path(cache) if p_.endswith("pos"))
+        return
     for mode in ("prefill", "chunk", "decode"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             blocks.apply_stack(params["stack"], x, cfg, mode)
 
 
