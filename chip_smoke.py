@@ -103,6 +103,24 @@ Phases, each printing its own lines; any failure exits non-zero:
               up to a first difference at a near-tie (top two logits
               within 2 bf16 ULPs); prints tokens/s, TTFT/TPOT p50/p99, the
               decode step, peak memory, save/restore seconds
+ 13. serve_zoo  serving the other families: (a) the smoke configs of
+              minicpm3-4b, deepseek-v2-236b (MLA latent rows),
+              recurrentgemma-9b (RG-LRU state) and mamba2-2.7b (SSD state)
+              on phase 12a's workload: continuous == fixed on the card ==
+              the CPU run; seamless-m4t-large-v2 through the fixed driver
+              with frames, the card == the CPU; no K1/K2/K3 launch;
+              (b) MiniCPM3-4B at full width and depth (62 layers, bf16,
+              weights from ``LM.init`` on the card) through the serve CLI
+              (16 requests, prompt 128, gen 32, 8 lanes, page 16, chunk 64)
+              and the fixed driver (batch 8); (c) Mamba2-2.7B at full width
+              and depth (64 layers; 32 requests, prompt 512, gen 32, 16
+              lanes, page 32, chunk 256: the SSD state carried across a
+              chunk) and the fixed driver (batch 16). For (b) and (c): each
+              stream equal to the fixed driver's up to a first difference
+              at a near-tie (the count printed), no K1/K2/K3 launch; prints
+              tokens/s, TTFT/TPOT p50/p99, the decode step, kernel launches
+              and device time per decode step (``torch.profiler``) and peak
+              memory
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -1494,7 +1512,7 @@ def same_tokens(a, b) -> bool:
     return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
 
 
-def serve_smoke():
+def serve_smoke(cases=tuple(SERVE_CASES)):
     """(a): on the card, the continuous engine's tokens equal the fixed
     driver's for every request, and both equal the port's CPU run on the
     same parameters (drawn on the CPU and moved); serving launches no
@@ -1506,7 +1524,7 @@ def serve_smoke():
     from repro_torch.models.lm import LM
 
     launches = dict(ops.LAUNCHES)
-    for arch, prompt_len in SERVE_CASES:
+    for arch, prompt_len in cases:
         model = LM(get_config(arch, smoke=True))
         cpu = model.init(prng.PRNGKey(0), "cpu")
         card = tree_map(lambda t: t.cuda(), cpu)
@@ -1539,9 +1557,10 @@ def run_serve(argv):
     return results, summary, engine, time.perf_counter() - t0
 
 
-def fixed_top2(model, params, workload):
+def fixed_top2(model, params, workload, batch=SERVE_BATCH, gen=SERVE_GEN):
     """The fixed-batch driver again, recording the two largest logits of
-    every row at every step: {request_id: (32, 2) float32}, and its tokens."""
+    every row at every step: {request_id: (gen, 2) float32}, and its
+    tokens."""
     import numpy as np
     import torch
 
@@ -1563,14 +1582,45 @@ def fixed_top2(model, params, workload):
         top2(logits)
         return sample_greedy(logits), cache
 
-    tokens = run_fixed(model, params, workload, SERVE_BATCH,
-                       fns=(prefill, step))
+    tokens = run_fixed(model, params, workload, batch, fns=(prefill, step))
     out = {}
     for i, r in enumerate(workload):
-        g, lane = divmod(i, SERVE_BATCH)
+        g, lane = divmod(i, batch)
         out[r.request_id] = np.stack(
-            [rec[g * SERVE_GEN + j][lane].numpy() for j in range(SERVE_GEN)])
+            [rec[g * gen + j][lane].numpy() for j in range(gen)])
     return out, tokens
+
+
+def near_ties(cont, fixed, top2, gen: int, label: str):
+    """Check that each continuous stream equals the fixed driver's up to a
+    first difference, if any, and that there the fixed driver's two largest
+    logits lie within 2 bfloat16 ULPs of the largest's magnitude. Prints
+    each first difference; returns (streams that part, the smallest top-two
+    gap of each request in bf16 ULPs)."""
+    import torch
+
+    check(set(fixed) == set(cont), f"{label}: fixed and continuous requests")
+    gaps = []
+    for rid in sorted(top2):
+        hi, lo = top2[rid][:, 0], top2[rid][:, 1]
+        ulp = bf16_ulp(torch.from_numpy(hi).abs()).numpy()
+        gaps.append(float(((hi - lo) / ulp).min()))
+    parted = 0
+    for rid in sorted(cont):
+        a, b = cont[rid], fixed[rid]
+        diff = [j for j in range(gen) if a[j] != b[j]]
+        if not diff:
+            continue
+        j = diff[0]
+        hi, lo = (float(v) for v in top2[rid][j])
+        ulp = float(bf16_ulp(torch.tensor(abs(hi))))
+        print(f"{label}: {rid} first differs at token {j}: fixed top logits "
+              f"{hi!r} / {lo!r}, gap {hi - lo:.6g} = {(hi - lo) / ulp:g} "
+              f"bf16 ULP")
+        check(hi - lo <= 2 * ulp, f"{label}: {rid} differs at token {j} "
+                                  f"without a near-tie")
+        parted += 1
+    return parted, gaps
 
 
 def serve_full(root: str, card: str):
@@ -1666,13 +1716,6 @@ def serve_full(root: str, card: str):
           "serve: lifetime block")
     check(len(cont) == 16 and all(len(v) == SERVE_GEN for v in cont.values()),
           "serve: a request without 32 tokens")
-    check(set(fixed) == set(cont), "serve: fixed and continuous requests")
-    firsts = {}
-    for rid in sorted(cont):
-        a, b = cont[rid], fixed[rid]
-        diff = [j for j in range(SERVE_GEN) if a[j] != b[j]]
-        if diff:
-            firsts[rid] = diff[0]
     # the fixed driver once more, in process, recording its two top logits
     # at every step: it must reproduce the CLI's tokens, and every first
     # difference must sit at a near-tie
@@ -1685,21 +1728,7 @@ def serve_full(root: str, card: str):
     del params
     check(same_tokens(again, fixed), "serve: the fixed driver is not "
                                      "reproducible")
-    gaps = []
-    for rid in sorted(top2):
-        hi, lo = top2[rid][:, 0], top2[rid][:, 1]
-        ulp = bf16_ulp(torch.from_numpy(hi).abs()).numpy()
-        gaps.append(float(((hi - lo) / ulp).min()))
-    ties = 0
-    for rid, j in firsts.items():
-        hi, lo = (float(v) for v in top2[rid][j])
-        ulp = float(bf16_ulp(torch.tensor(abs(hi))))
-        print(f"serve: {rid} first differs at token {j}: fixed top logits "
-              f"{hi!r} / {lo!r}, gap {hi - lo:.6g} = {(hi - lo) / ulp:g} "
-              f"bf16 ULP")
-        check(hi - lo <= 2 * ulp, f"serve: {rid} differs at token {j} "
-                                  f"without a near-tie")
-        ties += 1
+    ties, gaps = near_ties(cont, fixed, top2, SERVE_GEN, "serve")
     print(f"serve: the fixed driver's top-two logit gap, smallest over each "
           f"request's 32 steps: median {statistics.median(gaps):g}, least "
           f"{min(gaps):g} bf16 ULP (a gap of <= 2 is a near-tie; near-tie "
@@ -1712,7 +1741,7 @@ def serve_full(root: str, card: str):
           f"checkpoint); continuous: {ecfg.lanes} lanes, page "
           f"{ecfg.page_size}, chunk {manifest['engine']['prefill_chunk']}, "
           f"{ecfg.num_pages} pages; requests equal to the fixed driver's: "
-          f"{16 - len(firsts)} of 16, the rest at near-ties: {ties}")
+          f"{16 - ties} of 16, the rest at near-ties: {ties}")
     print(f"serve: {summary['tokens_per_s']:.2f} tokens/s continuous "
           f"({summary['generated_tokens']} tokens in {summary['wall_s']:.3f} "
           f"s, {steps} decode steps), {fsummary['tokens_per_s']:.2f} tokens/s "
@@ -1745,6 +1774,175 @@ def phase_serve(card: str):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"serve: phase 12 took {time.time() - t0:.1f} s")
+    return full
+
+
+# Phase 13: serving the other families. (a) The smoke configs of
+# minicpm3-4b and deepseek-v2-236b (MLA latent rows), recurrentgemma-9b
+# (RG-LRU state beside sliding-window attention) and mamba2-2.7b (SSD state)
+# on phase 12a's workload, and seamless-m4t-large-v2 through the fixed driver
+# with FeedBuilder's frames. (b) MiniCPM3-4B at full width and depth
+# (src/repro/configs/minicpm3_4b.py: 62 MLA layers, d 2560, kv_lora 256,
+# vocab 73448, bf16), its weights from LM.init on the card: 16 requests,
+# prompt 128, gen 32, the dense family's defaults (8 lanes, page 16, chunk
+# 64: the chunk continuation of mla_chunk_lanes), then the fixed driver,
+# batch 8. (c) Mamba2-2.7B at full width and depth
+# (src/repro/configs/mamba2_2_7b.py: 64 SSD layers, 80 heads x 64 x N 128,
+# bf16): 32 requests, prompt 512, gen 32, the ssm family's 16 lanes and page
+# 32, chunk 256 (two chunks aligned to ssm_chunk: the state carried across
+# the boundary), then the fixed driver, batch 16. Prompts over the first
+# 8192 ids.
+ZOO_SERVE_CASES = [(a, 10) for a in ("minicpm3-4b", "deepseek-v2-236b",
+                                     "recurrentgemma-9b", "mamba2-2.7b")]
+ZOO_FULL = {
+    "minicpm3-4b": dict(requests=16, prompt=128, gen=32, batch=8, chunk=64),
+    "mamba2-2.7b": dict(requests=32, prompt=512, gen=32, batch=16, chunk=256),
+}
+
+
+def serve_encdec_smoke():
+    """(a) for seamless-m4t-large-v2: the fixed driver (the encoder over
+    FeedBuilder's frames, the cross K/V cached) on the card gives the CPU's
+    tokens on phase 12a's workload."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import tree_map
+    from repro_torch.launch.serve import build_workload, run_fixed
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("seamless-m4t-large-v2", smoke=True))
+    cpu = model.init(prng.PRNGKey(0), "cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    wl = build_workload(model.cfg, 5, 10, 4, gen_spread=2, prefix_len=8)
+    got = run_fixed(model, card, [r.clone() for r in wl], batch=5)
+    want = run_fixed(model, cpu, [r.clone() for r in wl], batch=5)
+    check(same_tokens(got, want), "serve_zoo[seamless-m4t-large-v2]: the "
+                                  "card's tokens != the CPU's")
+    print(f"serve_zoo[seamless-m4t-large-v2, prompt 10]: {len(got)} requests, "
+          f"{sum(len(v) for v in got.values())} tokens through the fixed "
+          f"driver with frames: the card == the CPU run")
+
+
+def decode_step_profile(engine, steps: int = 3):
+    """Kernel launches and device busy milliseconds per decode step of the
+    engine (``torch.profiler``, its lane state after the run: every lane
+    runs every layer whether live or not)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine._dev = torch.from_numpy(engine._ls.copy()).to("cuda")
+    engine._step_call(engine._dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine._step_call(engine._dev).cpu()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return len(kernels) / steps, busy, wall
+
+
+def serve_zoo_full(arch: str, card: str):
+    """(b)/(c): serve ``arch`` at full width and depth through the serve CLI
+    (continuous engine), then through its fixed driver, then the fixed
+    driver once more in process recording its two top logits: no K1/K2/K3
+    launch while serving; every request has its tokens; every stream equals
+    the fixed driver's up to a first difference at a near-tie."""
+    import gc
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_workload
+    from repro_torch.models.lm import LM
+
+    c = ZOO_FULL[arch]
+    argv = ["--arch", arch, "--requests", str(c["requests"]), "--prompt-len",
+            str(c["prompt"]), "--gen", str(c["gen"]), "--data-vocab", "8192",
+            "--prefill-chunk", str(c["chunk"]), "--device", "cuda"]
+    label = f"serve_zoo[{arch}]"
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cont, summary, engine, cont_s = run_serve(argv)
+    peak = torch.cuda.max_memory_allocated()
+    ecfg, sigs, chunk = engine.ecfg, sorted(engine.prefill_signatures), engine._chunk
+    lat = engine.telemetry.latency_summary()
+    steps = engine.telemetry.steps
+    launches, busy, traced = decode_step_profile(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    fixed, fsummary, _, fixed_s = run_serve(argv + [
+        "--engine", "fixed", "--batch", str(c["batch"])])
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"{label}: serving launched a kernel: {dict(ops.LAUNCHES)}")
+    check(len(cont) == c["requests"]
+          and all(len(v) == c["gen"] for v in cont.values()),
+          f"{label}: a request without {c['gen']} tokens")
+    check(chunk == c["chunk"], f"{label}: prefill chunk {chunk}")
+
+    t0 = time.perf_counter()
+    model = LM(get_config(arch))
+    with torch.no_grad():
+        params = model.init(prng.PRNGKey(0), "cuda")
+    workload = build_workload(model.cfg, c["requests"], c["prompt"], c["gen"],
+                              data_vocab=8192)
+    top2, again = fixed_top2(model, params, workload, c["batch"], c["gen"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(same_tokens(again, fixed), f"{label}: the fixed driver is not "
+                                     f"reproducible")
+    parted, gaps = near_ties(cont, fixed, top2, c["gen"], label)
+    n = c["requests"]
+    dtype = str(model.cfg.dtype).replace("torch.", "")
+    print(f"{label}: full width and depth ({model.cfg.n_layers} layers, d "
+          f"{model.cfg.d_model}, {dtype}, weights from LM.init on the card); "
+          f"continuous: {ecfg.lanes} lanes, page {ecfg.page_size}, chunk "
+          f"{chunk}, {ecfg.num_pages} pages; streams equal to the fixed "
+          f"driver's: {n - parted} of {n}, parting at a near-tie: {parted}; "
+          f"the fixed driver's top-two logit gap, smallest over each "
+          f"request's {c['gen']} steps: median {statistics.median(gaps):g}, "
+          f"least {min(gaps):g} bf16 ULP (near-tie check "
+          f"{time.perf_counter() - t0:.1f} s)")
+    print(f"{label}: {summary['tokens_per_s']:.2f} tokens/s continuous "
+          f"({summary['generated_tokens']} tokens in {summary['wall_s']:.3f} "
+          f"s, {steps} decode steps), {fsummary['tokens_per_s']:.2f} tokens/s "
+          f"fixed (batch {c['batch']}), on {card}")
+    print(f"{label}: TTFT p50 {lat['ttft']['p50'] * 1e3:.2f} ms, p99 "
+          f"{lat['ttft']['p99'] * 1e3:.2f} ms; TPOT p50 "
+          f"{lat['tpot']['p50'] * 1e3:.2f} ms, p99 {lat['tpot']['p99'] * 1e3:.2f}"
+          f" ms; decode step median {lat['gap']['p50'] * 1e3:.2f} ms (the "
+          f"pooled inter-token gap), on {card}")
+    print(f"{label}: a decode step issues {launches:.0f} kernel launches "
+          f"({launches / model.cfg.n_layers:.1f} a layer), {busy:.3f} ms of "
+          f"device time ({traced:.2f} ms traced wall), on {card}")
+    print(f"{label}: peak allocated {peak / 2 ** 30:.3f} GiB during the "
+          f"continuous CLI run (weights, cache and serving), on {card}")
+    print(f"{label}: CLI runs {cont_s:.1f} s continuous / {fixed_s:.1f} s "
+          f"fixed (init, workload and serving); prefill signatures (Cb, Bb, "
+          f"tw) {sigs}")
+    return dict(tokens_per_s=summary["tokens_per_s"],
+                step_ms=lat["gap"]["p50"] * 1e3, peak_bytes=peak,
+                launches=launches, parted=parted)
+
+
+def phase_serve_zoo(card: str):
+    from repro_torch.kernels import ops
+
+    t0 = time.time()
+    ops.reset_launch_counts()
+    serve_smoke(ZOO_SERVE_CASES)
+    serve_encdec_smoke()
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"serve_zoo: serving launched a kernel: {dict(ops.LAUNCHES)}")
+    full = {arch: serve_zoo_full(arch, card) for arch in ZOO_FULL}
+    print(f"serve_zoo: phase 13 took {time.time() - t0:.1f} s")
     return full
 
 
@@ -1808,6 +2006,10 @@ def main() -> int:
     serve = phase_serve(card)
     print(f"serve: {serve['tokens_per_s']:.2f} tokens/s, decode step "
           f"{serve['step_ms']:.2f} ms on {card}")
+    for arch, r in phase_serve_zoo(card).items():
+        print(f"serve_zoo[{arch}]: {r['tokens_per_s']:.2f} tokens/s, decode "
+              f"step {r['step_ms']:.2f} ms, {r['launches']:.0f} launches a "
+              f"step, peak {r['peak_bytes'] / 2 ** 30:.3f} GiB on {card}")
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())

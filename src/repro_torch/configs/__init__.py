@@ -1,10 +1,9 @@
 """Architecture registry: the 10 architectures of the JAX package's configs.
 
-Plain data. All ten build, run forward and train in the port
-(``models.lm.LM``); the page-pool attention archs (qwen2-0.5b, qwen3-14b,
-gemma3-4b, qwen2-vl-2b, mixtral-8x7b) also serve, and the serve caches of
-the others raise ``NotImplementedError`` (``models.blocks.check_ported``,
-ROADMAP item 14b). ``serving.py`` holds the per-family serving defaults.
+Plain data. All ten build, run forward, train and serve in the port
+(``models.lm.LM``): the nine decoder-only archs through the continuous
+engine and the fixed driver, seamless-m4t-large-v2 through the fixed
+driver. ``serving.py`` holds the per-family serving defaults.
 """
 from __future__ import annotations
 

@@ -17,18 +17,24 @@ float32, masked scores at ``NEG_INF``, ``l`` floored at 1e-37, the output
 cast to ``q``'s dtype. ``F.scaled_dot_product_attention`` would sum in
 another order.
 
-The serve half (grouped-query attention only; MLA's latent cache waits
-for ROADMAP item 14b): the dense decode cache of the fixed-batch driver
-(``make_attn_cache``, ``attn_prefill``, ``attn_decode``; a ring buffer
-under a sliding window), and the paged KV pools of the continuous engine
-(``make_paged_attn_cache``, ``attn_decode_paged``, ``attn_chunk_paged``,
-``commit_prefill_pages``). Where JAX returns new pools from
-``.at[].set``, the port writes into the caller's cache tensors in place
-(``index_copy_`` on flat views) and returns the same dict, so a decode
-step copies no pool. Two reads differ from ``jnp``'s semantics in torch
-and are clamped first: an index past a page-table row (``jnp`` clamps a
-gather, and fills ``take_along_axis`` with INT_MIN, which the reference
-then masks).
+The serve half. Grouped-query attention: the dense decode cache of the
+fixed-batch driver (``make_attn_cache``, ``attn_prefill``,
+``attn_decode``; a ring buffer under a sliding window), and the paged KV
+pools of the continuous engine (``make_paged_attn_cache``,
+``attn_decode_paged``, ``attn_chunk_paged``, ``commit_prefill_pages``).
+MLA: the dense latent cache of the fixed driver (``make_mla_cache``,
+``mla_prefill``, ``mla_decode``, the weight-absorbed latent decode) and
+the engine's per-lane latent rows (``make_mla_lane_cache``,
+``mla_decode_lanes``, ``commit_prefill_mla``, ``mla_chunk_lanes``).
+Where JAX returns new caches from ``.at[].set``, the port writes into the
+caller's cache tensors in place (``index_copy_`` on flat views, indexed
+assignment on the lane rows) and returns the same dict, so a decode step
+copies no pool. Indices that ``jnp`` handles past an array's end are
+clamped first, since torch raises there: a read past a page-table row
+(``jnp`` clamps a gather, and fills ``take_along_axis`` with INT_MIN,
+which the reference then masks), and a free lane's MLA write past its
+row (``jnp`` drops an out-of-range scatter; the port writes the old value
+back at the clamped slot).
 """
 from __future__ import annotations
 
@@ -619,6 +625,201 @@ def _mla_forward_absorbed(p, x, cfg: ModelConfig, *, positions, causal=True):
     wuv = p["wuv"].reshape(kvl, H, v_dim)
     out = einsum("bqhk,khv->bqhv", o_lat, wuv)
     return dot(out.reshape(B, S, H * v_dim), p["wo"])
+
+
+def mla_prefill(p, x, cfg: ModelConfig, *, positions, cache):
+    """Full-sequence MLA that also fills the dense latent cache in place.
+    The reference's ``dynamic_update_slice`` clamps its start; the fixed
+    driver sizes the cache for the prompt and the generation, so the
+    prompt's slots [0, S) always fit and a slice assignment is exact."""
+    out = mla_forward(p, x, cfg, positions=positions)
+    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    S = x.shape[1]
+    cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+    cache["kpe"][:, :S] = k_pe.to(cache["kpe"].dtype)
+    cache["pos"][:S] = torch.arange(S, dtype=torch.int32,
+                                    device=cache["pos"].device)
+    return out, cache
+
+
+def _mla_latent_decode(p, x, cfg: ModelConfig, q_nope, q_pe, ckv, kpe,
+                       valid):
+    """Weight-absorbed one-token attention on the latent cache: q_nope
+    (B,1,H,nope), q_pe (B,1,H,rope), ckv (B,S,kvl), kpe (B,S,rope), valid
+    (B or 1, S). Float32 throughout, as the reference's decode."""
+    B = x.shape[0]
+    H, nope, v_dim, kvl = cfg.n_heads, cfg.qk_nope, cfg.v_head_dim, cfg.kv_lora
+    f32 = torch.float32
+    wuk = p["wuk"].reshape(kvl, H, nope)
+    # absorb W_uk into the query: (B,1,H,kvl)
+    q_lat = _f32_einsum("bqhn,khn->bqhk", q_nope, wuk)
+    scale = (nope + cfg.qk_rope) ** -0.5
+    s = (_f32_einsum("bqhk,bsk->bhqs", q_lat, ckv)
+         + _f32_einsum("bqhr,bsr->bhqs", q_pe, kpe))
+    s = s * scale
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), NEG_INF, dtype=f32, device=s.device))
+    o_lat = _f32_einsum("bhqs,bsk->bqhk", _softmax(s), ckv)        # (B,1,H,kvl)
+    wuv = p["wuv"].reshape(kvl, H, v_dim)
+    out = _f32_einsum("bqhk,khv->bqhv", o_lat, wuv)
+    return dot(out.reshape(B, 1, H * v_dim).to(x.dtype), p["wo"])
+
+
+def mla_decode(p, x, cfg: ModelConfig, *, pos, cache):
+    """One-token latent decode at position ``pos`` (an int, the same for
+    every row) on the dense latent cache, written in place. The fixed
+    driver never decodes past the cache, so the slot is in range."""
+    B = x.shape[0]
+    posb = torch.full((B, 1), int(pos), dtype=torch.int64, device=x.device)
+    q_nope, q_pe = _mla_q(p, x, cfg, posb)            # (B,1,H,nope),(B,1,H,rope)
+    ckv_t, kpe_t = _mla_kv_latent(p, x, cfg, posb)    # (B,1,kvl),(B,1,rope)
+    cache["ckv"][:, int(pos)] = ckv_t[:, 0].to(cache["ckv"].dtype)
+    cache["kpe"][:, int(pos)] = kpe_t[:, 0].to(cache["kpe"].dtype)
+    cache["pos"][int(pos)] = int(pos)
+    kpos = cache["pos"]
+    valid = (kpos >= 0) & (kpos <= int(pos))
+    return _mla_latent_decode(p, x, cfg, q_nope, q_pe, cache["ckv"],
+                              cache["kpe"], valid[None]), cache
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                   abstract=False, device="cuda"):
+    c = _cache_leaves({"ckv": ((batch, seq_len, cfg.kv_lora), cfg.dtype),
+                       "kpe": ((batch, seq_len, cfg.qk_rope), cfg.dtype),
+                       "pos": ((seq_len,), torch.int32)}, abstract, device)
+    if not abstract:
+        c["pos"].fill_(-1)
+    return c
+
+
+def make_mla_lane_cache(cfg: ModelConfig, lanes: int, max_len: int,
+                        abstract=False, device="cuda"):
+    """Per-lane dense latent rows for the serve engine (the latent is
+    already ~20x smaller than expanded K/V, so lanes stay dense); the
+    position row is per lane, so a reused lane can invalidate its stale
+    slots."""
+    c = _cache_leaves({"ckv": ((lanes, max_len, cfg.kv_lora), cfg.dtype),
+                       "kpe": ((lanes, max_len, cfg.qk_rope), cfg.dtype),
+                       "pos": ((lanes, max_len), torch.int32)},
+                      abstract, device)
+    if not abstract:
+        c["pos"].fill_(-1)
+    return c
+
+
+def mla_decode_lanes(p, x, cfg: ModelConfig, *, pos, cache, live=None):
+    """Weight-absorbed latent decode with per-lane positions ``pos`` (B,),
+    writing each lane's slot of its row in place.
+
+    A free lane's position drifts past its row (the engine advances every
+    lane): ``jnp`` drops that out-of-range write, torch would raise, so the
+    slot is clamped to the row's last and the old value written back there.
+    ``live`` (B,) holds the idle lanes' rows (the reference's ``hold_idle``
+    in ``blocks.apply_layer``): after the attention, which sees this step's
+    writes in every lane as the reference's does, an idle lane's slot gets
+    its old value back. A decode step changes one slot per lane, so that
+    is the whole row's ``where(live, new, old)``."""
+    B = x.shape[0]
+    posb = pos.long()[:, None]
+    q_nope, q_pe = _mla_q(p, x, cfg, posb)
+    ckv_t, kpe_t = _mla_kv_latent(p, x, cfg, posb)
+    L = cache["ckv"].shape[1]
+    bidx = torch.arange(B, device=x.device)
+    pos = pos.long()
+    tgt = torch.clamp(pos, max=L - 1)
+    keep = pos < L
+    leaves = (("ckv", ckv_t[:, 0]), ("kpe", kpe_t[:, 0]), ("pos", pos))
+    old = {n: cache[n][bidx, tgt] for n, _ in leaves}         # copies
+    for n, new in leaves:
+        m = keep.view(-1, *([1] * (new.dim() - 1)))
+        cache[n][bidx, tgt] = torch.where(m, new.to(cache[n].dtype), old[n])
+    valid = (cache["pos"] >= 0) & (cache["pos"] <= pos[:, None])
+    out = _mla_latent_decode(p, x, cfg, q_nope, q_pe, cache["ckv"],
+                             cache["kpe"], valid)
+    if live is not None:
+        for n, _ in leaves:
+            m = live.to(torch.bool).view(-1, *([1] * (old[n].dim() - 1)))
+            cache[n][bidx, tgt] = torch.where(m, cache[n][bidx, tgt], old[n])
+    return out, cache
+
+
+def commit_prefill_mla(cache, dense, lane, *, stacked: bool):
+    """Write a batch-1 dense MLA prefill cache into one lane's row, in
+    place, stamping -1 into the position slots past it so a reused lane
+    never attends to its previous occupant's cache."""
+    S = dense["ckv"].shape[-2]
+    L = cache["pos"].shape[-1]
+    ar = torch.arange(L, dtype=torch.int32, device=cache["pos"].device)
+    row_pos = torch.where(ar < S, ar, torch.full((), -1, dtype=torch.int32,
+                                                 device=ar.device))
+    if stacked:
+        cache["ckv"][:, lane, :S] = dense["ckv"][:, 0].to(cache["ckv"].dtype)
+        cache["kpe"][:, lane, :S] = dense["kpe"][:, 0].to(cache["kpe"].dtype)
+        cache["pos"][:, lane] = row_pos[None]
+    else:
+        cache["ckv"][lane, :S] = dense["ckv"][0].to(cache["ckv"].dtype)
+        cache["kpe"][lane, :S] = dense["kpe"][0].to(cache["kpe"].dtype)
+        cache["pos"][lane] = row_pos
+    return cache
+
+
+def mla_chunk_lanes(p, x, cfg: ModelConfig, *, positions, lengths, lanes,
+                    cache):
+    """Batched bucketed/chunked MLA prefill into per-lane latent rows.
+
+    ``mla_forward``'s math (absorbed or expanded, per config) over the
+    lane's stored latent rows: the chunk's (c_kv, k_pe) are written at
+    their absolute positions first (a padded slot, clipped to the row's
+    last, writes its old value back), the position row is stamped ``j if j
+    < start+length else -1`` (idempotent across chunks; it invalidates a
+    reused lane's stale slots), then the chunk's queries attend over the
+    whole row under the stored-position mask through ``_chunk_attention``.
+    A batch padded by repeating its row 0 repeats that row's lane and
+    slots with the same values."""
+    B, Cb, _ = x.shape
+    H, nope, v_dim, kvl, rope = (cfg.n_heads, cfg.qk_nope, cfg.v_head_dim,
+                                 cfg.kv_lora, cfg.qk_rope)
+    positions, lanes = positions.long(), lanes.long()
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    ckv_t, kpe_t = _mla_kv_latent(p, x, cfg, positions)
+    L = cache["ckv"].shape[1]
+    valid = (torch.arange(Cb, device=x.device)[None, :]
+             < lengths.long()[:, None])
+    tgt = torch.clamp(positions, 0, L - 1)                        # (B,Cb)
+    bl = lanes[:, None]
+    for n, new in (("ckv", ckv_t), ("kpe", kpe_t)):
+        old = cache[n][bl, tgt]                                   # a copy
+        cache[n][bl, tgt] = torch.where(valid[..., None],
+                                        new.to(cache[n].dtype), old)
+    ar = torch.arange(L, device=x.device)[None, :]
+    limit = (positions[:, 0] + lengths.long())[:, None]           # start+length
+    row_pos = torch.where(ar < limit, ar, torch.full((), -1, dtype=ar.dtype,
+                                                     device=ar.device))
+    cache["pos"][lanes] = row_pos.to(cache["pos"].dtype)
+
+    ckv_rows = cache["ckv"][lanes]                                # (B,L,kvl)
+    kpe_rows = cache["kpe"][lanes]                                # (B,L,rope)
+    if cfg.mla_absorbed:
+        wuk = p["wuk"].reshape(kvl, H, nope)
+        q_lat = einsum("bqhn,khn->bqhk", q_nope, wuk)
+        fix = ((kvl + rope) / (nope + rope)) ** 0.5
+        q = torch.cat([q_lat, q_pe], dim=-1)
+        q = q * torch.full((), fix, dtype=q_lat.dtype, device=q.device)
+        kk = torch.cat([ckv_rows, kpe_rows], dim=-1)[:, :, None, :]
+        vv = ckv_rows[:, :, None, :]
+        o_lat = _chunk_attention(q, kk, vv, q_pos=positions, k_pos=row_pos,
+                                 chunk=cfg.attn_chunk)
+        wuv = p["wuv"].reshape(kvl, H, v_dim)
+        out = einsum("bqhk,khv->bqhv", o_lat, wuv)
+    else:
+        k_nope = dot(ckv_rows, p["wuk"]).reshape(B, L, H, nope)
+        vv = dot(ckv_rows, p["wuv"]).reshape(B, L, H, v_dim)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        kk = torch.cat([k_nope, kpe_rows[:, :, None, :].expand(B, L, H, rope)],
+                       dim=-1)
+        out = _chunk_attention(q, kk, vv, q_pos=positions, k_pos=row_pos,
+                               chunk=cfg.attn_chunk)
+    return dot(out.reshape(B, Cb, H * v_dim), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Layer blocks and the period stack (the full-sequence ``fwd`` mode).
+"""Layer blocks and the period stack: training and the serve modes.
 
 Port of the JAX package's ``models/blocks.py``. A model stack = ``prefix``
 layers (unrolled; e.g. DeepSeek's leading dense-FFN layer) + ``body`` =
@@ -16,14 +16,14 @@ period in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps
 ``period_fn``.
 
 The serve modes (``prefill``: the fixed-batch driver's dense cache;
-``chunk``: the engine's bucketed/chunked prefill into the paged pools;
-``decode``: dense, or per lane against the paged pools when a page table
-is passed) and their cache makers are ported for the page-pool attention
-kinds ``attn`` / ``attn_local``, with any FFN (dense or MoE). Caches are
-written in place: a period's cache is the ``leaf[i]`` view of the stacked
-cache leaves, as its parameters are. The serve modes of ``mla``, ``rec``,
-``ssm`` and of the cross-attention sub-block raise
-``NotImplementedError`` naming ROADMAP item 14b, before any layer runs.
+``chunk``: the engine's bucketed/chunked prefill into the paged cache;
+``decode``: dense, or per lane against the paged cache when a page table
+is passed) run for every layer kind: shared K/V page pools for
+``attn`` / ``attn_local``, per-lane latent rows for ``mla``, per-lane
+recurrent state for ``rec`` / ``ssm``, and the cross-attention K/V of an
+encoder-decoder's decoder (fixed driver only). Caches are written in
+place: a period's cache is the ``leaf[i]`` view of the stacked cache
+leaves, as its parameters are.
 """
 from __future__ import annotations
 
@@ -38,38 +38,15 @@ from ..core.paths import TensorSpec, tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
-from .common import rms_norm, zeros
+from .common import dot, rms_norm, zeros
 
 SERVING_MODES = ("prefill", "chunk", "decode")
-PAGE_POOL_KINDS = ("attn", "attn_local")
 
 
-def check_ported(mode: str, cfg: Optional[ModelConfig] = None) -> None:
-    """Raise ``ValueError`` for an unknown mode, and
-    ``NotImplementedError`` for a serve mode of a layer kind whose cache is
-    not ported yet (MLA's latent rows, RG-LRU and SSD state, the
-    encoder-decoder's cross-attention cache; ROADMAP item 14b)."""
-    if mode == "fwd":
-        return
-    if mode not in SERVING_MODES:
+def check_ported(mode: str) -> None:
+    """Raise ``ValueError`` for an unknown mode."""
+    if mode != "fwd" and mode not in SERVING_MODES:
         raise ValueError(mode)
-    if cfg is None:
-        return
-    kinds = sorted(set(cfg.layer_kinds) - set(PAGE_POOL_KINDS))
-    if kinds or cfg.is_encdec:
-        what = ", ".join(kinds + (["cross-attention"] if cfg.is_encdec else []))
-        raise NotImplementedError(
-            f"mode {mode!r} of {cfg.name}: the serve caches of {what} come "
-            f"with ROADMAP.md queue 1 item 14b (MLA latent rows, RG-LRU and "
-            f"SSD state, the cross-attention cache); the port serves the "
-            f"page-pool attention kinds {', '.join(PAGE_POOL_KINDS)}")
-
-
-def _check_kind(kind: str, cross: bool = False) -> None:
-    if kind not in PAGE_POOL_KINDS or cross:
-        raise NotImplementedError(
-            f"the serve cache of {'cross-attention' if cross else kind} "
-            f"comes with ROADMAP.md queue 1 item 14b")
 
 
 # ---------------------------------------------------------------------------
@@ -112,24 +89,62 @@ def make_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      enc_len: int = 0, cross: bool = False, abstract=False,
                      device="cuda") -> Dict:
     """The fixed-batch driver's dense decode cache of one layer."""
-    _check_kind(kind, cross)
-    return {"kv": attn.make_attn_cache(cfg, kind, batch, seq_len, abstract,
-                                       device)}
+    c: Dict[str, Any] = {}
+    if kind in ("attn", "attn_local"):
+        c["kv"] = attn.make_attn_cache(cfg, kind, batch, seq_len, abstract,
+                                       device)
+    elif kind == "mla":
+        c["kv"] = attn.make_mla_cache(cfg, batch, seq_len, abstract, device)
+    elif kind == "rec":
+        c["state"] = rec_mod.make_rglru_state(cfg, batch, abstract, device)
+    elif kind == "ssm":
+        c["state"] = rec_mod.make_ssm_state(cfg, batch, abstract, device)
+    if cross:
+        KV, D = cfg.n_kv, cfg.head_dim
+        c.update(attn._cache_leaves(
+            {"ck": ((batch, enc_len, KV, D), cfg.dtype),
+             "cv": ((batch, enc_len, KV, D), cfg.dtype)}, abstract, device))
+    return c
+
+
+def _write(old, new):
+    """Write a new state tree into the cache's leaves, in place."""
+    tree_map(lambda o, n: o.copy_(n), old, new)
+
+
+def _write_rows(old, new, rows):
+    """Write a new state tree's rows into the cache's rows ``rows``."""
+    tree_map(lambda o, n: o.index_copy_(0, rows, n.to(o.dtype)), old, new)
 
 
 def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
                 positions=None, cache: Optional[Dict] = None, pos=None,
-                enc_out=None, causal: bool = True, table=None, lengths=None):
+                enc_out=None, causal: bool = True, table=None, lengths=None,
+                lane_idx=None, fresh=None, live=None):
     """Returns (x_out, aux_loss, new_cache). ``table`` (B,T) page table
     selects the paged per-lane decode; ``lengths`` (B,) is the valid run
-    per row of mode ``chunk``. The cache is written in place and
-    returned."""
+    per row of mode ``chunk``, ``lane_idx`` (B,) its decode lane and
+    ``fresh`` (B,) its first-chunk flag (zero prior state). ``live`` (B,)
+    masks the per-lane writes of the paged decode: page-pool layers park
+    idle lanes on the scratch page, but MLA latent rows and rec/ssm state
+    have no scratch row, and without the mask the decode step that runs
+    between prefill chunks would overwrite a mid-chunk lane's carried
+    state. The cache is written in place and returned."""
     check_ported(mode)
     rs = cfg.residual_scale
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    lanes = table is not None
+
+    def hold_idle(new, old):
+        """The reference's ``where(live, new, old)``, written into ``old``."""
+        if live is None:
+            _write(old, new)
+            return
+        m = live.to(torch.bool)
+        tree_map(lambda o, n: o.copy_(torch.where(
+            m.view(-1, *([1] * (n.dim() - 1))), n.to(o.dtype), o)), old, new)
+
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode != "fwd":
-        _check_kind(kind, "cross" in p)
     if kind in ("attn", "attn_local"):
         if mode == "fwd":
             mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
@@ -141,7 +156,7 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
             mix, _ = attn.attn_chunk_paged(p["attn"], h, cfg, kind=kind,
                                            positions=positions, lengths=lengths,
                                            table=table, cache=cache["kv"])
-        elif table is not None:
+        elif lanes:
             mix, _ = attn.attn_decode_paged(p["attn"], h, cfg, kind=kind,
                                             pos=pos, table=table,
                                             cache=cache["kv"])
@@ -149,19 +164,86 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
             mix, _ = attn.attn_decode(p["attn"], h, cfg, kind=kind, pos=pos,
                                       cache=cache["kv"])
     elif kind == "mla":
-        mix = attn.mla_forward(p["attn"], h, cfg, positions=positions,
-                               causal=causal)
+        if mode == "fwd":
+            mix = attn.mla_forward(p["attn"], h, cfg, positions=positions,
+                                   causal=causal)
+        elif mode == "prefill":
+            mix, _ = attn.mla_prefill(p["attn"], h, cfg, positions=positions,
+                                      cache=cache["kv"])
+        elif mode == "chunk":
+            mix, _ = attn.mla_chunk_lanes(p["attn"], h, cfg,
+                                          positions=positions, lengths=lengths,
+                                          lanes=lane_idx, cache=cache["kv"])
+        elif lanes:
+            mix, _ = attn.mla_decode_lanes(p["attn"], h, cfg, pos=pos,
+                                           cache=cache["kv"], live=live)
+        else:
+            mix, _ = attn.mla_decode(p["attn"], h, cfg, pos=pos,
+                                     cache=cache["kv"])
     elif kind == "rec":
-        mix = rec_mod.rglru_forward(p["mix"], h, cfg)
+        if mode == "fwd":
+            mix = rec_mod.rglru_forward(p["mix"], h, cfg)
+        elif mode == "prefill":
+            mix, st = rec_mod.rglru_forward_with_state(p["mix"], h, cfg)
+            _write(cache["state"], st)
+        elif mode == "chunk":
+            # exact-length, fresh-only batched prefill: the engine never
+            # pads or chunks rec rows (the associative scan's tree is not
+            # stable under a padded tail)
+            mix, st = rec_mod.rglru_forward_with_state(p["mix"], h, cfg)
+            _write_rows(cache["state"], st, lane_idx.long())
+        else:
+            mix, st = rec_mod.rglru_decode(p["mix"], h, cache["state"], cfg)
+            hold_idle(st, cache["state"])
     elif kind == "ssm":
-        mix = rec_mod.ssm_forward(p["mix"], h, cfg)
+        if mode == "fwd":
+            mix = rec_mod.ssm_forward(p["mix"], h, cfg)
+        elif mode == "prefill":
+            mix, st = rec_mod.ssm_forward_with_state(p["mix"], h, cfg)
+            _write(cache["state"], st)
+        elif mode == "chunk":
+            rows = lane_idx.long()
+            mask = fresh.to(torch.bool)
+
+            def gather_row(lc):
+                g = lc[rows]      # a copy, read before the rows are written
+                return torch.where(mask.view(-1, *([1] * (g.dim() - 1))),
+                                   torch.zeros((), dtype=g.dtype,
+                                               device=g.device), g)
+
+            prev = tree_map(gather_row, cache["state"])
+            mix, st = rec_mod.ssm_forward_with_state(p["mix"], h, cfg,
+                                                     state=prev,
+                                                     lengths=lengths)
+            _write_rows(cache["state"], st, rows)
+        else:
+            mix, st = rec_mod.ssm_decode(p["mix"], h, cache["state"], cfg)
+            hold_idle(st, cache["state"])
     else:
         raise ValueError(kind)
     x = x + rs * mix
 
     if "cross" in p:
         hx = rms_norm(x, p["lnx"], cfg.norm_eps)
-        x = x + rs * attn.cross_forward(p["cross"], hx, enc_out, cfg)
+        if mode == "fwd":
+            cx = attn.cross_forward(p["cross"], hx, enc_out, cfg)
+        elif mode == "prefill":
+            # the cross K/V are cached at prefill; decode reuses them
+            B, Se, _ = enc_out.shape
+            KV, D = cfg.n_kv, cfg.head_dim
+            cache["ck"].copy_(dot(enc_out, p["cross"]["wk"]).reshape(B, Se, KV, D))
+            cache["cv"].copy_(dot(enc_out, p["cross"]["wv"]).reshape(B, Se, KV, D))
+            cx = attn.cross_forward(p["cross"], hx, enc_out, cfg)
+        else:
+            B = hx.shape[0]
+            H, D = cfg.n_heads, cfg.head_dim
+            q = dot(hx, p["cross"]["wq"]).reshape(B, 1, H, D)
+            Se = cache["ck"].shape[1]
+            kpos = torch.arange(Se, dtype=torch.int32, device=x.device)
+            out = attn.decode_attention(q, cache["ck"], cache["cv"],
+                                        k_pos=kpos, pos=Se)
+            cx = dot(out.reshape(B, 1, H * D), p["cross"]["wo"])
+        x = x + rs * cx
 
     if kind != "ssm":
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -234,7 +316,6 @@ def _stack_leaf(leaf, n: int, abstract: bool):
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                      enc_len=0, cross=False, abstract=False,
                      device="cuda") -> Dict:
-    check_ported("prefill", cfg)
     prefix, period, tail, n_periods = stack_structure(cfg)
     cache: Dict[str, Any] = {"prefix": {}, "body": {}, "tail": {}}
 
@@ -259,22 +340,32 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 # ---------------------------------------------------------------------------
 #
 # attn/attn_local — shared page pools (num_pages, page_size, KV, D); all
-#                   layers index the same per-lane page-table row. (MLA's
-#                   per-lane latent rows and rec/ssm per-lane state: item 14b.)
+#                   layers index the same per-lane page-table row.
+# mla             — per-lane dense latent rows (lanes, max_len, ...) with a
+#                   per-lane position row for stale-slot invalidation.
+# rec/ssm         — per-lane recurrent state, the dense cache's layout.
 
 
 def make_paged_layer_cache(cfg: ModelConfig, kind: str, lanes: int,
                            num_pages: int, page_size: int, max_len: int,
                            abstract=False, device="cuda") -> Dict:
-    _check_kind(kind)
-    return {"kv": attn.make_paged_attn_cache(cfg, num_pages, page_size,
-                                             abstract, device)}
+    c: Dict[str, Any] = {}
+    if kind in ("attn", "attn_local"):
+        c["kv"] = attn.make_paged_attn_cache(cfg, num_pages, page_size,
+                                             abstract, device)
+    elif kind == "mla":
+        c["kv"] = attn.make_mla_lane_cache(cfg, lanes, max_len, abstract,
+                                           device)
+    elif kind == "rec":
+        c["state"] = rec_mod.make_rglru_state(cfg, lanes, abstract, device)
+    elif kind == "ssm":
+        c["state"] = rec_mod.make_ssm_state(cfg, lanes, abstract, device)
+    return c
 
 
 def init_paged_stack_cache(cfg: ModelConfig, lanes: int, num_pages: int,
                            page_size: int, max_len: int, abstract=False,
                            device="cuda") -> Dict:
-    check_ported("decode", cfg)
     prefix, period, tail, n_periods = stack_structure(cfg)
     cache: Dict[str, Any] = {"prefix": {}, "body": {}, "tail": {}}
 
@@ -297,9 +388,20 @@ def init_paged_stack_cache(cfg: ModelConfig, lanes: int, num_pages: int,
 def commit_layer_prefill(cfg: ModelConfig, kind: str, paged: Dict,
                          dense: Dict, idx, lane, *, stacked: bool) -> Dict:
     """Write one layer's batch-1 dense prefill cache into the paged cache
-    (in place): K/V pages at flat slots ``idx`` (S,)."""
-    _check_kind(kind)
-    attn.commit_prefill_pages(paged["kv"], dense["kv"], idx, stacked=stacked)
+    (in place): K/V pages at flat slots ``idx`` (S,), lane-dense latent
+    rows and recurrent state at row ``lane``."""
+    if kind in ("attn", "attn_local"):
+        attn.commit_prefill_pages(paged["kv"], dense["kv"], idx, stacked=stacked)
+    elif kind == "mla":
+        attn.commit_prefill_mla(paged["kv"], dense["kv"], lane, stacked=stacked)
+    else:             # rec / ssm: overwrite the lane's recurrent state
+        def put(lc, dc):
+            if stacked:
+                lc[:, lane] = dc[:, 0].to(lc.dtype)
+            else:
+                lc[lane] = dc[0].to(lc.dtype)
+
+        tree_map(put, paged["state"], dense["state"])
     return paged
 
 
@@ -323,17 +425,19 @@ def commit_stack_prefill(cfg: ModelConfig, paged: Dict, dense: Dict, idx,
 
 def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
                 positions=None, caches: Optional[Dict] = None, pos=None,
-                enc_out=None, causal: bool = True, table=None, lengths=None):
+                enc_out=None, causal: bool = True, table=None, lengths=None,
+                lane_idx=None, fresh=None, live=None):
     """Returns (x, aux_total, caches): ``caches`` (written in place, the
     same dict) when given, else None."""
-    check_ported(mode, cfg)
+    check_ported(mode)
     prefix, period, tail, n_periods = stack_structure(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_layer(p, x, kind, cache):
         return apply_layer(p, x, cfg, kind, mode, positions=positions,
                            cache=cache, pos=pos, enc_out=enc_out,
-                           causal=causal, table=table, lengths=lengths)
+                           causal=causal, table=table, lengths=lengths,
+                           lane_idx=lane_idx, fresh=fresh, live=live)
 
     def part(name, key):
         return caches[name][key] if caches is not None else None

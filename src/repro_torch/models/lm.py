@@ -1,6 +1,6 @@
 """Top-level language models: decoder-only and encoder-decoder.
 
-Port of the training path of the JAX package's ``models/lm.py``:
+Port of the JAX package's ``models/lm.py``:
 
   init(key, device) -> params          (abstract_params(device) allocates nothing)
   forward(params, tokens, frames) -> (logits, aux)
@@ -13,19 +13,20 @@ embeddings, the audio enc-dec feeds them to its encoder (a bidirectional
 attention stack, ``_encoder_cfg``) whose output the decoder's
 cross-attention reads.
 
-The serve half, for the page-pool attention families (``attn`` /
-``attn_local`` layers, dense or MoE FFN):
+The serve half, for every arch:
 
-  init_cache(batch, seq_len) / prefill / decode_step / serve_step
-      the fixed-batch driver's dense cache (a ring buffer under a window);
+  init_cache(batch, seq_len, enc_len) / prefill / decode_step / serve_step
+      the fixed-batch driver's dense cache (a ring buffer under a window;
+      MLA latents; RG-LRU / SSD state; an encoder-decoder's cross K/V,
+      built by ``prefill`` from the encoder's output);
   init_paged_cache / commit_prefill / prefill_commit_batch /
   decode_step_lanes / serve_step_lanes
-      the continuous engine's shared KV page pools.
+      the continuous engine's cache: shared KV page pools, per-lane MLA
+      latent rows and per-lane recurrent state (decoder-only models, as in
+      the reference).
 
 Every serve entry point runs without autograd and writes the cache it is
-given in place, returning the same dict. The serve caches of MLA, RG-LRU,
-SSD and the encoder-decoder raise ``NotImplementedError`` (ROADMAP item
-14b).
+given in place, returning the same dict.
 """
 from __future__ import annotations
 
@@ -139,11 +140,14 @@ class LM:
         """(logits (B,1,V) at the last position, cache filled in place)."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        enc_out = (self._encode(params, batch.get("frames")) if cfg.is_encdec
+                   else None)
         x = self._embed(params, tokens, batch.get("frames"))
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, _, cache = apply_stack(params["stack"], x, cfg, "prefill",
-                                  positions=positions, caches=cache)
+                                  positions=positions, caches=cache,
+                                  enc_out=enc_out)
         return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
@@ -165,7 +169,8 @@ class LM:
     def init_paged_cache(self, lanes: int, num_pages: int, page_size: int,
                          max_len: int, abstract=False, device="cuda") -> Dict:
         """Decode cache of the continuous-batching serve engine: shared KV
-        page pools for the attention layers (page 0 reserved as scratch)."""
+        page pools for the attention layers (page 0 reserved as scratch),
+        per-lane rows for MLA latents and recurrent state."""
         if self.cfg.is_encdec:
             raise NotImplementedError("paged serving supports decoder-only models")
         return init_paged_stack_cache(self.cfg, lanes, num_pages, page_size,
@@ -178,7 +183,7 @@ class LM:
         """Gather-free handoff from a batch-1 dense prefill cache into the
         paged cache, in place: prompt K/V scattered to the lane's pages
         (flat slot of logical j = table_row[j // page_size] * page_size +
-        j % page_size)."""
+        j % page_size), lane-dense leaves written at row ``lane``."""
         table_row = torch.as_tensor(table_row).long()
         idx = (table_row[:, None] * page_size
                + torch.arange(page_size, dtype=torch.int64,
@@ -194,12 +199,11 @@ class LM:
         ``tokens`` (B,Cb) right-padded chunk tokens, ``tables`` (B,T)
         page-table rows, ``lanes`` (B,) decode lanes, ``starts`` (B,)
         absolute position of each row's first token, ``lengths`` (B,)
-        valid run, ``fresh`` (B,) first-chunk flag. One call per (Cb, B)
-        bucket pair serves plain batched prefill (start=0), chunk
-        continuation and prefix-shared tails. Returns (logits (B,1,V) at
-        each row's last valid token, paged). ``lanes`` and ``fresh`` address
-        per-lane state rows, which the page-pool kinds do not have (MLA,
-        RG-LRU and SSD layers: ROADMAP item 14b).
+        valid run, ``fresh`` (B,) first-chunk flag (zeroes the prior
+        recurrent state). One call per (Cb, B) bucket pair serves plain
+        batched prefill (start=0), chunk continuation and prefix-shared
+        tails. Returns (logits (B,1,V) at each row's last valid token,
+        paged).
         """
         x = self._embed(params, tokens)
         Cb = tokens.shape[1]
@@ -207,7 +211,8 @@ class LM:
                      + torch.arange(Cb, device=tokens.device)[None, :])
         x, _, paged = apply_stack(params["stack"], x, self.cfg, "chunk",
                                   positions=positions, caches=paged,
-                                  table=tables, lengths=lengths)
+                                  table=tables, lengths=lengths,
+                                  lane_idx=lanes, fresh=fresh)
         idx = (lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
         last = torch.gather(x, 1, idx)
         return self._logits(params, last), paged
@@ -217,11 +222,12 @@ class LM:
                           live=None):
         """Per-lane decode: token (B,1); table (B,T) page tables; pos (B,)
         per-lane write positions (free lanes point at the scratch page);
-        ``live`` (B,) is the idle-lane mask of per-lane state rows, which
-        the page-pool kinds do not have."""
+        ``live`` (B,) holds idle lanes' per-lane cache rows (MLA latents,
+        rec/ssm state: layers with no scratch row)."""
         x = self._embed(params, token)
         x, _, cache = apply_stack(params["stack"], x, self.cfg, "decode",
-                                  caches=cache, pos=pos, table=table)
+                                  caches=cache, pos=pos, table=table,
+                                  live=live)
         return self._logits(params, x), cache
 
     def serve_step_lanes(self, params, token, cache: Dict, table, pos,

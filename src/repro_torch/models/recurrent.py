@@ -1,11 +1,13 @@
 """Recurrent sequence mixers: RG-LRU (Griffin / RecurrentGemma) and Mamba-2
 SSD.
 
-Port of the training path of the JAX package's ``models/recurrent.py``:
-the RG-LRU runs its linear recurrence as an associative scan, Mamba-2 as
-the chunked matmul SSD algorithm. The ``*_with_state`` / ``*_decode`` /
-``make_*_state`` functions of the reference (prefill, decode and their
-recurrent states) come with serving.
+Port of the JAX package's ``models/recurrent.py``: the RG-LRU runs its
+linear recurrence as an associative scan, Mamba-2 as the chunked matmul
+SSD algorithm. Serving carries constant-size recurrent states:
+``*_forward_with_state`` (prefill; SSD also continues from a previous
+chunk's state over a right-padded batch), ``*_decode`` (one token) and
+``make_*_state``. The states are returned as new tensors; the caller
+writes them into its cache.
 
 ``associative_scan`` is ``jax.lax.associative_scan``'s recursion written as
 tensor slicing: the pairwise-combined odd/even elements are scanned, then
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..configs.base import ModelConfig
+from ..core.paths import TensorSpec
 from .common import dense_init, dot, einsum, rms_norm, zeros
 
 
@@ -33,17 +36,31 @@ from .common import dense_init, dot, einsum, rms_norm, zeros
 # ---------------------------------------------------------------------------
 
 
-def causal_conv(u, w):
-    """u: (B, S, C); w: (k, C) depthwise causal. Returns (y, new_state),
-    the state being the last k-1 inputs (B, k-1, C)."""
+def causal_conv(u, w, state=None, lengths=None):
+    """u: (B, S, C); w: (k, C) depthwise causal; state: (B, k-1, C) prior
+    inputs (zeros when None). Returns (y, new_state), the state being the
+    last k-1 inputs (B, k-1, C). With per-row ``lengths`` (B,) it holds the
+    last k-1 inputs of each row's valid run, reaching into the prior state
+    for rows shorter than k-1: a right-padded tail never enters it."""
     k = w.shape[0]
     S = u.shape[1]
-    up = F.pad(u, (0, 0, k - 1, 0))
+    if state is None:
+        up = F.pad(u, (0, 0, k - 1, 0))
+    else:
+        up = torch.cat([state.to(u.dtype), u], dim=1)
     f32 = torch.float32
     y = 0
     for j in range(k):  # the reference's sum(...), from 0, in j order
         y = y + w[j].to(f32) * up[:, j:j + S].to(f32)
-    new_state = up[:, -(k - 1):] if k > 1 else None
+    if k <= 1:
+        new_state = None
+    elif lengths is None:
+        new_state = up[:, -(k - 1):]
+    else:
+        # valid input t sits at up[:, t + k - 1]; keep t = length-k+1 .. length-1
+        idx = (lengths.long()[:, None]
+               + torch.arange(k - 1, device=u.device)[None, :])
+        new_state = torch.gather(up, 1, idx[:, :, None].expand(-1, -1, up.shape[2]))
     return y.to(u.dtype), new_state
 
 
@@ -178,6 +195,40 @@ def rglru_forward(p, x, cfg: ModelConfig):
     return y
 
 
+def rglru_forward_with_state(p, x, cfg: ModelConfig):
+    """Prefill: the full forward and the final recurrent and conv state."""
+    y, h, conv_state = _rglru_core(p, x, cfg)
+    return y, {"h": h[:, -1], "conv": conv_state}
+
+
+def rglru_decode(p, x, state: Dict, cfg: ModelConfig):
+    """x: (B, 1, d); state: {'h': (B, dr) f32, 'conv': (B, k-1, dr)}."""
+    gate = F.gelu(dot(x, p["wy"]).to(torch.float32), approximate="tanh")
+    u, conv_state = causal_conv(dot(x, p["wx"]), p["conv"], state["conv"])
+    a, b = _rglru_gates(p, u, cfg)
+    h = a[:, 0] * state["h"] + b[:, 0]
+    y = dot((gate[:, 0] * h)[:, None].to(x.dtype), p["wout"])
+    return y, {"h": h, "conv": conv_state}
+
+
+def _state_leaves(shapes, abstract: bool, device):
+    """A nested dict of ((shape), dtype) leaves as zeros or ``TensorSpec``s."""
+    if isinstance(shapes, dict):
+        return {n: _state_leaves(v, abstract, device) for n, v in shapes.items()}
+    shape, dt = shapes
+    if abstract:
+        return TensorSpec(shape, dt, device)
+    return torch.zeros(shape, dtype=dt, device=device)
+
+
+def make_rglru_state(cfg: ModelConfig, batch: int, abstract=False,
+                     device="cuda"):
+    dr = cfg.rnn_width
+    return _state_leaves({"h": ((batch, dr), torch.float32),
+                          "conv": ((batch, cfg.conv_k - 1, dr), cfg.dtype)},
+                         abstract, device)
+
+
 # ---------------------------------------------------------------------------
 # Mamba-2 (SSD: state space duality, chunked matmul form)
 # ---------------------------------------------------------------------------
@@ -281,12 +332,14 @@ def ssd_chunked(x, dt_a, B, C, chunk: int, init_state=None):
     return y, prev
 
 
-def _ssm_split(p, x, cfg: ModelConfig):
+def _ssm_split(p, x, cfg: ModelConfig, conv_state=None, lengths=None):
     H, N, G = cfg.ssm_heads, cfg.d_state, cfg.ssm_groups
+    cs = conv_state or {}
     z = dot(x, p["wz"])
-    xs, _ = causal_conv(dot(x, p["wx"]), p["conv_x"])
-    B_, _ = causal_conv(dot(x, p["wb"]), p["conv_b"])
-    C_, _ = causal_conv(dot(x, p["wc"]), p["conv_c"])
+    xs, ncx = causal_conv(dot(x, p["wx"]), p["conv_x"], cs.get("x"), lengths)
+    B_, ncb = causal_conv(dot(x, p["wb"]), p["conv_b"], cs.get("b"), lengths)
+    C_, ncc = causal_conv(dot(x, p["wc"]), p["conv_c"], cs.get("c"), lengths)
+    new_conv = {"x": ncx, "b": ncb, "c": ncc}
     dt = dot(x, p["wdt"])                                           # (B,S,H)
     xs, B_, C_ = F.silu(xs), F.silu(B_), F.silu(C_)
     Bsz, S = x.shape[0], x.shape[1]
@@ -299,7 +352,14 @@ def _ssm_split(p, x, cfg: ModelConfig):
     C_ = C_.reshape(Bsz, S, G, 1, N).expand(Bsz, S, G, rep, N).reshape(
         Bsz, S, H, N)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])
-    return z, xs, B_, C_, dt
+    if lengths is not None:
+        # a zero dt past a row's valid run makes its padding exact for SSD:
+        # x*dt adds nothing and the decay exp(dt*A) = 1 carries the state
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < lengths.long()[:, None])
+        dt = torch.where(valid[..., None], dt, torch.zeros((), dtype=dt.dtype,
+                                                           device=dt.device))
+    return z, xs, B_, C_, dt, new_conv
 
 
 def _ssm_out(p, y, z, x, cfg: ModelConfig):
@@ -308,18 +368,56 @@ def _ssm_out(p, y, z, x, cfg: ModelConfig):
     return dot(y, p["wout"])
 
 
-def _ssm_core(p, x, cfg: ModelConfig):
-    z, xs, B_, C_, dt = _ssm_split(p, x, cfg)
+def _ssm_core(p, x, cfg: ModelConfig, state=None, lengths=None):
+    conv_state = state["conv"] if state is not None else None
+    init_h = state["h"] if state is not None else None
+    z, xs, B_, C_, dt, new_conv = _ssm_split(p, x, cfg, conv_state, lengths)
     A = -torch.exp(p["a_log"])                                      # (H,)
     f32 = torch.float32
     y, final = ssd_chunked(xs.to(f32) * dt[..., None], dt * A, B_, C_,
-                           cfg.ssm_chunk)
+                           cfg.ssm_chunk, init_state=init_h)
     y = y + p["d_skip"][None, None, :, None] * xs.to(f32)
     y = y.reshape(*x.shape[:2], cfg.d_inner)
-    return _ssm_out(p, y, z, x, cfg), final
+    return _ssm_out(p, y, z, x, cfg), final, new_conv
 
 
 def ssm_forward(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> (B, S, d). Chunked SSD training path."""
-    out, _ = _ssm_core(p, x, cfg)
+    out, _, _ = _ssm_core(p, x, cfg)
     return out
+
+
+def ssm_forward_with_state(p, x, cfg: ModelConfig, state=None, lengths=None):
+    """Prefill: the full forward and the final {'h', 'conv'} state.
+    ``state`` seeds a chunk continuation (the previous chunk's state);
+    ``lengths`` (B,) marks each row's valid run in a right-padded batch
+    (dt is zero past it)."""
+    out, final, new_conv = _ssm_core(p, x, cfg, state, lengths)
+    return out, {"h": final, "conv": new_conv}
+
+
+def ssm_decode(p, x, state: Dict, cfg: ModelConfig):
+    """x: (B, 1, d); state: {'h': (B, H, P, N) f32, 'conv': {'x', 'b',
+    'c': (B, k-1, ...)}}."""
+    z, xs, B_, C_, dt, new_conv = _ssm_split(p, x, cfg, state["conv"])
+    f32 = torch.float32
+    A = -torch.exp(p["a_log"])
+    dA = torch.exp(dt[:, 0] * A)                                    # (B,H)
+    xdt = xs[:, 0].to(f32) * dt[:, 0][..., None]                    # (B,H,P)
+    h = dA[..., None, None] * state["h"] + torch.einsum(
+        "bhp,bhn->bhpn", xdt, B_[:, 0].to(f32))
+    y = torch.einsum("bhpn,bhn->bhp", h, C_[:, 0].to(f32))
+    y = y + p["d_skip"][None, :, None] * xs[:, 0].to(f32)
+    y = y.reshape(x.shape[0], 1, cfg.d_inner)
+    return _ssm_out(p, y, z[:, :1], x, cfg), {"h": h, "conv": new_conv}
+
+
+def make_ssm_state(cfg: ModelConfig, batch: int, abstract=False,
+                   device="cuda"):
+    H, N, G = cfg.ssm_heads, cfg.d_state, cfg.ssm_groups
+    km1 = cfg.d_conv - 1
+    return _state_leaves({
+        "h": ((batch, H, cfg.ssm_head_dim, N), torch.float32),
+        "conv": {"x": ((batch, km1, cfg.d_inner), cfg.dtype),
+                 "b": ((batch, km1, G * N), cfg.dtype),
+                 "c": ((batch, km1, G * N), cfg.dtype)}}, abstract, device)

@@ -29,10 +29,12 @@ restores a training checkpoint into an abstract template and merges tile
 state per TilePolicy, then optionally ages the conductances and applies
 Global Drift Compensation (the paper's deployment story).
 
-The page-pool attention families are served (``attn`` / ``attn_local``
-layers, dense or MoE FFN). A model with ``mla``, ``rec`` or ``ssm`` layers
-raises ``NotImplementedError`` naming ROADMAP item 14b; an encoder-decoder
-raises as the reference does.
+Every decoder-only arch is served: page-pool attention layers, MLA
+latent rows and RG-LRU / SSD state, each family with the reference's
+gates (no padding or chunking of rec rows, SSD chunks aligned to
+``ssm_chunk``, prefix sharing only for page-pool models). An
+encoder-decoder raises, as in the reference: the fixed-batch driver
+serves it.
 """
 from __future__ import annotations
 
@@ -188,12 +190,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "continuous batching supports decoder-only models; use the "
                 "fixed-batch driver for enc-dec archs")
-        kinds = set(model.cfg.layer_kinds)
-        if kinds & {"mla", "rec", "ssm"}:
-            raise NotImplementedError(
-                f"{model.cfg.name}: serving its {sorted(kinds & {'mla', 'rec', 'ssm'})} "
-                f"layers (MLA latent rows, RG-LRU / SSD state) comes with "
-                f"ROADMAP.md queue 1 item 14b")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -203,15 +199,17 @@ class ServeEngine:
         self.lifetime = lifetime          # load_effective_params report
         self.telemetry = telemetry or Telemetry(log_path=ecfg.log_path)
 
-        # per-family capability gates, as the reference's (only the
-        # page-pool kinds reach here, so every gate is open but the chunk
-        # size's page alignment)
+        # per-family capability gates (all off -> exact-length fresh batches)
+        kinds = set(model.cfg.layer_kinds)
+        # padding a rec row would re-associate the RG-LRU associative scan
         self._pad_ok = "rec" not in kinds
         chunk = int(ecfg.prefill_chunk)
         chunk_ok = (chunk > 0 and self._pad_ok
                     and chunk % ecfg.page_size == 0
                     and ("ssm" not in kinds or chunk % model.cfg.ssm_chunk == 0))
         self._chunk = chunk if chunk_ok else 0
+        # shared pages only make sense for page-pool layers; MLA latents and
+        # recurrent state are per lane and cannot be mapped read-only
         self._share = bool(ecfg.prefix_share) and kinds <= {"attn", "attn_local"}
 
         self.allocator = PageAllocator(ecfg.num_pages, reserved=1)
@@ -269,8 +267,9 @@ class ServeEngine:
         """One decode step over every lane; ``state`` (lanes, T+4) int32 on
         the device is advanced in place (pos + 1, last = the sampled token).
         Free and mid-chunk lanes drift past their all-scratch table rows,
-        which is harmless: their writes land on the scratch page and their
-        outputs are discarded."""
+        which is harmless: their page writes land on the scratch page,
+        ``live`` keeps their latent and state rows, and their outputs are
+        discarded."""
         T = self.ecfg.table_width
         table, pos = state[:, :T], state[:, T]
         last, seeds = state[:, T + 1:T + 2], state[:, T + 2]

@@ -39,11 +39,14 @@ Each wrapper call launches its kernel once.
   permutations, SSD's head repeat) give bit-identical gradients from run
   to run on the card, where ``F.embedding`` and ``index_select`` with
   repeated ids add with atomics.
-* Serving (qwen2-0.5b, qwen3-14b, gemma3-4b, qwen2-vl-2b, mixtral-8x7b
-  smoke): chunk prefill and paged decode on the card within 2e-6 of the
-  CPU's largest magnitude (qwen2, gemma3); a free lane past its table row
-  runs without a device assert; the continuous engine equals the fixed
-  driver on the card, and both equal the CPU, token for token.
+* Serving (the smoke configs of every decoder-only arch): chunk prefill
+  and paged decode on the card within 2e-6 of the CPU's largest magnitude
+  (qwen2, gemma3; and minicpm3, recurrentgemma, mamba2 for their per-lane
+  latent and state rows, SSD state within 1e-5); a free lane past its
+  table row (MLA: past its latent row) runs without a device assert and
+  keeps its rows; the continuous engine equals the fixed driver on the
+  card, and both equal the CPU, token for token; the encoder-decoder's
+  fixed driver on the card gives the CPU's tokens.
 """
 import numpy as np
 import pytest
@@ -533,7 +536,8 @@ def test_model_gathers_are_reproducible_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 
 SERVE_ARCHS = ["qwen2-0.5b", "qwen3-14b", "gemma3-4b", "qwen2-vl-2b",
-               "mixtral-8x7b"]
+               "mixtral-8x7b", "minicpm3-4b", "deepseek-v2-236b",
+               "recurrentgemma-9b", "mamba2-2.7b"]
 
 
 def _serve_model(arch):
@@ -608,6 +612,53 @@ def test_paged_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
         g, w = got_pools[p][..., 1:, :, :, :], w[..., 1:, :, :, :]
         err = (g - w).abs().max().item()
         assert err <= 2e-6 * max(w.abs().max().item(), 1e-30), (p, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-9b",
+                                  "mamba2-2.7b"])
+def test_lane_rows_on_the_card_match_the_cpu(cuda, arch):
+    """The per-lane leaves (MLA latent and position rows, RG-LRU / SSD
+    state) through a chunk prefill and three paged decode steps, the last
+    with lane 1 free and past its rows: logits within 2e-6 of the CPU's
+    largest magnitude (lane 0's at the free step), float leaves within
+    2e-6 (SSD state 1e-5), positions equal; lane 1's rows held."""
+    model, cpu, card = _serve_model(arch)
+    with torch.no_grad():
+        want, want_leaves = _paged_run(model, cpu, "cpu", drift=True)
+        got, got_leaves = _paged_run(model, card, "cuda", drift=True)
+    torch.cuda.synchronize()
+    got[-1], want[-1] = got[-1][:1], want[-1][:1]
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item()
+        assert err <= 2e-6 * w.abs().max().item(), (i, err)
+    rows = [p for p in want_leaves if "/kp" not in p and "/vp" not in p]
+    assert rows
+    for p in rows:
+        g, w = got_leaves[p], want_leaves[p]
+        if not w.is_floating_point():
+            assert torch.equal(g, w), p
+            continue
+        rel = 1e-5 if "/state/" in p and "/conv/" not in p else 2e-6
+        err = (g - w).abs().max().item()
+        assert err <= rel * max(w.abs().max().item(), 1e-30), (p, err)
+
+
+@pytest.mark.cuda
+def test_encdec_fixed_driver_on_the_card_matches_the_cpu(cuda):
+    """seamless-m4t-large-v2 smoke through ``run_fixed`` (the encoder over
+    ``FeedBuilder``'s frames, the cross K/V cached): the same tokens on the
+    card and on the CPU, and no kernel of K1/K2/K3."""
+    from repro_torch.launch.serve import build_workload, run_fixed
+
+    model, cpu, card = _serve_model("seamless-m4t-large-v2")
+    launches = dict(ops.LAUNCHES)
+    wl = build_workload(model.cfg, 4, 12, 6)
+    got = run_fixed(model, card, [r.clone() for r in wl], batch=2)
+    want = run_fixed(model, cpu, [r.clone() for r in wl], batch=2)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid], err_msg=rid)
+    assert dict(ops.LAUNCHES) == launches
 
 
 @pytest.mark.cuda

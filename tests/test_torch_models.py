@@ -25,9 +25,10 @@ Tolerances (float32 unless stated):
   ``jax.eval_shape``: the same paths, shapes and dtypes. The depth cut of
   the card's full-width runs (``step_profile.cut_depth``) keeps every
   other field; their plans' analog paths and elements, exact.
-* Every arch inits; the serve modes (``prefill``, ``chunk``, ``decode``)
-  run for the page-pool attention archs and raise ``NotImplementedError``
-  naming ROADMAP item 14b for the others.
+* Every arch inits and its serve modes run: the fixed driver's
+  ``prefill`` and ``decode`` (an encoder-decoder's through its encoder and
+  the cross K/V cache), and for a decoder-only arch the engine's ``chunk``
+  and per-lane ``decode``; an unknown mode raises ``ValueError``.
 * The analog plan of the qwen2 smoke config: ``describe_plan``, the
   TileBank index and class index identical.
 * Three analog train steps of the qwen2 smoke config (E-RIDER,
@@ -334,27 +335,43 @@ def test_depth_cut_of_the_full_width_runs(arch, n_paths, n_analog, largest):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_unported_arch_raises_at_init(arch):
-    """Every arch inits. The serve modes of the page-pool attention archs
-    run (a dense prefill fills its cache); those of the archs with MLA,
-    RG-LRU, SSD or cross-attention layers (ROADMAP item 14b) raise
-    ``NotImplementedError`` naming it, before any layer runs."""
+    """Every arch inits and every serve mode runs on its smoke config: a
+    4-token prefill and a decode step of the fixed driver's dense cache,
+    and for a decoder-only arch a 4-token chunk into lane 1 of the paged
+    cache and a per-lane decode step (lane 0 idle). Finite logits, the
+    caches written in place; an unknown mode raises ``ValueError``."""
     cfg = get_config(arch, smoke=True)
     model = LM(cfg)
     params = model.init(prng.PRNGKey(0), device="cpu")
+    toks = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["frames"] = torch.ones((2, 3, cfg.d_model), dtype=cfg.dtype)
+    cache = model.init_cache(2, 6, enc_len=3, device="cpu")
+    logits, out = model.prefill(params, batch, cache)
+    assert out is cache and logits.shape == (2, 1, cfg.vocab)
+    logits, _ = model.decode_step(params, toks[:, :1], cache, 4)
+    assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits).all()
+    assert all(int(leaf[..., :5].min()) == 0
+               for p_, leaf in flatten_with_path(cache) if p_.endswith("pos"))
+    if cfg.is_encdec:
+        assert float(cache["body"]["p0"]["ck"].abs().max()) > 0
+    else:
+        paged = model.init_paged_cache(2, 5, 4, 8, device="cpu")
+        one = torch.ones(1, dtype=torch.int32)
+        logits, out = model.prefill_commit_batch(
+            params, toks[:1], paged, torch.tensor([[3, 4]], dtype=torch.int32),
+            one, 0 * one, 4 * one, one.bool())
+        assert out is paged and torch.isfinite(logits).all()
+        logits, _ = model.decode_step_lanes(
+            params, toks[:, :1], paged,
+            torch.tensor([[0, 0], [3, 4]], dtype=torch.int32),
+            torch.tensor([0, 4], dtype=torch.int32),
+            torch.tensor([False, True]))
+        assert logits.shape == (2, 1, cfg.vocab) and torch.isfinite(logits).all()
     x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
-    if set(cfg.layer_kinds) <= {"attn", "attn_local"} and not cfg.is_encdec:
-        cache = model.init_cache(1, 6, device="cpu")
-        pos = torch.arange(4)[None]
-        with torch.no_grad():
-            y, _, out = blocks.apply_stack(params["stack"], x, cfg, "prefill",
-                                           positions=pos, caches=cache)
-        assert out is cache and y.shape == x.shape
-        assert all(int(leaf[..., :4].min()) == 0
-                   for p_, leaf in flatten_with_path(cache) if p_.endswith("pos"))
-        return
-    for mode in ("prefill", "chunk", "decode"):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            blocks.apply_stack(params["stack"], x, cfg, mode)
+    with pytest.raises(ValueError):
+        blocks.apply_stack(params["stack"], x, cfg, "serve")
 
 
 def test_entry_points_default_to_the_card():

@@ -12,6 +12,10 @@ package's, on the CPU.
   JSON as ``repro.launch.serve.main`` for the qwen2 smoke config under
   both engines (parameters from ``PRNGKey(0)`` in each package; the
   port's init is within 4 float32 ULP of JAX's).
+* The encoder-decoder (seamless-m4t-large-v2) through both CLIs: each
+  falls back to its fixed driver, which feeds ``FeedBuilder``'s frames to
+  the encoder; the same tokens. ``examples/torch_serve_decode.py
+  --device cpu`` (mamba2) writes ``examples/serve_decode.py``'s tokens.
 * A smoke checkpoint written by the port's training CLI, served through
   both CLIs aged one year with GDC (a checkpoint of either package
   restores bit-exactly in the other): the same tokens; the effective parameters of
@@ -22,6 +26,8 @@ package's, on the CPU.
 """
 import dataclasses
 import json
+import os
+import runpy
 
 import numpy as np
 import pytest
@@ -102,6 +108,32 @@ def test_main_writes_the_reference_tokens(engine, tmp_path):
     manifest = _dump(tmp_path / "m.json")
     assert manifest["engine"]["mode"] == engine
     assert "lifetime" not in manifest
+
+
+def test_encdec_falls_back_to_the_fixed_driver_with_jax_tokens(tmp_path,
+                                                               capsys):
+    argv = ["--arch", "seamless-m4t-large-v2", "--smoke", "--requests", "4",
+            "--prompt-len", "12", "--gen", "6", "--batch", "2"]
+    jserve.main(argv + ["--dump-tokens", str(tmp_path / "jax.json")])
+    results, summary, eng = serve.main(
+        argv + ["--device", "cpu", "--dump-tokens", str(tmp_path / "port.json")])
+    assert eng is None and summary["generated_tokens"] == 4 * 6
+    assert "falling back to the fixed-batch engine" in capsys.readouterr().out
+    assert _dump(tmp_path / "port.json") == _dump(tmp_path / "jax.json")
+
+
+def test_serve_decode_example_writes_the_reference_tokens(tmp_path,
+                                                         monkeypatch):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for script, extra, out in (
+            ("serve_decode.py", [], "jax.json"),
+            ("torch_serve_decode.py", ["--device", "cpu"], "port.json")):
+        monkeypatch.setattr("sys.argv", [script] + extra + [
+            "--dump-tokens", str(tmp_path / out)])
+        runpy.run_path(f"{root}/examples/{script}", run_name="__main__")
+    got = _dump(tmp_path / "port.json")
+    assert len(got) == 8 and all(len(v) == 16 for v in got.values())
+    assert got == _dump(tmp_path / "jax.json")
 
 
 @pytest.fixture(scope="module")

@@ -14,8 +14,9 @@ CPU, against themselves and against the JAX package.
   ``max(|g|, 1)`` (the two ``log`` calls: XLA-CPU's differ from torch's by
   a few ULP, ROADMAP queue 3); ``sample_topk`` and ``prng.categorical``
   draw JAX's tokens on a seeded set of lanes.
-* The engine raises ``NotImplementedError`` naming ROADMAP item 14b for
-  the MLA, RG-LRU and SSD archs, and raises for the encoder-decoder.
+* The engine raises for the encoder-decoder, as the reference's does
+  (the fixed driver serves it). The MLA, RG-LRU and SSD families are in
+  ``test_torch_serve_families_engine.py``.
 """
 import math
 
@@ -130,19 +131,6 @@ def test_engine_rejects_encdec():
     params = model.abstract_params("cpu")
     with pytest.raises(NotImplementedError, match="decoder-only"):
         ServeEngine(model, params, EngineConfig(lanes=2, num_pages=4, max_len=8))
-
-
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-2.7b",
-                                  "recurrentgemma-9b", "deepseek-v2-236b"])
-def test_engine_raises_for_item_14b(arch):
-    model = LM(get_config(arch, smoke=True))
-    params = model.abstract_params("cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ServeEngine(model, params, EngineConfig(lanes=2, num_pages=4, max_len=8))
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        model.init_paged_cache(2, 4, 4, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        model.init_cache(2, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------
