@@ -121,6 +121,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               tokens/s, TTFT/TPOT p50/p99, the decode step, kernel launches
               and device time per decode step (``torch.profiler``) and peak
               memory
+ 14. paper    the paper's own workloads through the port's benchmark
+              harness (``repro_torch.benchmarks.common``): (a) LeNet-5 at
+              full width, E-RIDER, under update_backend "vmap" and "fused":
+              the first 3 steps on the card against the port's CPU run
+              from one state drawn on the CPU (phase 11a's standard: loss
+              within rtol 1e-5, every float tile leaf within 1e-5 but for
+              <= 0.1 % of its elements, each where a stochastic-rounding
+              pulse of P flipped), 2 K1 launches per tile per step, and a
+              second card run bit-equal to the first (deterministic
+              cuDNN); the cost of the harness's per-step host reads;
+              (b) TT-v2, AGAD and E-RIDER on the FCN and on LeNet-5 at
+              examples/analog_mnist.py's setting (~4-state devices, SP
+              reference N(0.4, 0.4^2), 2 epochs of 4096 images, seed 1):
+              test_acc, sp_err, pulses, wall seconds each; E-RIDER's
+              test_acc above TT-v2's on each model; (c)
+              tests/test_system.py's FCN run
+              (dw_min 0.02, SP reference N(0.3, 0.2^2), 1 epoch, seed 0):
+              the loss falls, test_acc > 0.3, sp_err < 0.3^2 + 0.2^2.
+              Phase 3 also holds K1 bit-equal at LeNet-5's tile shapes
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -222,6 +241,11 @@ def update_operands(shape, dtype, seed: int, device, dw_dtype=None):
 SWEEP_SHAPES = [(8, 128), (300, 700), (512, 1024), (4, 300, 700)]
 MAIN_PATH_SHAPES = [(32, 32), (784, 256), (256, 128), (128, 10),
                     (1, 784, 256), (1, 256, 128), (1, 128, 10)]
+# Phase 14's LeNet-5 tiles: the HWIO conv kernels, which the wrapper views
+# as (25, 16) and (400, 32), and fc1/fc2, one by one ("vmap") and as
+# (1, ...) class stacks ("fused")
+LENET_SHAPES = [(5, 5, 1, 16), (5, 5, 16, 32), (1568, 512), (512, 128)]
+MAIN_PATH_SHAPES += LENET_SHAPES + [(1,) + s for s in LENET_SHAPES]
 # Phase 10's path: Qwen2-0.5B at full width and depth
 # (src/repro/configs/qwen2_0_5b.py: 24 layers, d_model 896, 14 heads (2 KV)
 # x 64, d_ff 4864) trained by the CLI (update_backend="vmap"), which hands
@@ -1946,6 +1970,228 @@ def phase_serve_zoo(card: str):
     return full
 
 
+# Phase 14: the paper's own workloads through the port's benchmark harness
+# (``repro_torch.benchmarks.common``, the JAX package's benchmarks/common.py):
+# LeNet-5 (conv5x5(16) -> pool -> conv5x5(32) -> pool -> fc512 -> fc128 ->
+# 10, src/repro/models/convnets.py) at full width, and the FCN, batch 64 of
+# the procedural MNIST stand-in (seed 11).
+PAPER_CHECK_STEPS = 3
+# examples/analog_mnist.py and tests/test_system.py: ~4 states, SP
+# reference N(0.4, 0.4^2), 2 epochs of 4096 images, seed 1
+TABLES_DEVICE = dict(dw_min=0.4622, sigma_pm=0.7125, sigma_c2c=0.2174,
+                     ref_mean=0.4, ref_std=0.4)
+TABLES_ALGOS = ("ttv2", "agad", "erider")
+SYNC_STEPS = 20
+
+
+def paper_snapshot(state, metrics):
+    """Loss, every float tile leaf per class and every digital leaf, on the
+    host."""
+    from repro_torch.core.paths import flatten_with_path
+
+    tiles = {f"{c}/{k}": st[k].detach().cpu().clone()
+             for c, st in state["tiles"].classes.items()
+             for k in ("W", "P", "Qd", "Qt", "H") if st.get(k) is not None}
+    return dict(loss=float(metrics["loss"]), tiles=tiles,
+                digital={p: v.detach().cpu().clone()
+                         for p, v in flatten_with_path(state["params"])})
+
+
+def lenet_steps(backend: str, batches, device):
+    """LeNet-5 under ``train_image_model``'s E-RIDER trainer on
+    ``device_pair()``'s devices (``update_backend=backend``), its state drawn
+    on the CPU from seeds 0/1 and carried to ``device``: the snapshots after
+    each of ``batches`` and the K1 launches they made."""
+    from repro_torch import prng
+    from repro_torch.benchmarks.common import device_pair, image_trainer
+    from repro_torch.kernels import ops
+    from repro_torch.models import convnets
+
+    trainer, ccfg, _ = image_trainer("erider", "lenet5", *device_pair(),
+                                     hp_overrides={"update_backend": backend})
+    state = trainer.init(prng.PRNGKey(1),
+                         convnets.init_convnet(prng.PRNGKey(0), ccfg, "cpu"))
+    n_tiles = sum(len(ps) for _, ps in state["tiles"].index)
+    state = to_device(state, device)
+    ops.reset_launch_counts()
+    snaps = []
+    for b in batches:
+        state, m = trainer.train_step(state, {k: v.to(device)
+                                              for k, v in b.items()})
+        snaps.append(paper_snapshot(state, m))
+    return snaps, ops.LAUNCHES["analog_update"], n_tiles
+
+
+def lenet_against_cpu(backend: str) -> int:
+    """(a) LeNet-5's first 3 steps on the card against the port's CPU run,
+    to phase 11a's standard: loss within rtol 1e-5; every float tile leaf
+    (W, P, Qd, Qt, H) within 1e-5 on all but at most 0.1 % of its elements,
+    each such element one that a flipped stochastic-rounding pulse in P
+    explains (P off there by at least a tenth of dw_min); digital leaves
+    within rtol 1e-5; 2 K1 launches per tile per step; a second card run
+    bit-equal to the first (deterministic cuDNN). Returns the launches of
+    the first card run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import ImageDataset
+
+    data = ImageDataset(n_train=64 * PAPER_CHECK_STEPS, n_test=64, seed=11)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in data.epoch(0, 64)]
+    card, launches, n_tiles = lenet_steps(backend, batches, "cuda")
+    again, _, _ = lenet_steps(backend, batches, "cuda")
+    cpu, _, _ = lenet_steps(backend, batches, "cpu")
+    label = f"paper[lenet5 {backend}]"
+    for a, b in zip(card, again):
+        check(a["loss"] == b["loss"], f"{label}: two card runs differ in loss")
+        for part in ("tiles", "digital"):
+            for k, v in a[part].items():
+                check(torch.equal(v, b[part][k]),
+                      f"{label}: two card runs differ at {k}")
+    rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            for g, w in zip(card, cpu)]
+    got, want = card[-1], cpu[-1]
+    pulse = 0.01                      # dw_min of device_pair()
+    off_n, n_el, worst = 0, 0, 0.0
+    for k, w in want["tiles"].items():
+        diff = (got["tiles"][k] - w).abs()
+        off = diff > 1e-5
+        check(off.float().mean().item() <= 1e-3, f"{label}: {k} off the CPU run")
+        p_diff = (got["tiles"][k.rsplit("/", 1)[0] + "/P"]
+                  - want["tiles"][k.rsplit("/", 1)[0] + "/P"]).abs()
+        check(bool((p_diff[off] >= 0.1 * pulse).all()),
+              f"{label}: {k} drifts off the CPU run where no pulse flipped")
+        off_n += int(off.sum())
+        n_el += off.numel()
+        worst = max(worst, diff.max().item())
+    for k, w in want["digital"].items():
+        np.testing.assert_allclose(got["digital"][k].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=f"{label} {k}")
+    print(f"{label}: {n_tiles} tiles, {launches} K1 launches in "
+          f"{PAPER_CHECK_STEPS} steps; loss card vs cpu rel "
+          f"{', '.join(f'{r:.2e}' for r in rels)} (step 0 {card[0]['loss']:.6g});"
+          f" tile elements off by > 1e-5: {off_n} of {n_el} (largest "
+          f"{worst:.3g}); two card runs bit-equal")
+    check(all(math.isfinite(s["loss"]) for s in card), f"{label}: non-finite loss")
+    check(max(rels) <= 1e-5, f"{label}: loss off the CPU run")
+    check(launches == 2 * n_tiles * PAPER_CHECK_STEPS,
+          f"{label}: launches {launches} != {2 * n_tiles * PAPER_CHECK_STEPS}")
+    return launches
+
+
+def host_sync_cost(card: str):
+    """What ``train_image_model``'s per-step host reads (loss, pulses,
+    sp_err, as the reference reads them) cost on the card: LeNet-5 E-RIDER
+    steps with the reads, then as many with one synchronization at the end."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.benchmarks.common import device_pair, image_trainer
+    from repro_torch.data import ImageDataset
+    from repro_torch.models import convnets
+
+    trainer, ccfg, _ = image_trainer("erider", "lenet5",
+                                     *device_pair(**TABLES_DEVICE))
+    state = trainer.init(prng.PRNGKey(2),
+                         convnets.init_convnet(prng.PRNGKey(1), ccfg, "cuda"))
+    data = ImageDataset(n_train=64 * (2 * SYNC_STEPS + 3), n_test=64, seed=11)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for b in data.epoch(0, 64)]
+    for b in batches[:3]:
+        state, _ = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[3:3 + SYNC_STEPS]:
+        state, m = trainer.train_step(state, b)
+        float(m["loss"]), float(m["tile/pulses"]), float(m["tile/sp_err"])
+    synced = (time.perf_counter() - t0) * 1e3 / SYNC_STEPS
+    t0 = time.perf_counter()
+    for b in batches[3 + SYNC_STEPS:]:
+        state, m = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    free = (time.perf_counter() - t0) * 1e3 / SYNC_STEPS
+    print(f"paper: LeNet-5 E-RIDER step {synced:.2f} ms with the 3 host reads a "
+          f"step, {free:.2f} ms with one sync per {SYNC_STEPS} steps "
+          f"(reads {synced - free:.2f} ms a step) on {card}")
+    return dict(synced_ms=synced, free_ms=free)
+
+
+def paper_run(label: str, **kw):
+    """One ``train_image_model`` run on the card with its K1 launches."""
+    from repro_torch.benchmarks.common import train_image_model
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res = train_image_model(device="cuda", **kw)
+    launches = ops.LAUNCHES["analog_update"]
+    check(all(math.isfinite(x) for x in res.losses), f"{label}: non-finite loss")
+    check(launches > 0, f"{label}: no K1 launch")
+    return res, launches
+
+
+def phase_paper(card: str):
+    """(a) LeNet-5 card against CPU under both backends; (b) the Tables 1-2
+    comparison of TT-v2, AGAD and E-RIDER on the FCN and LeNet-5 at
+    examples/analog_mnist.py's setting: E-RIDER's test accuracy above
+    TT-v2's on each model; (c) tests/test_system.py's FCN learning and
+    SP-tracking claim.
+    Returns the K1 launches of its runs on the card and the numbers."""
+    import torch
+
+    from repro_torch.benchmarks.common import cuda_numerics, device_pair
+    from repro_torch.data import ImageDataset
+
+    cuda_numerics()
+    t0 = time.time()
+    launches = sum(lenet_against_cpu(b) for b in ("vmap", "fused"))
+    print(f"paper: (a) took {time.time() - t0:.1f} s")
+    sync = host_sync_cost(card)
+
+    t1 = time.time()
+    dev_p, dev_w = device_pair(**TABLES_DEVICE)
+    data = ImageDataset(n_train=4096, n_test=1024, seed=11)
+    table = {}
+    for kind in ("fcn", "lenet5"):
+        for algo in TABLES_ALGOS:
+            label = f"paper[{kind} {algo}]"
+            res, n = paper_run(label, algorithm=algo, model_kind=kind,
+                               dev_p=dev_p, dev_w=dev_w, epochs=2, data=data,
+                               seed=1)
+            launches += n
+            steps = len(res.losses)
+            sp = "none" if res.sp_err is None else f"{res.sp_err:.4f}"
+            print(f"{label}: test_acc {res.test_acc:.4f} sp_err {sp} pulses "
+                  f"{res.pulses:.4e} final loss {res.losses[-1]:.4f} wall "
+                  f"{res.wall_s:.2f} s ({steps} steps, {n} K1 launches, "
+                  f"{res.wall_s * 1e3 / steps:.2f} ms/step) on {card}")
+            table[(kind, algo)] = res
+        er, tt = table[(kind, "erider")], table[(kind, "ttv2")]
+        print(f"paper[{kind}]: E-RIDER test_acc {er.test_acc:.4f} > TT-v2 "
+              f"{tt.test_acc:.4f}: {er.test_acc > tt.test_acc}")
+        check(er.test_acc > tt.test_acc,
+              f"paper: E-RIDER does not beat TT-v2 on {kind}")
+    print(f"paper: (b) took {time.time() - t1:.1f} s")
+
+    # (c) tests/test_system.py::test_analog_fcn_learns_and_tracks_sp
+    dev_p, dev_w = device_pair(dw_min=0.02, ref_mean=0.3, ref_std=0.2)
+    res, n = paper_run("paper[learns]", algorithm="erider", dev_p=dev_p,
+                       dev_w=dev_w, epochs=1, seed=0)
+    launches += n
+    print(f"paper[learns]: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "
+          f"test_acc {res.test_acc:.4f} (> 0.3), sp_err {res.sp_err:.4f} (< "
+          f"{0.3 ** 2 + 0.2 ** 2:.2f}), pulses {res.pulses:.4e}, {n} K1 "
+          f"launches, wall {res.wall_s:.2f} s on {card}")
+    check(res.losses[0] > res.losses[-1], "paper[learns]: loss did not fall")
+    check(res.test_acc > 0.3, f"paper[learns]: test_acc {res.test_acc}")
+    check(res.sp_err is not None and res.sp_err < 0.3 ** 2 + 0.2 ** 2,
+          f"paper[learns]: sp_err {res.sp_err}")
+    torch.cuda.synchronize()
+    print(f"paper: phase 14 took {time.time() - t0:.1f} s")
+    return dict(launches=launches, sync=sync,
+                table={f"{k}/{a}": r.test_acc for (k, a), r in table.items()})
+
+
 def main() -> int:
     import torch
 
@@ -2011,11 +2257,14 @@ def main() -> int:
               f"step {r['step_ms']:.2f} ms, {r['launches']:.0f} launches a "
               f"step, peak {r['peak_bytes'] / 2 ** 30:.3f} GiB on {card}")
 
+    paper = phase_paper(card)
+
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
-                        + serve["train_launches"])
+                        + serve["train_launches"] + paper["launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
+    kern["paper_launches"] = paper["launches"]
     kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",

@@ -47,6 +47,13 @@ Each wrapper call launches its kernel once.
   keeps its rows; the continuous engine equals the fixed driver on the
   card, and both equal the CPU, token for token; the encoder-decoder's
   fixed driver on the card gives the CPU's tokens.
+* The paper's LeNet-5: K1 bit-equal on its tiles as the wrapper meets them
+  (the HWIO conv kernels viewed as (25, 16) and (400, 32), their fused
+  stacks, fc1); its first 3 E-RIDER steps on the card against the CPU
+  under both backends (loss within rtol 1e-5, tile elements off only
+  where a pulse of P flipped, <= 0.1 %) and bit-equal from run to run
+  with deterministic cuDNN; a max-pool window of ties routes its gradient
+  as on the CPU.
 """
 import numpy as np
 import pytest
@@ -690,3 +697,114 @@ def test_continuous_matches_fixed_on_the_card(cuda, arch):
         np.testing.assert_array_equal(fixed[rid], fixed_cpu[rid], err_msg=rid)
         np.testing.assert_array_equal(cont[rid], cont_cpu[rid], err_msg=rid)
     assert dict(ops.LAUNCHES) == launches
+
+
+# ---------------------------------------------------------------------------
+# the paper's workloads: LeNet-5
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(25, 16), (400, 32), (5, 5, 1, 16),
+                                   (1, 5, 5, 16, 32), (1568, 512)])
+def test_analog_update_kernel_on_lenet_tiles(cuda, shape):
+    """LeNet-5's tiles as the wrapper meets them: the HWIO conv kernels
+    (viewed as (25, 16) and (400, 32)), their fused (1, ...) class stacks
+    and fc1; float32, threefry noise; bit-equal to the plain version."""
+    from repro_torch import prng
+
+    kw = dict(dw_min=0.01, tau_min=1.0, tau_max=1.0, sigma_c2c=0.1, bl=10)
+    rng = np.random.default_rng(7)
+    w, dw, gamma, rho = _card(
+        [rng.uniform(-0.8, 0.8, shape).astype(np.float32),
+         (0.05 * rng.standard_normal(shape)).astype(np.float32),
+         np.exp(0.1 * rng.standard_normal(shape)).astype(np.float32),
+         (0.3 * rng.standard_normal(shape)).astype(np.float32)],
+        ["float32"] * 4)
+    noise = ops.make_noise(prng.PRNGKey(8), shape, "cuda")
+    before = ops.LAUNCHES["analog_update"]
+    got = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+    assert ops.LAUNCHES["analog_update"] == before + 1
+    want = ref.analog_update_ref(w, dw, gamma, rho, *noise, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == w.shape and torch.equal(got, want)
+
+
+def _lenet_steps(backend, device, steps=3):
+    """LeNet-5 under ``train_image_model``'s E-RIDER trainer on
+    ``device_pair()``'s devices, its state drawn on the CPU and carried to
+    ``device``: (loss per step, float tile leaves, biases, K1 launches,
+    tiles)."""
+    from repro_torch import prng
+    from repro_torch.benchmarks.common import device_pair, image_trainer
+    from repro_torch.core.paths import tree_map_with_path
+    from repro_torch.core.trainer import HOST_LEAVES
+    from repro_torch.data import ImageDataset
+    from repro_torch.models import convnets
+
+    trainer, ccfg, _ = image_trainer("erider", "lenet5", *device_pair(),
+                                     hp_overrides={"update_backend": backend})
+    state = trainer.init(prng.PRNGKey(1),
+                         convnets.init_convnet(prng.PRNGKey(0), ccfg, "cpu"))
+    n_tiles = sum(len(ps) for _, ps in state["tiles"].index)
+    state = tree_map_with_path(
+        lambda p, t: t if p.rsplit("/", 1)[-1] in HOST_LEAVES else t.to(device),
+        state)
+    before = ops.LAUNCHES["analog_update"]
+    losses = []
+    for b in ImageDataset(n_train=64 * steps, n_test=64, seed=11).epoch(0, 64):
+        state, m = trainer.train_step(
+            state, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    tiles = {f"{c}/{k}": st[k].cpu() for c, st in state["tiles"].classes.items()
+             for k in ("W", "P", "Qd", "Qt", "H") if st.get(k) is not None}
+    biases = {k: state["params"][k]["b"].cpu() for k in state["params"]}
+    return losses, tiles, biases, ops.LAUNCHES["analog_update"] - before, n_tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["vmap", "fused"])
+def test_lenet5_first_steps_on_the_card_match_the_cpu(cuda, backend):
+    """3 steps from one CPU-drawn state (``chip_smoke.py`` phase 14a's
+    standard): loss within rtol 1e-5; every float tile leaf within 1e-5 but
+    for <= 0.1 % of its elements, each where a pulse of P flipped (P off
+    there by >= a tenth of dw_min 0.01); biases within rtol 1e-5; 2 K1
+    launches per tile per step; a second card run bit-equal."""
+    from repro_torch.benchmarks.common import cuda_numerics
+
+    cuda_numerics()
+    card = _lenet_steps(backend, "cuda")
+    again = _lenet_steps(backend, "cuda")
+    cpu = _lenet_steps(backend, "cpu")
+    assert card[0] == again[0]
+    for k, v in card[1].items():
+        assert torch.equal(v, again[1][k]), k
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for k, want in cpu[1].items():
+        diff = (card[1][k] - want).abs()
+        off = diff > 1e-5
+        assert off.float().mean().item() <= 1e-3, k
+        p = k.rsplit("/", 1)[0] + "/P"
+        assert bool(((card[1][p] - cpu[1][p]).abs()[off] >= 1e-3).all()), k
+    for k, want in cpu[2].items():
+        np.testing.assert_allclose(card[2][k].numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    assert card[3] == 2 * card[4] * 3 and card[4] == 5
+
+
+@pytest.mark.cuda
+def test_lenet5_maxpool_ties_route_on_the_card_as_on_the_cpu(cuda):
+    """A pooled window of exact ties (tanh saturated to 1.0) sends its
+    gradient to its first maximum on the card too."""
+    from repro_torch.models import convnets
+
+    rng = np.random.default_rng(4)
+    x = rng.choice([1.0, 1.0, 0.5], size=(2, 8, 8, 16)).astype(np.float32)
+    cot = torch.from_numpy(rng.standard_normal((2, 4, 4, 16)).astype(np.float32))
+    grads = []
+    for device in ("cpu", "cuda"):
+        t = torch.from_numpy(x).to(device).requires_grad_(True)
+        torch.sum(convnets._maxpool(t) * cot.to(device)).backward()
+        grads.append(t.grad.cpu())
+    assert torch.count_nonzero(grads[0]).item() == cot.numel()
+    assert torch.equal(grads[0], grads[1])

@@ -1,7 +1,9 @@
 """The port stands alone and mirrors the reference's configuration surface.
 
 * No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the port's
-  examples, imports ``jax`` or the ``repro`` package (AST scan).
+  examples (``examples/torch_*.py``), imports ``jax``, the ``repro``
+  package or the reference's top-level ``benchmarks`` package, which
+  imports JAX (AST scan).
 * The port's config dataclasses carry the reference's field names and
   defaults (dtypes compared by name; the serving ones too: ``EngineConfig``,
   ``ServeDefaults``, ``ServeRequest``), and its rule tables and the
@@ -14,6 +16,7 @@
 """
 import ast
 import dataclasses
+import glob
 import importlib
 import os
 import subprocess
@@ -30,9 +33,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "examples", "torch_quickstart.py"),
-           os.path.join(ROOT, "examples", "torch_lm_analog_training.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -51,8 +53,12 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20
+    examples = {os.path.basename(f) for f in files if "examples" in f}
+    assert {"torch_quickstart.py", "torch_lm_analog_training.py",
+            "torch_serve_decode.py", "torch_analog_mnist.py"} <= examples
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax",
+                                  "benchmarks")]
     assert not bad, bad
 
 
