@@ -140,6 +140,26 @@ Phases, each printing its own lines; any failure exits non-zero:
               (dw_min 0.02, SP reference N(0.3, 0.2^2), 1 epoch, seed 0):
               the loss falls, test_acc > 0.3, sp_err < 0.3^2 + 0.2^2.
               Phase 3 also holds K1 bit-equal at LeNet-5's tile shapes
+ 15. dist     distribution (``distributed/``, ``launch/mesh.py``): ranks as
+              spawned processes sharing the card over gloo, collectives
+              staged through host memory: (a) the int8 compressed
+              all-reduce of a (2, 2^24) float32 gradient, card == CPU bit
+              for bit, within the reference's bounds; (b) Qwen2-0.5B's
+              full-width tile bank (the CLI's plan, at (c)'s step 2)
+              through one begin_step and update on two data ranks,
+              gathered, bit-equal to one process, K1 launches, rows and
+              device time per rank; (c) the
+              CLI of phase 10a with --data-parallel 2, 4 steps with a
+              restart on the mesh at step 2 (run A's 2-step schedule
+              gives step 0 the learning rate of phase 10a's): loss finite
+              and falling on average (a trend only), steps 0 and 1 each
+              within 1e-3 (relative) of phase 10a's, ms/step, peak memory,
+              tile bytes and gradient all-reduce ms per rank; the step-2
+              checkpoint restored by rank 0 in a trainer with no mesh,
+              every leaf equal (``torch.equal``) to the ranks' gathered
+              state, and one more step; (d) the reference's 2x2
+              sharded bank on four ranks: its specs, tile bytes per rank
+              <= total / 2 + 1024, two steps bit-equal to one process
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -1166,7 +1186,7 @@ def phase_lm(device, card: str):
           f"lm launches {launches} != {2 * n_paths * LM_STEPS}")
     check(tail < losses[0], "lm loss did not fall")
     return dict(launches=launches, step_ms=med, peak_bytes=peak,
-                tile_bytes=tbytes)
+                tile_bytes=tbytes, losses=losses)
 
 
 def bf16_ulp(x):
@@ -2192,6 +2212,458 @@ def phase_paper(card: str):
                 table={f"{k}/{a}": r.test_acc for (k, a), r in table.items()})
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: distribution. Ranks are processes sharing the card: a gloo
+# process group (NCCL refuses two ranks on one device), every collective
+# of a CUDA tensor staged through host memory (``distributed.runtime``).
+# They start with the spawn method after phase 2 built the kernels (a rank
+# only loads build/torch_ext/) and meet over a file under build/.
+# (a) the int8 compressed all-reduce of a (2, 2^24) float32 gradient, card
+#     == the same ranks on the CPU, within the reference's bounds;
+# (b) Qwen2-0.5B's full-width tile bank of the CLI's plan (bf16, hash
+#     noise, 24 layers) as (c)'s run A leaves it at step 2: one begin_step
+#     and one update with seeded gradients on the two data ranks, gathered,
+#     bit-equal to the one-process update on the card; K1 launches, rows
+#     and device time per rank;
+# (c) the CLI at phase 10a's full width and depth with --data-parallel 2:
+#     steps 0-1 (checkpoint at 2), then a restart on the mesh for steps
+#     2-3; the loss finite and falling, step 0 within 1e-3 of phase 10a's
+#     one-rank step 0; ms/step, peak memory and tile bytes per rank, the
+#     gradient all-reduce's milliseconds a step; the step-2 checkpoint
+#     restored in one process with no mesh, bit-equal to the ranks'
+#     gathered state, then one more step;
+# (d) the reference's 2x2 sharded bank (tests/test_distributed.py) on four
+#     ranks: its specs, tile bytes per rank <= total / 2 + 1024, two steps
+#     bit-equal to one process.
+DIST_COMPRESS = (2, 1 << 24)
+DIST_STEPS = 4
+
+
+def dist_spawn(world: int, target, *args, timeout: float = 900):
+    """``target(*args)`` on ``world`` spawned ranks; returns their results
+    in rank order. A rank that exits non-zero, or a run past ``timeout``
+    seconds, fails the phase; every rank is joined or killed."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    init_file = os.path.join(ROOT, "build", f"dist_rdzv_{time.time_ns()}")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(target, r, world, init_file, q) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.time() + timeout
+    try:
+        while len(results) < world and time.time() < deadline:
+            try:
+                r, res = q.get(timeout=5)
+                results[r] = res
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=max(deadline - time.time(), 5))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init_file):
+            os.remove(init_file)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world and len(results) == world,
+          f"dist: ranks exited {codes} with {len(results)} of {world} results")
+    return [results[r] for r in range(world)]
+
+
+def _dist_rank(target, rank, world, init_file, q, *args):
+    import torch
+
+    from repro_torch.distributed import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runtime.init(rank, world, init_file, device="cuda")
+    try:
+        q.put((rank, target(*args)))
+    finally:
+        runtime.shutdown()
+
+
+def fingerprint(tree) -> dict:
+    """{path: a position-weighted sum of each leaf's bits} (on its device)."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for p, t in flatten_with_path(tree):
+        bits = t.contiguous().view(ints[t.element_size()]).reshape(-1).long()
+        pos = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+        out[p] = int((bits * pos).sum())
+    return out
+
+
+def expected_k1(trainer, bank) -> int:
+    """K1 launches of one update on this rank: two per tile it updates
+    (its rows where the stack axis carries the data axes, else every tile
+    of the stack), under update_backend="vmap"."""
+    from repro_torch.distributed.sharding import mesh_axis_sizes
+
+    _, dsize, _, _ = mesh_axis_sizes(trainer.mesh)
+    n = 0
+    for cname, gnames in bank.class_index:
+        tiles = len(gnames) * len(dict(bank.index)[gnames[0]])
+        rows = trainer.shardings["tiles"].classes[cname]["W"].spec[1]
+        n += 2 * (tiles // dsize if rows is not None else tiles)
+    return n
+
+
+def dist_compress():
+    """(a) on this rank's row of a seeded (2, 2^24) gradient."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.distributed import compression, runtime
+
+    g = prng.normal(prng.PRNGKey(22), DIST_COMPRESS, "cuda")
+    x = g[runtime.rank()].contiguous()
+    compression.compressed_psum_mean(x, dist.group.WORLD)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, err = compression.compressed_psum_mean(x, dist.group.WORLD)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    mean_c, err_c = compression.compressed_psum_mean(x.cpu(), dist.group.WORLD)
+    scale = float(g.abs().max()) / 127
+    return dict(equal=torch.equal(mean.cpu(), mean_c)
+                and torch.equal(err.cpu(), err_c),
+                gap=float((mean - g.mean(0)).abs().max()),
+                err=float(err.abs().max()), scale=scale, ms=ms,
+                route=runtime.route(x))
+
+
+def _qwen_trainer(mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("qwen2-0.5b"))
+    return model, train.make_trainer(model, "erider", False, 8, mesh=mesh)
+
+
+def dist_bank(tr, bank, whole):
+    """(b): the CLI's tile bank at full width (``bank``, this rank's blocks
+    after (c)'s run A; ``whole``, the same bank gathered), one begin_step
+    and one update through the trainer's grouped phases, two ranks against
+    one process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.core.tile import parse_group_name
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.kernels import ops
+
+    index = dict(bank.index)
+    grads = {}
+    for i, (cname, gnames) in enumerate(bank.class_index):
+        shape = ((len(gnames), len(index[gnames[0]]))
+                 + parse_group_name(gnames[0])[0])
+        grads[cname] = 1e-3 * prng.normal(prng.PRNGKey(100 + i), shape, "cuda")
+    kb, ku = prng.split(prng.PRNGKey(5), 2)
+    lr = torch.tensor(0.1)
+    rows = []
+    launch = ops.analog_update
+
+    def spy(w, *a, **k):
+        rows.append(tuple(w.shape))
+        return launch(w, *a, **k)
+
+    runtime.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.analog_update = spy
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            new, _ = tr.update_tiles(tr.begin_tiles(bank, kb), grads, ku, lr)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.analog_update = launch
+    k1_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "analog_update" in e.name) / 1e3
+    out = dict(launches=ops.LAUNCHES["analog_update"],
+               expected=expected_k1(tr, bank), rows=rows, k1_ms=k1_ms,
+               wall_ms=wall, peak=torch.cuda.max_memory_allocated(),
+               local_bytes=tile_state_bytes({"tiles": bank}),
+               whole_bytes=tile_state_bytes({"tiles": whole}),
+               stats={k: dict(v) for k, v in runtime.STATS.items()})
+    got = gather_tree(new, tr.shardings["tiles"])
+    del new
+    if runtime.rank() == 0:
+        one = _qwen_trainer(None)[1]
+        want, _ = one.update_tiles(one.begin_tiles(whole, kb), grads, ku, lr)
+        pairs = list(zip(flatten_with_path(got), flatten_with_path(want)))
+        check(all(p == q and torch.equal(x, y) for (p, x), (q, y) in pairs),
+              "dist (b): two ranks differ from one process")
+        out["equal"] = len(pairs)
+    return out
+
+
+def dist_pair(root: str):
+    """(a), (c) and (b) on the same two ranks: (c)'s run A (steps 0-1,
+    checkpoint at 2), (b) on its tile bank, then (c)'s run B (restores
+    step 2 on the mesh, steps 2-3). Rank 0 then restores the step-2
+    checkpoint in a trainer with no mesh, holds every leaf equal to the
+    ranks' gathered step-2 state (kept on the host) and takes one step."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    a = dist_compress()
+    argv = LM_ARGV + ["--data-parallel", "2", "--ckpt-dir", root,
+                      "--device", "cuda"]
+    runs = []
+    for steps, every in ((2, 2), (DIST_STEPS, 100)):
+        # run A saves step 2 twice (asynchronously, then at its end); run B
+        # restores it and saves only at its end
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_stats()
+        ops.reset_launch_counts()
+        state, hist, out = run_cli(argv + ["--steps", str(steps),
+                                           "--ckpt-every", str(every)])
+        runs.append(dict(hist=hist, out=out,
+                         launches=ops.LAUNCHES["analog_update"],
+                         peak=torch.cuda.max_memory_allocated(),
+                         stats={k: dict(v) for k, v in runtime.STATS.items()}))
+        if steps == 2:
+            tbytes = tile_state_bytes(state)
+            model, tr = _qwen_trainer(make_host_mesh(2, 1))
+            tr.abstract_state(model.abstract_params("cuda"), "cuda")
+            whole = tr.gather_state(state)
+            prints = fingerprint(whole)
+            b = dist_bank(tr, state["tiles"], whole["tiles"])
+            if runtime.rank() == 0:
+                host = [(p, t.cpu()) for p, t in flatten_with_path(whole)]
+            del whole
+        del state
+    restore = dist_restore(root, host) if runtime.rank() == 0 else None
+    stats = {}
+    for run in runs:
+        for k, v in run["stats"].items():
+            acc = stats.setdefault(k, {"calls": 0, "bytes": 0, "seconds": 0.0})
+            for f in acc:
+                acc[f] += v[f]
+    c = dict(hist=runs[0]["hist"] + runs[1]["hist"], tile_bytes=tbytes,
+             prints=prints, stats=stats,
+             restored=("restored checkpoint at step 2" in runs[1]["out"]
+                       or runtime.rank() != 0),
+             peak=max(r["peak"] for r in runs),
+             launches=sum(r["launches"] for r in runs), restore=restore)
+    return dict(a=a, b=b, c=c)
+
+
+def dist_restore(root: str, host):
+    """(c)'s step-2 checkpoint in a trainer with no mesh on the card:
+    the number of leaves equal (``torch.equal``) to ``host``, the ranks'
+    gathered step-2 state as (path, host tensor) pairs, and the loss of
+    one more step."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.core.trainer import HOST_LEAVES
+    from repro_torch.data import BigramLM
+
+    torch.cuda.empty_cache()
+    model, one = _qwen_trainer(None)
+    template = one.abstract_state(model.abstract_params("cuda"), "cuda")
+    st = ckpt.restore(template, root, step=2, host_leaves=HOST_LEAVES)
+    want, got = host, flatten_with_path(st)
+    equal = (len(got) == len(want) and all(
+        p == q and torch.equal(x.cpu(), y)
+        for (p, x), (q, y) in zip(got, want)))
+    data = BigramLM(vocab=8192, seed=7)
+    batch = {k: torch.as_tensor(v.copy()).to("cuda")
+             for k, v in data.batch(2, 8, 128).items()}
+    st, m = one.train_step(st, batch)
+    return dict(equal=len(want) if equal else 0, loss=float(m["loss"]))
+
+
+def dist_ref_bank():
+    """(d): tests/test_distributed.py's 2x2 case on this rank."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.device import DeviceConfig
+    from repro_torch.core.digital_opt import DigitalOptConfig, ScheduleConfig
+    from repro_torch.core.paths import leaves
+    from repro_torch.core.plan import AnalogPlan, TilePolicy
+    from repro_torch.core.tile import TileConfig
+    from repro_torch.core.trainer import AnalogTrainer, TrainerConfig
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = DeviceConfig(dw_min=0.01, sigma_pm=0.3, sigma_d2d=0.1, sigma_c2c=0.05)
+    cfg = TrainerConfig(
+        tile=TileConfig(algorithm="erider", device_p=dev, device_w=dev),
+        digital=DigitalOptConfig(kind="sgd"),
+        schedule=ScheduleConfig(kind="constant", base_lr=0.1))
+    plan = AnalogPlan.of(("**", TilePolicy(cfg.tile, name="erider")))
+
+    def loss(params, batch, rng):
+        return sum(torch.sum(v ** 2) for _, v in sorted(params.items())), {}
+
+    def params():
+        p = {}
+        for i in range(2):
+            p[f"l{i}/attn/wq"] = 0.1 * torch.ones((8, 8), device="cuda")
+            p[f"l{i}/attn/wo"] = 0.1 * torch.ones((8, 8), device="cuda")
+        return p
+
+    tr = AnalogTrainer(loss, cfg, mesh=make_host_mesh(2, 2), plan=plan)
+    state = tr.init(prng.PRNGKey(0), params())
+    cname = "g8x8_float32_Mn+g8x8_float32_nM"
+    sh = tr.shardings["tiles"].classes[cname]
+    whole0 = tr.gather_state(state)
+    total = sum(t.numel() * t.element_size() for t in leaves(whole0["tiles"]))
+    per_dev = sum(t.numel() * t.element_size() for t in leaves(state["tiles"]))
+    ops.reset_launch_counts()
+    for _ in range(2):
+        state, m = tr.train_step(state, torch.zeros(()))
+    launches = ops.LAUNCHES["analog_update"]
+    got = tr.gather_state(state)
+    out = dict(names=sorted(g for g, _ in state["tiles"].index),
+               classes=[c for c, _ in state["tiles"].class_index],
+               w_spec=tuple(sh["W"].spec), t_spec=tuple(sh["t"].spec),
+               total=total, per_dev=per_dev, loss=float(m["loss"]),
+               launches=launches)
+    if runtime.rank() == 0:
+        one = AnalogTrainer(loss, cfg, plan=plan)
+        s1 = whole0
+        for _ in range(2):
+            s1, _ = one.train_step(s1, torch.zeros(()))
+        out["equal"] = leaves_equal(got, s1, "dist 2x2: four ranks")
+    return out
+
+
+def phase_dist(card: str, lm_losses):
+    """Phase 15 (see above); ``lm_losses``: phase 10a's one-rank losses.
+    Returns the K1 launches of its sharded runs."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.join(ROOT, "build", "dist_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        pair = dist_spawn(2, dist_pair, root)
+        a = [r["a"] for r in pair]
+        for r in a:
+            check(r["equal"], "dist (a): card != CPU")
+            check(r["gap"] < 3 * r["scale"] and r["err"] <= 1.01 * r["scale"],
+                  f"dist (a): bounds {r}")
+            check(r["route"] == "host", f"dist (a): route {r['route']}")
+        print(f"dist (a): compressed all-reduce of {DIST_COMPRESS} float32 on "
+              f"2 ranks: card == CPU bit for bit, max |mean - true mean| "
+              f"{a[0]['gap']:.3e} < 3 * scale {a[0]['scale']:.3e}, max |err| "
+              f"{a[0]['err']:.3e}; {a[0]['ms']:.2f} / {a[1]['ms']:.2f} ms per "
+              f"call (host clock, staged through host memory) on {card}")
+        b = [r["b"] for r in pair]
+        check(b[0]["equal"] > 0, "dist (b): no leaf compared")
+        for r, rb in enumerate(b):
+            check(rb["launches"] == rb["expected"] == len(rb["rows"]),
+                  f"dist (b) rank {r}: {rb['launches']} K1 launches, "
+                  f"expected {rb['expected']}")
+            print(f"dist (b) rank {r}: {rb['launches']} K1 launches on "
+                  f"{sorted(set(rb['rows']))}; K1 device time "
+                  f"{rb['k1_ms']:.3f} ms, begin+update {rb['wall_ms']:.1f} ms "
+                  f"(host clock), peak {rb['peak'] / 2 ** 30:.3f} GiB, tile "
+                  f"bytes {rb['local_bytes']} of {rb['whole_bytes']}, "
+                  f"collectives {rb['stats']} on {card}")
+        print(f"dist (b): qwen2-0.5b full-width tile bank, one begin_step and "
+              f"update on 2 ranks gathered == one process on all "
+              f"{b[0]['equal']} leaves")
+        c = [r["c"] for r in pair]
+        hist = c[0]["hist"]
+        losses = [m["loss"] for m in hist]
+        check([m["step"] for m in hist] == list(range(DIST_STEPS)),
+              f"dist (c): steps {[m['step'] for m in hist]}")
+        check(all(math.isfinite(x) for x in losses), "dist (c): loss not finite")
+        # a trend only: the held numbers are steps 0-1 against phase 10a
+        # (the same weights, batches and learning rate) and the restore
+        check(statistics.mean(losses[1:]) < losses[0],
+              f"dist (c): loss did not fall {losses}")
+        gaps = [abs(x / y - 1) for x, y in zip(losses[:2], lm_losses[:2])]
+        check(max(gaps) < 1e-3, f"dist (c): steps 0-1 loss {losses[:2]} vs "
+              f"phase 10a's {lm_losses[:2]}")
+        check(all(r["restored"] for r in c), "dist (c): run B did not restore")
+        check(c[0]["prints"] == c[1]["prints"], "dist (c): ranks gathered "
+              "different states")
+        med = statistics.median(m["step_s"] for m in hist[1:]) * 1e3
+        for r, rc in enumerate(c):
+            s = rc["stats"].get("grad_all_reduce", {})
+            print(f"dist (c) rank {r}: peak allocated "
+                  f"{rc['peak'] / 2 ** 30:.3f} GiB, tile state "
+                  f"{rc['tile_bytes']} bytes, K1 launches {rc['launches']}, "
+                  f"gradient all-reduce {s.get('seconds', 0) * 1e3 / DIST_STEPS:.1f}"
+                  f" ms a step ({s.get('bytes', 0) / DIST_STEPS / 1e9:.3f} GB "
+                  f"a step), collectives {rc['stats']} on {card}")
+        print(f"dist (c): qwen2-0.5b full width and depth, --data-parallel 2, "
+              f"loss {losses}, steps 0-1 {gaps[0]:.3e} / {gaps[1]:.3e} "
+              f"(relative) from phase 10a's one rank; median {med:.2f} "
+              f"ms/step (steps 1-3, host clock) on {card}")
+        rs = c[0]["restore"]
+        check(rs["equal"] > 0, "dist (c): the one-process restore differs "
+              "from the ranks' gathered state at step 2")
+        check(math.isfinite(rs["loss"]), "dist (c): one-process step not "
+              "finite")
+        print(f"dist (c): the 2-rank step-2 checkpoint restored in one "
+              f"process (no mesh) equal to the ranks' gathered state on all "
+              f"{rs['equal']} leaves; its step 2 loss {rs['loss']:.6f} "
+              f"against the ranks' {losses[2]:.6f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d = dist_spawn(4, dist_ref_bank, timeout=300)
+    cname = "g8x8_float32_Mn+g8x8_float32_nM"
+    for r in d:
+        check(r["names"] == ["g8x8_float32_Mn", "g8x8_float32_nM"]
+              and r["classes"] == [cname], f"dist (d): groups {r['names']}")
+        check(r["w_spec"] == (None, "data", None, None)
+              and r["t_spec"] == (None, None), f"dist (d): specs {r}")
+        check(r["per_dev"] <= r["total"] / 2 + 1024, f"dist (d): bytes {r}")
+        check(math.isfinite(r["loss"]), "dist (d): loss")
+    check(d[0]["equal"] > 0, "dist (d): nothing compared")
+    print(f"dist (d): the reference's 2x2 bank on 4 ranks: specs W "
+          f"{d[0]['w_spec']}, t {d[0]['t_spec']}; {d[0]['per_dev']} of "
+          f"{d[0]['total']} tile bytes a rank; 2 steps == one process on "
+          f"{d[0]['equal']} leaves")
+    launches = (sum(r["b"]["launches"] + r["c"]["launches"] for r in pair)
+                + sum(r["launches"] for r in d))
+    print(f"dist: phase 15 took {time.time() - t0:.1f} s, {launches} K1 "
+          f"launches in its sharded runs")
+    return dict(launches=launches, step_ms=med)
+
+
 def main() -> int:
     import torch
 
@@ -2258,13 +2730,17 @@ def main() -> int:
               f"step, peak {r['peak_bytes'] / 2 ** 30:.3f} GiB on {card}")
 
     paper = phase_paper(card)
+    dist = phase_dist(card, lm["losses"])
+    print(f"dist: {dist['step_ms']:.2f} ms/step on 2 ranks on {card}")
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
-                        + serve["train_launches"] + paper["launches"])
+                        + serve["train_launches"] + paper["launches"]
+                        + dist["launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
     kern["paper_launches"] = paper["launches"]
+    kern["dist_launches"] = dist["launches"]
     kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",

@@ -48,7 +48,9 @@ from ..core.paths import _children, flatten_with_path, npz_key, tree_map_with_pa
 from ..core.plan import policy_to_json
 from ..core.tile import (TileBank, group_name, parse_class_name,
                          parse_group_name)
-from ..distributed.sharding import rule_template, template_tag
+from ..distributed import runtime
+from ..distributed.sharding import (gather_tree, rule_template, shard,
+                                    shardings_mesh, template_tag)
 from ..prng import MASK
 
 _CHUNK_BYTES = 512 * 1024 * 1024
@@ -127,14 +129,29 @@ def _write_npz(path: str, chunk: Dict[str, tuple]) -> None:
 
 
 def save(tree, directory: str, step: int, *, asynchronous: bool = False,
-         extra: Optional[Dict[str, Any]] = None) -> Optional[threading.Thread]:
+         extra: Optional[Dict[str, Any]] = None,
+         shardings=None) -> Optional[threading.Thread]:
     """Write a checkpoint of ``tree`` (``None`` slots skipped). Every leaf is
     copied to host memory before this returns; with ``asynchronous=True``
     the files are written on a daemon thread, which is returned.
 
     ``extra``: JSON-serializable keys merged into manifest.json (e.g. the
     ``gdc_signatures`` that ``repro_torch.lifetime`` compares against);
-    the layout's own keys cannot be overridden."""
+    the layout's own keys cannot be overridden.
+
+    ``shardings``: ``tree`` holds this rank's blocks, laid out by these
+    NamedShardings (``distributed.sharding``). Every rank calls ``save``:
+    the blocks are gathered to whole arrays on the calling thread
+    (collective), then rank 0 alone writes, the same files a one-process
+    save of the whole state writes. A synchronous save returns on every
+    rank once the files are in place (a barrier), so any rank may restore
+    them next; an asynchronous one is in place when rank 0's thread ends."""
+    if shardings is not None:
+        tree = gather_tree(tree, shardings)
+        if runtime.rank() != 0:
+            if not asynchronous:
+                runtime.barrier()
+            return None
     host = {k: _on_disk(v) for k, v in flatten_with_path(tree)}
     tile_groups = _tile_group_manifest(tree)
     tile_classes = _tile_class_manifest(tree)
@@ -202,6 +219,8 @@ def save(tree, directory: str, step: int, *, asynchronous: bool = False,
         t.start()
         return t
     _write()
+    if shardings is not None:
+        runtime.barrier()
     return None
 
 
@@ -473,11 +492,20 @@ def restore(template, directory: str, step: Optional[int] = None, *,
     trainer state, ``trainer.HOST_LEAVES``: key, step, tile seeds).
     ``verify`` checks every array read against its crc32. A stored policy
     that differs from the template's is reported in one warning (legal,
-    but usually a mistake). ``shardings`` (elastic restore onto a mesh) is
-    not ported yet."""
+    but usually a mistake).
+
+    ``shardings`` (elastic restore): NamedShardings of the template's
+    leaves on a mesh of this process group (``distributed.sharding``);
+    each rank reads the whole arrays and keeps its block by them, whatever
+    mesh wrote the checkpoint."""
+    specs = mesh = None
     if shardings is not None:
-        raise NotImplementedError(
-            "shardings= is not ported yet; the port restores onto one device")
+        specs = {p: s.spec for p, s in flatten_with_path(shardings)}
+        missing = [p for p, _ in flatten_with_path(template) if p not in specs]
+        if missing:
+            raise ValueError(f"shardings do not cover {len(missing)} template "
+                             f"leaves, e.g. {missing[0]!r}")
+        mesh = shardings_mesh(shardings)
     d = _step_dir(directory, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -514,6 +542,8 @@ def restore(template, directory: str, step: Optional[int] = None, *,
             if tuple(arr.shape) != expect:
                 raise ValueError(f"leaf {key}: checkpoint shape "
                                  f"{tuple(arr.shape)}, template {expect}")
+            if specs is not None:
+                arr = shard(arr, specs[key], mesh)
             out[key] = arr.to(_leaf_device(key, leaf, device, host_leaves))
     finally:
         for z in files.values():

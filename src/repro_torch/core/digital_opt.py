@@ -72,8 +72,10 @@ def init_opt(params, cfg: DigitalOptConfig) -> Dict[str, Any]:
 
 
 def clip_by_global_norm(grads, max_norm: float):
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in leaves(grads)))
+    # a float32 zero to start from: a tree with no leaves has norm 0
+    gnorm = torch.sqrt(sum((torch.sum(torch.square(g.to(torch.float32)))
+                            for g in leaves(grads)),
+                           torch.zeros((), dtype=torch.float32)))
     # tensor / tensor: torch's float / tensor multiplies by the reciprocal
     scale = torch.clamp_max(torch.full_like(gnorm, max_norm) / (gnorm + 1e-12),
                             1.0)

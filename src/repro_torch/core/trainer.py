@@ -20,6 +20,39 @@ as in the JAX package, so both packages draw the same bits.
 PyTorch runs eagerly: ``jit_step()`` returns ``train_step`` itself. The
 state's step counter and key stay on the host; tile state lives on the
 parameters' device.
+
+``mesh=`` (a ``launch.mesh.Mesh`` of more than one rank, one process per
+rank over ``distributed.runtime``) does what the JAX package's sharded
+step does, with its implicit collectives made explicit. Every rank holds
+its block of each state leaf by ``distributed.sharding.state_shardings``
+(``self.shardings``): tile state and optimizer moments ZeRO-sharded over
+the data axes, the model axis on the member dims its rules name; host
+leaves (key, step, seeds) whole and equal on every rank. In the step:
+  1. ``begin_step`` runs on each rank's blocks as they are stored (it draws
+     no noise and reduces nothing over a tile);
+  2. each rank computes the effective weights of its blocks and gathers
+     them (and the digital parameters) whole, runs forward and backward on
+     its rows of the global batch (under ``microbatch`` its share of each
+     global microbatch), and the gradients, loss and aux are averaged over
+     the data axes. That is the one-process step for a loss that is a mean
+     of per-row terms over equal rows; a statistic over the batch inside
+     the model (the MoE router's load-balance fractions, group size and
+     capacity) is made the global batch's by ``models.common.data_parallel``;
+  3. the digital update runs on each rank's block of the moments, with
+     clipping on the whole averaged gradients; the pulse update runs on
+     whole tiles: where the stack axis carries the data axes, each rank
+     updates its rows, with each tile's members gathered whole over the
+     model axis and the keys split over the whole group, then sliced; the
+     'fused' backend splits the flattened (C*n) stack when only that
+     divides; elsewhere every rank gathers the stack, updates all of it
+     and keeps its block. ``distributed.sharding.shard_stacked_call``
+     makes each row split, as in the reference. Per-tile key streams and
+     noise do not depend on a tile's position in a stack, so every rank's
+     rows are bit-equal to the one-process update. Per-tile metrics are
+     gathered in stack order before the mean or sum, so metrics equal the
+     one-process step's.
+Compute over the model axis is replicated (the model-axis hints of
+``models.common`` are the identity).
 """
 from __future__ import annotations
 
@@ -31,8 +64,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import prng
+from ..distributed import runtime
+from ..distributed import sharding as shd
+from ..kernels.ref import div
 from . import algorithms as alg
-from .digital_opt import DigitalOptConfig, ScheduleConfig, apply_opt, init_opt, lr_at
+from .digital_opt import (DigitalOptConfig, ScheduleConfig, apply_opt,
+                          clip_by_global_norm, init_opt, lr_at)
 from .paths import TensorSpec, flatten_with_path, tree_map, tree_map_with_path
 from .plan import AnalogPlan, TilePolicy, legacy_plan, plan_partition
 from .tile import (TileBank, TileConfig, _class_member, abstract_tile,
@@ -164,17 +201,45 @@ def _per_tile(fn):
     return run
 
 
+def _run_class(vfn, fused: bool, cstate, kr, extras):
+    """``vfn`` over one class stack (C, m, *member) with keys (C, m, 2):
+    the 'fused' backend as one flattened (C*m) stack, else group by group;
+    the output gets the leading (C, m) axes back."""
+    C = kr.shape[0]
+    if fused:
+        def flat(t):
+            return tree_map(lambda l: l.reshape((-1,) + tuple(l.shape[2:])), t)
+
+        res = vfn(flat(cstate), flat(kr), *(flat(e) for e in extras))
+        return tree_map(lambda l: l.reshape((C, l.shape[0] // C)
+                                            + tuple(l.shape[1:])), res)
+    results = [vfn(_class_member(cstate, ci), kr[ci],
+                   *(_class_member(e, ci) for e in extras))
+               for ci in range(C)]
+    if C == 1:
+        return tree_map(lambda l: l.unsqueeze(0), results[0])
+    return tree_map(lambda *ls: torch.stack(ls), *results)
+
+
+def _map_result(res, state_fn, metric_fn):
+    """Map a class result, ``state`` or ``(state, metrics)``:
+    ``state_fn(slot_path, leaf)`` over the state, ``metric_fn`` over the
+    metrics."""
+    if isinstance(res, tuple):
+        st, m = res
+        return tree_map_with_path(state_fn, st), tree_map(metric_fn, m)
+    return tree_map_with_path(state_fn, res)
+
+
 class AnalogTrainer:
     def __init__(self, loss_fn, cfg: TrainerConfig,
                  analog_filter: Optional[PathPredicate] = None, mesh=None, *,
                  plan: Optional[AnalogPlan] = None):
         """``plan``: an AnalogPlan mapping parameter paths to TilePolicies;
         when omitted, ``(cfg.tile, analog_filter)`` maps onto a one-rule
-        plan behind a one-time DeprecationWarning. ``mesh`` is not
-        supported yet (the distributed slice of the port)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet; the port trains on one device")
+        plan behind a one-time DeprecationWarning. ``mesh``: a
+        ``launch.mesh.Mesh`` whose size is the process group's world size
+        (see the module docstring); a mesh of one rank is one process."""
         self.loss_fn = loss_fn
         self.cfg = cfg
         if plan is None:
@@ -183,7 +248,11 @@ class AnalogTrainer:
             raise ValueError("pass either plan= or analog_filter=, not both")
         self.plan = plan
         self.analog_filter = analog_filter
-        self.mesh = None
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        # NamedShardings of the state (the layout of every rank's blocks),
+        # set by init / abstract_state / shard_state under a mesh
+        self.shardings = None
+        self._specs: Dict[str, Any] = {}
         self._path_tile_cfgs: Dict[str, TileConfig] = {}
 
     def _remember_path_cfgs(self, analog, policies) -> None:
@@ -219,14 +288,19 @@ class AnalogTrainer:
         return (f"plan: {len(analog)} analog paths -> {len(index)} groups, "
                 f"algorithms {algos_s}, {n_dig} digital leaves")
 
-    def _grouped_apply(self, bank: TileBank, make_vfn, key, extras=()):
+    def _grouped_apply(self, bank: TileBank, make_vfn, key, extras=(),
+                       members: str = "whole"):
         """Apply one stack-level function per class.
 
         ``make_vfn(tcfg)`` returns ``vfn(group_state, keys_raw, *extra)``
         over one (n, *member) group stack. Per-group keys fold a CRC of the
         group's member paths. Classes under ``update_backend='fused'`` run
         as one flattened (C*n, *member) stack; other classes run group by
-        group. Returns {class-name: vfn output with a leading class axis}.
+        group. ``extras``: {class-name: (C, n, ...) whole tensors}. Returns
+        {class-name: vfn output with a leading class axis}: under a mesh,
+        state leaves as this rank's blocks and metrics whole.
+        ``members="local"`` (a function that draws no noise and reduces
+        nothing over a tile) lets it run on the blocks as stored.
         """
         index = dict(bank.index)
 
@@ -237,28 +311,213 @@ class AnalogTrainer:
         for cname, gnames in bank.class_index:
             tcfg = _group_tile_cfg(bank, gnames[0], self.cfg.tile)
             vfn = make_vfn(tcfg)
+            fused = tcfg.update_backend == "fused"
+            kr = torch.stack([keys_raw(index[g]) for g in gnames])
+            ex = [e[cname] for e in extras]
             cstate = bank.classes[cname]
-            n_c = len(gnames)
-            if tcfg.update_backend == "fused":
-                kr = torch.cat([keys_raw(index[g]) for g in gnames])
-
-                def flat(t):
-                    return tree_map(
-                        lambda l: l.reshape((-1,) + tuple(l.shape[2:])), t)
-
-                res = vfn(flat(cstate), kr, *(flat(e[cname]) for e in extras))
-                out[cname] = tree_map(
-                    lambda l: l.reshape((n_c, l.shape[0] // n_c)
-                                        + tuple(l.shape[1:])), res)
+            if self.mesh is None:
+                out[cname] = _run_class(vfn, fused, cstate, kr, ex)
             else:
-                results = [
-                    vfn(_class_member(cstate, ci), keys_raw(index[g]),
-                        *(_class_member(e[cname], ci) for e in extras))
-                    for ci, g in enumerate(gnames)]
-                out[cname] = (tree_map(lambda l: l.unsqueeze(0), results[0])
-                              if n_c == 1 else
-                              tree_map(lambda *ls: torch.stack(ls), *results))
+                out[cname] = self._run_class_sharded(
+                    f"tiles/{cname}", vfn, fused, cstate, kr, ex, members)
         return out
+
+    def _run_class_sharded(self, prefix, vfn, fused, cstate, kr, extras,
+                           members):
+        """One class under the mesh: ``cstate`` holds this rank's blocks
+        (specs at ``prefix/<slot>``), ``kr`` (C, n, 2) the whole group's
+        keys, ``extras`` whole tensors. See the module docstring."""
+        mesh = self.mesh
+        spec = lambda p: self._specs[f"{prefix}/{p}"]  # noqa: E731
+        C, n = kr.shape[:2]
+        whole_members = members == "whole"
+
+        def on_rows(st, k, *ex):
+            # this rank's rows of the stack, each member whole if asked
+            if whole_members:
+                st = tree_map_with_path(lambda p, leaf: shd.gather(
+                    leaf, spec(p), mesh, dims=range(2, leaf.ndim)), st)
+            res = _run_class(vfn, fused, st, k, list(ex))
+            if whole_members:
+                res = _map_result(res, lambda p, leaf: shd.shard(
+                    leaf, spec(p), mesh, dims=range(2, leaf.ndim)),
+                    lambda m: m)
+            return res
+
+        res = shd.shard_stacked_call(on_rows, mesh, n, cstate, kr, *extras,
+                                     axis=1)
+        if res is not None:
+            rows = shd.stacked_rows(mesh, n, axis=1)
+            return _map_result(
+                res, lambda p, leaf: leaf if spec(p)[1] == rows[1]
+                else shd.gather(leaf, rows, mesh),
+                lambda m: shd.gather(m, rows, mesh))
+        if members == "local":
+            if extras:
+                raise ValueError("members='local' takes no per-tile inputs")
+            return _run_class(vfn, fused, cstate, kr, [])
+        whole = tree_map_with_path(
+            lambda p, leaf: shd.gather(leaf, spec(p), mesh), cstate)
+        if fused:
+            # the reference's flattened (C*n) stack, split over the data axes
+            def flat(t):
+                return t.reshape((C * n,) + tuple(t.shape[2:]))
+
+            res = shd.shard_stacked_call(
+                vfn, mesh, C * n, tree_map(flat, whole), flat(kr),
+                *(flat(e) for e in extras))
+            if res is not None:
+                frows = shd.stacked_rows(mesh, C * n)
+
+                def uncut(t):
+                    t = shd.gather(t, frows, mesh)
+                    return t.reshape((C, n) + tuple(t.shape[1:]))
+
+                return _map_result(
+                    res, lambda p, leaf: shd.shard(uncut(leaf), spec(p), mesh),
+                    uncut)
+        res = _run_class(vfn, fused, whole, kr, extras)
+        return _map_result(res, lambda p, leaf: shd.shard(leaf, spec(p), mesh),
+                           lambda m: m)
+
+    # -- mesh: layout, effective weights, reductions -------------------------
+    def _set_shardings(self, global_state) -> None:
+        self.shardings = shd.state_shardings(global_state, self.mesh)
+        self._specs = {p: s.spec for p, s in flatten_with_path(self.shardings)}
+
+    def shard_state(self, state) -> TrainState:
+        """This rank's blocks of a whole state (every rank passes the same
+        state); records the layout in ``self.shardings``."""
+        self._set_shardings(state)
+        return shd.shard_tree(state, self.shardings)
+
+    def gather_state(self, state) -> TrainState:
+        """The whole state from every rank's blocks (collective)."""
+        return shd.gather_tree(state, self._layout())
+
+    def _layout(self):
+        if self.shardings is None:
+            raise RuntimeError("the trainer has no state layout: call init, "
+                               "abstract_state or shard_state under the mesh "
+                               "first")
+        return self.shardings
+
+    def effective_params(self, state):
+        """The whole parameter tree with the analog slots filled by their
+        effective weights (under a mesh: gathered from every rank's blocks,
+        collective)."""
+        tiles = state["tiles"]
+        params = state["params"]
+        if self.mesh is not None:
+            params = shd.gather_tree(params, self._layout()["params"])
+        return self._merged(params, tiles, self._path_cfgs(tiles))
+
+    def _path_cfgs(self, tiles):
+        return (None if isinstance(tiles, TileBank) else
+                {p: self._tile_cfg_of(p) for p in tiles})
+
+    def _merged(self, params, tiles, path_cfgs):
+        """``merge_effective`` of whole digital ``params``; under a mesh each
+        rank computes the effective weight of its blocks (the per-tile
+        scalars cut to its rows) and gathers it whole."""
+        if self.mesh is None:
+            return merge_effective(params, tiles, self.cfg.tile, path_cfgs)
+
+        mesh = self.mesh
+
+        def whole_eff(prefix, st, gcfg, n=None):
+            # a class stack of n members per group: on this rank's rows
+            sw = self._specs[f"{prefix}/W"]
+            fn = lambda s: alg.effective_weight(s, gcfg)  # noqa: E731
+            res = (None if n is None else
+                   shd.shard_stacked_call(fn, mesh, n, st, axis=1))
+            if res is None:
+                return shd.gather(fn(st), sw, mesh)
+            rows = shd.stacked_rows(mesh, n, axis=1)
+            return shd.gather(res, shd.P(None, rows[1], *sw[2:]), mesh)
+
+        eff = {}
+        if isinstance(tiles, TileBank):
+            pidx = dict(tiles.index)
+            for cname, gnames in tiles.class_index:
+                gcfg = _group_tile_cfg(tiles, gnames[0], self.cfg.tile)
+                whole = whole_eff(f"tiles/{cname}", tiles.classes[cname], gcfg,
+                                  len(pidx[gnames[0]]))
+                for ci, g in enumerate(gnames):
+                    for i, p in enumerate(pidx[g]):
+                        eff[p] = whole[ci, i]
+        else:
+            for p, ts in tiles.items():
+                eff[p] = whole_eff(f"tiles/{p}", ts, path_cfgs[p])
+        return tree_map_with_path(
+            lambda p, leaf: eff[p] if (leaf is None and p in eff) else leaf,
+            params, keep_none=True)
+
+    def _data_group(self):
+        data_axes, dsize, _, _ = shd.mesh_axis_sizes(self.mesh)
+        return (self.mesh.group(data_axes) if dsize > 1 else None), dsize
+
+    def _local_batch(self, batch):
+        """This rank's rows of the global batch; True when any leaf was
+        split (the gradients are then averaged over the data axes). Under
+        ``microbatch`` > 1 a rank holds its rows of every global microbatch,
+        in microbatch order, so its microbatch i is its share of the one
+        process's microbatch i."""
+        sh = shd.batch_shardings(batch, self.mesh)
+        cut = {p for p, s in flatten_with_path(sh)
+               if len(s.spec) and s.spec[0] is not None}
+        mb = self.cfg.microbatch
+        if cut and mb > 1:
+            _, dsize = self._data_group()
+
+            def interleave(x):
+                rows = x.shape[0]
+                if rows % (mb * dsize):
+                    raise ValueError(
+                        f"a batch of {rows} rows does not split into "
+                        f"{mb} microbatches over {dsize} data ranks")
+                return x.reshape(mb, dsize, rows // (mb * dsize),
+                                 *x.shape[1:]).transpose(0, 1).reshape(x.shape)
+
+            batch = tree_map_with_path(
+                lambda p, x: interleave(x) if p in cut else x, batch)
+        return shd.shard_tree(batch, sh), bool(cut)
+
+    def _mean_over_data(self, tensors):
+        """The mean over the data axes of a list of tensors (one SUM
+        all-reduce of a float32 buffer, then a true division by the data
+        size); each result in its tensor's dtype."""
+        group, dsize = self._data_group()
+        if group is None or not tensors:
+            return list(tensors)
+        buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+        buf = div(runtime.all_reduce(buf, group, label="grad_all_reduce"),
+                  float(dsize))
+        out, at = [], 0
+        for t in tensors:
+            out.append(buf[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+            at += t.numel()
+        return out
+
+    def _apply_digital(self, params, grads, opt, step, lr):
+        """``apply_opt`` under the mesh: clipping on the whole gradients,
+        the update on this rank's block of the moments, the new
+        parameters gathered and cut to their own layout."""
+        cfg = self.cfg.digital
+        layout = self._layout()
+        gnorm = torch.zeros((), dtype=torch.float32)
+        if cfg.clip_norm > 0:
+            grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        cfg = dataclasses.replace(cfg, clip_norm=0.0)
+        moments = layout["opt"].get("mu")
+        if moments is None:
+            new_params, new_opt, _ = apply_opt(params, grads, opt, step, lr, cfg)
+        else:
+            new_params, new_opt, _ = apply_opt(
+                shd.shard_tree(params, moments),
+                shd.shard_tree(grads, moments), opt, step, lr, cfg)
+            new_params = shd.gather_tree(new_params, moments)
+        return shd.shard_tree(new_params, layout["params"]), new_opt, gnorm
 
     # -- state ------------------------------------------------------------
     def init(self, key, params, sp_estimates: Optional[Dict[str, Any]] = None) -> TrainState:
@@ -279,19 +538,23 @@ class AnalogTrainer:
                                 group_policies(index, policies))
         else:
             tiles = per_tile
-        return TrainState(
+        state = TrainState(
             step=torch.zeros((), dtype=torch.int32),
             key=prng.key_data(key).clone(),
             params=digital,
             tiles=tiles,
             opt=init_opt(digital, self.cfg.digital),
         )
+        # under a mesh every rank draws the whole state, then keeps its blocks
+        return state if self.mesh is None else self.shard_state(state)
 
     def abstract_state(self, params_shapes, device="cuda") -> TrainState:
         """TensorSpec state on ``device`` (a restore template; allocates
         nothing). ``params_shapes`` is a tree of TensorSpecs or tensors;
         the step counter, key and tile seeds are host leaves, as ``init``
-        makes them."""
+        makes them. The template is the whole state's; under a mesh it also
+        sets ``self.shardings``, each rank's layout of it (pass both to
+        ``checkpoint.ckpt.restore``)."""
         specs = tree_map(
             lambda leaf: TensorSpec(tuple(leaf.shape), leaf.dtype, device),
             params_shapes)
@@ -318,72 +581,71 @@ class AnalogTrainer:
                         self.cfg.digital)
         opt = tree_map(lambda m: TensorSpec(tuple(m.shape), m.dtype, device),
                        meta)
-        return TrainState(
+        template = TrainState(
             step=TensorSpec((), torch.int32, "cpu"),
             key=TensorSpec((2,), torch.int64, "cpu"),
             params=digital,
             tiles=tiles,
             opt=opt,
         )
+        if self.mesh is not None:
+            self._set_shardings(template)
+        return template
 
     # -- step -------------------------------------------------------------
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         tcfg = self.cfg.tile
         key, k_begin, k_model, k_upd = prng.split(state["key"], 4)
         grouped = isinstance(state["tiles"], TileBank)
+        path_cfgs = self._path_cfgs(state["tiles"])
 
-        # phase 1: chopper / Q~ sync
+        # phase 1: chopper / Q~ sync (under a mesh on the blocks as stored)
         if grouped:
-            bank: TileBank = state["tiles"]
-            begun = self._grouped_apply(
-                bank,
-                lambda gcfg: _per_tile(
-                    lambda ts, k: alg.begin_step(ts, k, gcfg)),
-                k_begin)
-            tiles = TileBank.from_classes(begun, bank.index, bank.class_index,
-                                          bank.policies)
-            path_cfgs = None
+            tiles = self.begin_tiles(state["tiles"], k_begin)
         else:
-            path_cfgs = {p: self._tile_cfg_of(p) for p in state["tiles"]}
             tiles = {
                 p: alg.begin_step(ts, _crc_fold(k_begin, p), path_cfgs[p])
                 for p, ts in sorted(state["tiles"].items())
             }
 
-        # phase 2: forward/backward on effective weights (+ accumulation)
-        eff = merge_effective(state["params"], tiles, tcfg, path_cfgs)
-        mb = self.cfg.microbatch
-        if mb <= 1:
-            loss, aux, grads = _value_and_grad(self.loss_fn, eff, batch, k_model)
-        else:
-            def slice_batch(i):
-                return tree_map(
-                    lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
-                    if getattr(x, "ndim", 0) >= 1 else x, batch)
+        # phase 2: forward/backward on effective weights (+ accumulation);
+        # under a mesh on this rank's rows of the batch, averaged after
+        params = state["params"]
+        split = False
+        if self.mesh is not None:
+            params = shd.gather_tree(params, self._layout()["params"])
+            batch, split = self._local_batch(batch)
+        eff = self._merged(params, tiles, path_cfgs)
+        if split:
+            # batch statistics inside the model (the MoE router's) are the
+            # global batch's; imported here, as models import the core
+            from ..models.common import data_parallel
 
-            loss, aux, grads = _value_and_grad(
-                self.loss_fn, eff, slice_batch(0), prng.fold_in(k_model, 0))
-            loss = loss.to(torch.float32)
-            grads = tree_map(lambda g: g.to(self.cfg.accum_dtype), grads)
-            for i in range(1, mb):
-                l, a, g = _value_and_grad(self.loss_fn, eff, slice_batch(i),
-                                          prng.fold_in(k_model, i))
-                grads = tree_map(lambda acc, gi: acc + gi.to(self.cfg.accum_dtype),
-                                 grads, g)
-                aux = {k: aux[k] + a[k] for k in aux}
-                loss = loss + l
-            inv = 1.0 / mb
-            grads = tree_map(lambda g: g * inv, grads)
-            loss = loss * inv
-            aux = {k: v * inv for k, v in aux.items()}
+            with data_parallel(*self._data_group()):
+                loss, aux, grads = self._forward_backward(eff, batch, k_model)
+        else:
+            loss, aux, grads = self._forward_backward(eff, batch, k_model)
+        if split:
+            flat = flatten_with_path(grads)
+            akeys = [k for k in sorted(aux) if torch.is_tensor(aux[k])]
+            reduced = self._mean_over_data(
+                [loss] + [aux[k] for k in akeys] + [g for _, g in flat])
+            loss = reduced[0]
+            aux = {**aux, **dict(zip(akeys, reduced[1:1 + len(akeys)]))}
+            by_path = dict(zip((p for p, _ in flat), reduced[1 + len(akeys):]))
+            grads = tree_map_with_path(lambda p, _: by_path[p], grads)
 
         lr = lr_at(state["step"], self.cfg.schedule)
 
         # phase 3a: digital branch
         dgrads = mask_digital_grads(grads, tiles)
-        new_params, new_opt, gnorm = apply_opt(
-            state["params"], dgrads, state["opt"], state["step"], lr,
-            self.cfg.digital)
+        if self.mesh is None:
+            new_params, new_opt, gnorm = apply_opt(
+                params, dgrads, state["opt"], state["step"], lr,
+                self.cfg.digital)
+        else:
+            new_params, new_opt, gnorm = self._apply_digital(
+                params, dgrads, state["opt"], state["step"], lr)
 
         # phase 3b: analog branch (pulse updates)
         agrads = extract_analog_grads(grads, tiles)
@@ -393,29 +655,17 @@ class AnalogTrainer:
             stacked_grads = {}
             for cname, gnames in tiles.class_index:
                 flat = [agrads[p] for g in gnames for p in pidx[g]]
-                cdims = tuple(tiles.classes[cname]["W"].shape[:2])
+                cdims = (len(gnames), len(pidx[gnames[0]]))
                 arr = torch.stack(flat) if len(flat) > 1 else flat[0].unsqueeze(0)
                 stacked_grads[cname] = arr.reshape(cdims + tuple(flat[0].shape))
-
-            def make_update_vfn(gcfg):
-                if gcfg.update_backend == "fused":
-                    return lambda ts, kr, grd: alg.update_batched(
-                        ts, grd, kr, gcfg, lr)
-                return _per_tile(
-                    lambda ts, k, grd: alg.update(ts, grd, k, gcfg, lr))
-
-            res = self._grouped_apply(
-                tiles, make_update_vfn, k_upd, extras=(stacked_grads,))
-            new_tiles = TileBank.from_classes(
-                {c: res[c][0] for c, _ in tiles.class_index},
-                tiles.index, tiles.class_index, tiles.policies)
-            tile_metrics = [{k: v.reshape(-1) for k, v in res[c][1].items()}
-                            for c, _ in tiles.class_index]
+            new_tiles, tile_metrics = self.update_tiles(tiles, stacked_grads,
+                                                        k_upd, lr)
         else:
             new_tiles = {}
             for p, ts in sorted(tiles.items()):
-                ts2, m = alg.update(ts, agrads[p], _crc_fold(k_upd, p),
-                                    path_cfgs[p], lr)
+                ts2, m = self._looped_update(p, ts, agrads[p],
+                                             _crc_fold(k_upd, p),
+                                             path_cfgs[p], lr)
                 new_tiles[p] = ts2
                 tile_metrics.append(m)
 
@@ -438,6 +688,76 @@ class AnalogTrainer:
             opt=new_opt,
         )
         return new_state, metrics
+
+    def _forward_backward(self, eff, batch, k_model):
+        """(loss, aux, grads) of ``batch``, accumulated over
+        ``cfg.microbatch`` slices of it."""
+        mb = self.cfg.microbatch
+        if mb <= 1:
+            return _value_and_grad(self.loss_fn, eff, batch, k_model)
+
+        def slice_batch(i):
+            return tree_map(
+                lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
+                if getattr(x, "ndim", 0) >= 1 else x, batch)
+
+        loss, aux, grads = _value_and_grad(
+            self.loss_fn, eff, slice_batch(0), prng.fold_in(k_model, 0))
+        loss = loss.to(torch.float32)
+        grads = tree_map(lambda g: g.to(self.cfg.accum_dtype), grads)
+        for i in range(1, mb):
+            l, a, g = _value_and_grad(self.loss_fn, eff, slice_batch(i),
+                                      prng.fold_in(k_model, i))
+            grads = tree_map(lambda acc, gi: acc + gi.to(self.cfg.accum_dtype),
+                             grads, g)
+            aux = {k: aux[k] + a[k] for k in aux}
+            loss = loss + l
+        inv = 1.0 / mb
+        grads = tree_map(lambda g: g * inv, grads)
+        loss = loss * inv
+        aux = {k: v * inv for k, v in aux.items()}
+        return loss, aux, grads
+
+    def begin_tiles(self, bank: TileBank, key) -> TileBank:
+        """Phase 1 of the grouped engine: ``begin_step`` of every tile."""
+        begun = self._grouped_apply(
+            bank,
+            lambda gcfg: _per_tile(lambda ts, k: alg.begin_step(ts, k, gcfg)),
+            key, members="local")
+        return TileBank.from_classes(begun, bank.index, bank.class_index,
+                                     bank.policies)
+
+    def update_tiles(self, bank: TileBank, stacked_grads, key, lr):
+        """Phase 3b of the grouped engine: the pulse update of every tile
+        from whole (C, n, *member) gradients per class. Returns the new
+        bank and one {metric: (C*n,)} dict per class."""
+        def make_update_vfn(gcfg):
+            if gcfg.update_backend == "fused":
+                return lambda ts, kr, grd: alg.update_batched(
+                    ts, grd, kr, gcfg, lr)
+            return _per_tile(
+                lambda ts, k, grd: alg.update(ts, grd, k, gcfg, lr))
+
+        res = self._grouped_apply(bank, make_update_vfn, key,
+                                  extras=(stacked_grads,))
+        new = TileBank.from_classes(
+            {c: res[c][0] for c, _ in bank.class_index},
+            bank.index, bank.class_index, bank.policies)
+        return new, [{k: v.reshape(-1) for k, v in res[c][1].items()}
+                     for c, _ in bank.class_index]
+
+    def _looped_update(self, path, ts, grad, key, cfg, lr):
+        """One tile's update (looped engine); under a mesh on the whole
+        tile, gathered, then cut back to this rank's blocks."""
+        if self.mesh is None:
+            return alg.update(ts, grad, key, cfg, lr)
+
+        spec = lambda p: self._specs[f"tiles/{path}/{p}"]  # noqa: E731
+        whole = tree_map_with_path(
+            lambda p, leaf: shd.gather(leaf, spec(p), self.mesh), ts)
+        st, m = alg.update(whole, grad, key, cfg, lr)
+        return (tree_map_with_path(
+            lambda p, leaf: shd.shard(leaf, spec(p), self.mesh), st), m)
 
     def jit_step(self, donate: bool = True, **_):
         """The eager step (PyTorch has no jit here; ``donate`` is moot)."""

@@ -1,2 +1,4 @@
-"""Distribution helpers of the port: rule templates and the fault-tolerance
-runtime so far."""
+"""Distribution substrate of the port: sharding rules and local shards,
+the int8 compressed all-reduce, fault handling, and the process-group
+runtime that stands in for JAX's multi-device programs."""
+from . import compression, fault, runtime, sharding  # noqa: F401

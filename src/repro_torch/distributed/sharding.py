@@ -1,15 +1,98 @@
-"""Sharding-rule templates of parameter paths.
+"""Sharding rules: parameter-path patterns -> partition specs, and the
+local shards they give each rank.
 
-Only the part tile grouping needs: group names carry the rule template tag
-of their member weights (``core.tile.group_tiles``), so the port keeps the
-JAX package's ``PARAM_RULES`` table and its two mesh-independent helpers.
-Meshes, specs and sharded calls come with the distributed slice of the
-port.
+Port of the JAX package's ``distributed/sharding.py``: the same
+MaxText-style logical rules keyed on the model zoo's parameter names, the
+same divisibility fallbacks and the same specs, element for element.
+Highlights:
+
+* model axis ("model"): attention heads / MLA up-projections / FFN hidden /
+  expert ffn dim / RG-LRU blocks / SSD heads / vocab.
+* data axes ("pod", "data"): batch; ZeRO-style sharding of analog tile
+  state and digital optimizer moments (legal because analog updates are
+  element-local).
+* scan-stacked body params (path contains "/body/") get a leading None
+  for the period axis.
+* decode caches: batch dim on the data axes when divisible, otherwise the
+  sequence dim (long-context batch=1).
+
+A dim that does not divide falls back to replication.
+
+The port has no SPMD compiler, so a spec also says what each rank holds:
+``P`` is a tuple with one entry per dim, an axis name, a tuple of names
+(the first the slowest) or None; ``shard`` cuts this rank's block out of a
+full tensor, ``gather`` rebuilds the full tensor from the blocks
+(``distributed.runtime`` collectives over ``launch.mesh.Mesh.group``),
+and ``placements`` gives the same layout as ``torch.distributed.tensor``
+placements. A rank's shard is a plain tensor; the trainer keeps the
+specs beside it (``AnalogTrainer.shardings``) and runs each stacked tile
+phase on its rows through ``shard_stacked_call``. ``constrain_stacked``,
+``params_shardings`` and ``placements`` are kept for parity with the
+reference (its trainer's ``_constrain``, its launchers) and held to it by
+the tests; the port's trainer lays state out by ``state_shardings``.
 """
 from __future__ import annotations
 
 import re
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
+
+from ..core.paths import flatten_with_path, tree_map, tree_map_with_path
+from . import runtime
+
+
+class P(tuple):
+    """A partition spec: ``P("data", None, ("pod", "data"))``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e if (e is None or isinstance(e, str)) else tuple(e)
+            for e in entries))
+
+    def __repr__(self):
+        return "P(" + ", ".join(repr(e) for e in self) + ")"
+
+
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s two fields)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh}, {self.spec})"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(mesh, spec):
+    """The ``torch.distributed.tensor`` placements of ``spec``: one per
+    mesh axis, ``Shard(dim)`` on the axes a dim names (a tuple entry shards
+    its dim over its axes in mesh order, as DTensor nests them), else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for a in mesh.axis_names:
+        dims = [d for d, e in enumerate(spec) if a in _axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def mesh_axis_sizes(mesh):
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    model_ax = "model" if "model" in mesh.axis_names else None
+    dsize = 1
+    for a in data_axes:
+        dsize *= mesh.shape[a]
+    msize = mesh.shape[model_ax] if model_ax else 1
+    return data_axes, dsize, model_ax, msize
+
 
 # (regex, spec template) — "M" for the model axis, "D" for data axes, None
 # for replicated; matched against the trailing dims of the leaf.
@@ -42,9 +125,30 @@ PARAM_RULES: Tuple[Tuple[str, Tuple], ...] = (
 )
 
 
+def _resolve(template, shape, data_axes, dsize, model_ax, msize,
+             zero_dim: Optional[int]):
+    """Template -> spec with divisibility checks. ``zero_dim`` set: ZeRO-
+    shard the first replicated divisible dim over the data axes."""
+    offset = len(shape) - len(template)
+    spec: list = [None] * len(shape)
+    for i, t in enumerate(template):
+        dim = offset + i
+        if t == "M" and model_ax and msize > 1 and shape[dim] % msize == 0 \
+                and shape[dim] > 0:
+            spec[dim] = model_ax
+    if zero_dim is not None and data_axes and dsize > 1:
+        for dim in range(len(shape)):
+            if spec[dim] is None and shape[dim] % dsize == 0 and shape[dim] >= dsize:
+                spec[dim] = data_axes if len(data_axes) > 1 else data_axes[0]
+                break
+    return P(*spec)
+
+
 def rule_template(path: str, ndim: int) -> Tuple:
-    """Spec template of a parameter path, normalized to ``ndim`` dims
-    (leading dims pad with None; body-scan params gain a leading None)."""
+    """Mesh-independent spec template of a parameter path, normalized to
+    ``ndim`` dims (leading dims pad with None; body-scan params gain a
+    leading None). Two paths with equal templates shard identically on
+    every mesh, so their tiles may share a stack (``core.tile``)."""
     template = None
     for pat, tmpl in PARAM_RULES:
         if re.search(pat, path):
@@ -64,3 +168,309 @@ def template_tag(template) -> str:
     if not template:
         return "s"
     return "".join({"M": "M", "D": "D"}.get(t, "n") for t in template)
+
+
+def param_spec(path: str, shape, mesh, zero: bool = False) -> P:
+    data_axes, dsize, model_ax, msize = mesh_axis_sizes(mesh)
+    template = rule_template(path, len(shape))
+    return _resolve(template, tuple(shape), data_axes, dsize, model_ax, msize,
+                    0 if zero else None)
+
+
+_TILE_SLOTS = r"(W|P|Qd|Qt|H|dev_p/(gamma|rho)|dev_w/(gamma|rho))"
+
+# group signatures already warned about (one warning per offending stack)
+_MIXED_RULE_WARNED: set = set()
+
+
+def grouped_tile_spec(member_paths, shape, mesh, zero: bool = True) -> P:
+    """Spec of a stacked tile-group array (n, *member-shape).
+
+    Member dims inherit the owning weights' model-axis spec. A stack that
+    mixes rules replicates its member dims and warns once, naming the
+    offending paths. The leading stack axis takes the data axes (ZeRO)
+    when the group size divides, else the first divisible replicated
+    member dim does."""
+    if isinstance(member_paths, str):
+        member_paths = (member_paths,)
+    shape = tuple(shape)
+    data_axes, dsize, model_ax, msize = mesh_axis_sizes(mesh)
+    per_path = {p: param_spec(p, shape[1:], mesh) for p in member_paths}
+    specs = set(per_path.values())
+    if len(specs) == 1:
+        inner = specs.pop()
+    else:
+        inner = P(*([None] * (len(shape) - 1)))
+        sig = tuple(sorted(member_paths))
+        if sig not in _MIXED_RULE_WARNED:
+            _MIXED_RULE_WARNED.add(sig)
+            warnings.warn(
+                "tile group mixes partition rules; model axis dropped "
+                "(member dims replicate) for stack of "
+                + ", ".join(f"{p}->{per_path[p]}" for p in sig)
+                + " — re-group with spec-aware keys (core.tile.group_tiles)",
+                stacklevel=2)
+    spec = [None] + list(inner) + [None] * (len(shape) - 1 - len(inner))
+    if zero and data_axes and dsize > 1:
+        daxes = data_axes if len(data_axes) > 1 else data_axes[0]
+        if shape[0] % dsize == 0 and shape[0] >= dsize:
+            spec[0] = daxes
+        else:
+            for dim in range(1, len(shape)):
+                if spec[dim] is None and shape[dim] % dsize == 0 \
+                        and shape[dim] >= dsize:
+                    spec[dim] = daxes
+                    break
+    return P(*spec)
+
+
+def merge_specs(specs):
+    """Dim-wise agreement of specs: keep an axis only where every spec
+    places it; disagreeing dims replicate."""
+    specs = [tuple(s) for s in specs]
+    n = max((len(s) for s in specs), default=0)
+    specs = [s + (None,) * (n - len(s)) for s in specs]
+    return P(*[s0 if all(s[d] == s0 for s in specs) else None
+               for d, s0 in enumerate(specs[0])]) if specs else P()
+
+
+def constrain_stacked(tree, member_paths, mesh, zero: bool = True,
+                      prefix: int = 0):
+    """This rank's shard of every stacked tile-state leaf of ``tree`` (whole
+    tensors): the port's counterpart of ``with_sharding_constraint`` on a
+    stack. Leaves of rank >= prefix + 3 (``prefix`` leading axes, then the
+    stack axis and a >= 2-D member) take the group spec, the dim-wise
+    agreement over ``member_paths`` (a path tuple or a tuple of them, one
+    per scanned group); per-tile scalars and seeds stay whole."""
+    paths_list = [member_paths] if member_paths and isinstance(
+        member_paths[0], str) else list(member_paths)
+
+    def c(leaf):
+        nd = leaf.ndim
+        if nd < prefix + 3:
+            return leaf
+        inner = merge_specs([
+            grouped_tile_spec(ps, tuple(leaf.shape)[prefix:], mesh, zero=zero)
+            for ps in paths_list])
+        return shard(leaf, P(*([None] * prefix + list(inner))), mesh)
+
+    return tree_map(c, tree)
+
+
+def stacked_rows(mesh, n: int, axis: int = 0) -> Optional[P]:
+    """The spec that splits axis ``axis`` of a stack (length ``n``) over the
+    data axes, or None when there is no data axis to split over or ``n``
+    does not divide: the one test of ``shard_stacked_call``."""
+    data_axes, dsize, _, _ = mesh_axis_sizes(mesh)
+    if dsize <= 1 or n % dsize:
+        return None
+    return P(*([None] * axis),
+             data_axes if len(data_axes) > 1 else data_axes[0])
+
+
+def shard_stacked_call(fn, mesh, n: int, *args, axis: int = 0):
+    """Run ``fn`` on this rank's rows of axis ``axis`` (length ``n``, split
+    over the data axes, ``stacked_rows``) of every argument; returns
+    ``fn``'s output on those rows. An argument leaf is whole (length ``n``
+    there) or already this rank's rows (a ZeRO-stored block). ``fn`` must
+    be element-local over the axis, as every stacked tile phase is, so the
+    rows' results are the rows of the global call. Returns None when
+    ``stacked_rows`` does; the caller then runs the global call."""
+    rows = stacked_rows(mesh, n, axis)
+    if rows is None:
+        return None
+    cut = tree_map(
+        lambda leaf: shard(leaf, rows, mesh) if leaf.shape[axis] == n
+        else leaf, args)
+    return fn(*cut)
+
+
+def state_shardings(state_tree, mesh, zero_states: bool = True):
+    """NamedShardings of an AnalogTrainer state (TensorSpec or tensor
+    leaves, global shapes).
+
+    Class-keyed tile stacks (C, n, *member): the class axis replicates,
+    the stack axis takes the ZeRO/data axes and the member dims the
+    dim-wise agreement of the member groups' model-axis specs; per-tile
+    scalars and seeds replicate; optimizer moments shard like their
+    parameter plus ZeRO; parameters by their rule."""
+    from ..core.tile import TileBank
+
+    bank = state_tree.get("tiles") if hasattr(state_tree, "get") else None
+    members = dict(bank.index) if isinstance(bank, TileBank) else {}
+    class_groups = dict(bank.class_index) if isinstance(bank, TileBank) else {}
+
+    def spec_of(path, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return P()
+        m = re.match(rf"tiles/([^/]+)/{_TILE_SLOTS}$", path)
+        if m and m.group(1) in class_groups:
+            inner = merge_specs([
+                grouped_tile_spec(members[g], shape[1:], mesh,
+                                  zero=zero_states)
+                for g in class_groups[m.group(1)]])
+            return P(None, *inner)
+        if m and m.group(1) in members:
+            return grouped_tile_spec(members[m.group(1)], shape, mesh,
+                                     zero=zero_states)
+        m = re.match(r"tiles/([^/]+)/(t|c|scale|prog|seed_w|seed_p)$", path)
+        if m and (m.group(1) in class_groups or m.group(1) in members):
+            return P(*([None] * len(shape)))
+        m = re.match(rf"tiles/(.*)/{_TILE_SLOTS}$", path)
+        if m:
+            return param_spec(m.group(1), shape, mesh, zero=zero_states)
+        if path.startswith("opt/"):
+            sub = re.sub(r"^opt/(mu|nu)/", "", path)
+            return param_spec(sub, shape, mesh, zero=zero_states)
+        if path.startswith("params/"):
+            return param_spec(path[len("params/"):], shape, mesh)
+        return param_spec(path, shape, mesh)
+
+    return tree_map_with_path(
+        lambda p, leaf: NamedSharding(mesh, spec_of(p, leaf)), state_tree)
+
+
+def params_shardings(params_tree, mesh):
+    return tree_map_with_path(
+        lambda p, leaf: NamedSharding(mesh, param_spec(p, leaf.shape, mesh)),
+        params_tree)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache shardings
+# ---------------------------------------------------------------------------
+
+
+def batch_shardings(batch_tree, mesh):
+    data_axes, dsize, model_ax, msize = mesh_axis_sizes(mesh)
+    daxes = data_axes if len(data_axes) > 1 else (data_axes[0] if data_axes else None)
+
+    def spec_of(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return P()
+        spec: list = [None] * len(shape)
+        if shape[0] % dsize == 0 and dsize > 1:
+            spec[0] = daxes
+        return P(*spec)
+
+    return tree_map(lambda leaf: NamedSharding(mesh, spec_of(leaf)),
+                    batch_tree)
+
+
+def cache_shardings(cache_tree, mesh):
+    """Decode-cache shardings: batch on the data axes when divisible, else
+    the sequence dim (long-context batch=1); the model axis on the last
+    divisible head / head_dim / state dim."""
+    data_axes, dsize, model_ax, msize = mesh_axis_sizes(mesh)
+    daxes = data_axes if len(data_axes) > 1 else (data_axes[0] if data_axes else None)
+
+    def spec_of(path, leaf):
+        shape = tuple(leaf.shape)
+        name = path.split("/")[-1]
+        spec: list = [None] * len(shape)
+        if len(shape) == 0 or name == "pos":
+            return P(*spec)
+        bdim = 1 if "/body/" in path else 0
+        if len(shape) <= bdim:
+            return P(*spec)
+        batch_ok = dsize > 1 and shape[bdim] % dsize == 0 and shape[bdim] >= dsize
+        if batch_ok:
+            spec[bdim] = daxes
+        elif name in ("k", "v", "ckv", "kpe", "ck", "cv") and len(shape) > bdim + 1 \
+                and dsize > 1 and shape[bdim + 1] % dsize == 0:
+            spec[bdim + 1] = daxes  # shard the cache's sequence dim
+        if model_ax:
+            for dim in range(len(shape) - 1, bdim, -1):
+                if spec[dim] is None and shape[dim] % msize == 0 and shape[dim] >= msize:
+                    spec[dim] = model_ax
+                    break
+        return P(*spec)
+
+    return tree_map_with_path(
+        lambda p, leaf: NamedSharding(mesh, spec_of(p, leaf)), cache_tree)
+
+
+def replicated(tree, mesh):
+    return tree_map(lambda _: NamedSharding(mesh, P()), tree)
+
+
+def logical_rules(mesh):
+    """Table consumed by ``models.common.constrain``."""
+    data_axes, dsize, model_ax, msize = mesh_axis_sizes(mesh)
+    daxes = data_axes if len(data_axes) > 1 else (data_axes[0] if data_axes else None)
+    return mesh, {
+        "batch": daxes,
+        "embed": None,
+        "heads": model_ax,
+        "mlp": model_ax,
+        "vocab": model_ax,
+    }
+
+
+# ---------------------------------------------------------------------------
+# local shards
+# ---------------------------------------------------------------------------
+
+
+def _entries(spec, ndim: int):
+    spec = tuple(spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` array under ``spec``."""
+    return tuple(s // mesh.axes_size(e) if e is not None else s
+                 for s, e in zip(shape, _entries(spec, len(shape))))
+
+
+def shard(t, spec, mesh, dims=None):
+    """This rank's block of the full tensor ``t`` under ``spec`` (on
+    ``dims`` only, when given): a copy, so the full tensor can be freed."""
+    out = t
+    for d, e in enumerate(_entries(spec, t.ndim)):
+        if e is None or (dims is not None and d not in dims):
+            continue
+        n = mesh.axes_size(e)
+        if n == 1:
+            continue
+        size = t.shape[d] // n
+        out = out.narrow(d, mesh.index(e) * size, size)
+    return out.clone() if out is not t else t
+
+
+def gather(t, spec, mesh, dims=None):
+    """The full tensor from this rank's block ``t`` under ``spec`` (over
+    ``dims`` only, when given): one all-gather per sharded dim, over the
+    ranks that hold the other blocks of that dim. Collective."""
+    for d, e in enumerate(_entries(spec, t.ndim)):
+        if e is None or (dims is not None and d not in dims):
+            continue
+        t = runtime.all_gather(t, mesh.group(e), dim=d)
+    return t
+
+
+def _spec_map(shardings):
+    return {p: s.spec for p, s in flatten_with_path(shardings)}
+
+
+def shard_tree(tree, shardings):
+    """Every leaf's block by the ``NamedSharding`` at its path."""
+    specs, mesh = _spec_map(shardings), shardings_mesh(shardings)
+    return tree_map_with_path(lambda p, leaf: shard(leaf, specs[p], mesh),
+                              tree)
+
+
+def gather_tree(tree, shardings):
+    """Every leaf's full tensor from this rank's block. Collective."""
+    specs, mesh = _spec_map(shardings), shardings_mesh(shardings)
+    return tree_map_with_path(lambda p, leaf: gather(leaf, specs[p], mesh),
+                              tree)
+
+
+def shardings_mesh(shardings):
+    """The mesh of a tree of NamedShardings (its first leaf's)."""
+    for _, s in flatten_with_path(shardings):
+        return s.mesh
+    return None

@@ -12,8 +12,17 @@ same ``[train] ...`` lines, plus
                     the model's vocab). ``BigramLM`` draws a (V, V) float64
                     table, 185 GB at Qwen2's 151936 ids, so a full-width run
                     takes a smaller stream (8192 ids: 0.5 GB).
-The port trains on one device: ``--data-parallel`` / ``--model-parallel``
-above 1 raise ``NotImplementedError``.
+
+``--data-parallel D --model-parallel M`` trains on the (D, M) mesh of
+``launch.mesh.make_host_mesh``, one rank per process: under torchrun (the
+ranks' environment starts the process group), or in ranks whose caller
+started it (``distributed.runtime.init(rank, world, init_file)``) before
+``main``. The process group's world size must be D x M. Every rank draws
+the global ``--batch`` and trains on its rows of it; rank 0 logs and writes
+the checkpoints, which every rank gathers.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --steps 10 --data-parallel 2 --device cpu
 
 ``--algorithm`` takes either a single algorithm name (one policy on every
 analog leaf) or a comma-separated mixed plan of ``pattern=algorithm`` rules
@@ -31,9 +40,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import api, prng
 from ..checkpoint import ckpt
@@ -41,11 +52,15 @@ from ..configs import ARCHS, get_config
 from ..core.device import DeviceConfig
 from ..core.digital_opt import DigitalOptConfig, ScheduleConfig
 from ..core.tile import TileConfig
-from ..core.trainer import AnalogTrainer, TrainerConfig, merge_effective
+from ..core.trainer import AnalogTrainer, TrainerConfig
 from ..data import BigramLM, Prefetcher
+from ..distributed import runtime
 from ..distributed.fault import PreemptionHandler, StragglerMonitor
+from ..distributed.sharding import logical_rules
 from ..lifetime import gdc
+from ..models.common import set_shard_rules
 from ..models.lm import LM
+from .mesh import make_host_mesh
 
 
 def make_tile_cfg(algorithm: str, smoke: bool) -> TileConfig:
@@ -74,7 +89,7 @@ def make_plan(algorithm: str, smoke: bool) -> api.AnalogPlan:
 
 
 def make_trainer(model: LM, algorithm: str, smoke: bool, steps: int,
-                 lr: float = 0.1) -> AnalogTrainer:
+                 lr: float = 0.1, mesh=None) -> AnalogTrainer:
     """The CLI's trainer: SGD-momentum with clipping on the digital leaves,
     a warm-up cosine schedule over ``steps``, the ``--algorithm`` plan."""
     tcfg = TrainerConfig(
@@ -82,14 +97,16 @@ def make_trainer(model: LM, algorithm: str, smoke: bool, steps: int,
         schedule=ScheduleConfig(kind="cosine", base_lr=lr, total_steps=steps,
                                 warmup_steps=min(20, steps // 5)),
     )
-    return AnalogTrainer(model.loss, tcfg, plan=make_plan(algorithm, smoke))
+    return AnalogTrainer(model.loss, tcfg, plan=make_plan(algorithm, smoke),
+                         mesh=mesh)
 
 
 def ckpt_extra(trainer, state) -> dict:
     """Extra manifest keys for ``ckpt.save``: the GDC t0 signatures of the
     effective analog weights (``repro_torch.lifetime.gdc``), over the
     merged tree the serve side rebuilds, so an unaged restore on the same
-    device reproduces every signature bit for bit."""
+    device reproduces every signature bit for bit. Collective under a
+    mesh."""
     tiles = state["tiles"]
     if not hasattr(tiles, "index"):
         return {}
@@ -98,7 +115,7 @@ def ckpt_extra(trainer, state) -> dict:
              if not (tiles.policy(g) is not None and tiles.policy(g).is_digital)]
     if not paths:
         return {}
-    eff = merge_effective(state["params"], tiles, trainer.cfg.tile)
+    eff = trainer.effective_params(state)
     return {"gdc_signatures": {
         p: float(v) for p, v in gdc.signature_tree(eff, sorted(paths)).items()}}
 
@@ -127,10 +144,19 @@ def main(argv=None):
                     help="token ids of the bigram stream (default: the "
                          "model's vocab; its table takes 8 * V^2 host bytes)")
     args = ap.parse_args(argv)
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP.md queue 1 item 15); the "
-            "port trains on one device")
+    mesh = make_host_mesh(args.data_parallel, args.model_parallel)
+    if mesh.size > 1:
+        if not dist.is_initialized() and "RANK" in os.environ:
+            runtime.init(device=args.device)    # torchrun's environment
+        if runtime.world() != mesh.size:
+            raise ValueError(
+                f"--data-parallel {args.data_parallel} x --model-parallel "
+                f"{args.model_parallel} is a mesh of {mesh.size} ranks, but "
+                f"the process group has world size {runtime.world()}")
+        set_shard_rules(logical_rules(mesh))
+    else:
+        mesh = None
+    lead = runtime.rank() == 0
     device = torch.device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -140,18 +166,26 @@ def main(argv=None):
     model = LM(cfg)
     smoke_tiles = args.smoke if args.tiles is None else args.tiles == "smoke"
     trainer = make_trainer(model, args.algorithm, smoke_tiles, args.steps,
-                           args.lr)
+                           args.lr, mesh)
+    log = print if lead else (lambda *a, **k: None)
 
     params = model.init(prng.PRNGKey(0), device)
-    print(f"[train] {trainer.describe_plan(params)}", flush=True)
+    log(f"[train] {trainer.describe_plan(params)}", flush=True)
     state = trainer.init(prng.PRNGKey(1), params)
     del params
 
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        state = ckpt.restore(state, args.ckpt_dir)
+        if mesh is None:
+            state = ckpt.restore(state, args.ckpt_dir)
+        else:
+            # every rank reads the whole arrays and keeps its blocks
+            template = trainer.abstract_state(model.abstract_params(device),
+                                              device)
+            state = ckpt.restore(template, args.ckpt_dir,
+                                 shardings=trainer.shardings)
         start_step = int(state["step"])
-        print(f"[train] restored checkpoint at step {start_step}")
+        log(f"[train] restored checkpoint at step {start_step}")
 
     data = BigramLM(vocab=data_vocab, seed=7)
     prefetch = Prefetcher(
@@ -182,19 +216,21 @@ def main(argv=None):
                 m["straggler"] = bool(straggler)
                 m["step_s"] = step_s
                 history.append(m)
-                print(f"[train] step={step} loss={m['loss']:.4f} "
-                      f"acc={m.get('accuracy', 0):.3f} "
-                      f"sp_err={m.get('tile/sp_err', -1):.4f} ema_s={monitor.ema:.3f}",
-                      flush=True)
+                log(f"[train] step={step} loss={m['loss']:.4f} "
+                    f"acc={m.get('accuracy', 0):.3f} "
+                    f"sp_err={m.get('tile/sp_err', -1):.4f} "
+                    f"ema_s={monitor.ema:.3f}", flush=True)
             if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
                 pending = ckpt.save(state, args.ckpt_dir, step + 1,
                                     asynchronous=True,
-                                    extra=ckpt_extra(trainer, state))
-            if preempt.should_stop:
-                print("[train] preemption signal — checkpointing and exiting")
+                                    extra=ckpt_extra(trainer, state),
+                                    shardings=trainer.shardings)
+            if _any_rank(preempt.should_stop, mesh):
+                log("[train] preemption signal — checkpointing and exiting")
                 if args.ckpt_dir:
                     ckpt.save(state, args.ckpt_dir, step + 1,
-                              extra=ckpt_extra(trainer, state))
+                              extra=ckpt_extra(trainer, state),
+                              shardings=trainer.shardings)
                 break
     finally:
         prefetch.close()
@@ -202,12 +238,22 @@ def main(argv=None):
         if pending is not None:
             pending.join(timeout=60)
         ckpt.save(state, args.ckpt_dir, int(state["step"]),
-                  extra=ckpt_extra(trainer, state))
-    if args.metrics_out:
+                  extra=ckpt_extra(trainer, state),
+                  shardings=trainer.shardings)
+    if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=2)
-    print(f"[train] done; stragglers flagged: {monitor.flagged}")
+    log(f"[train] done; stragglers flagged: {monitor.flagged}")
     return state, history
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """``flag`` on any rank (one MAX all-reduce under a mesh, so every rank
+    leaves the loop at the same step)."""
+    if mesh is None:
+        return flag
+    return bool(runtime.all_reduce(torch.tensor([int(flag)]),
+                                   dist.group.WORLD, op="max")[0])
 
 
 if __name__ == "__main__":

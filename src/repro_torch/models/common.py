@@ -8,12 +8,19 @@ attn/wq``), so analog plans, sharding templates and checkpoints select the
 same paths in both packages. Initializers draw through ``repro_torch.prng``
 as ``jax.random`` draws, in float32, then cast to the config's dtype.
 
-The reference's sharding hints (``constrain``, ``constrain_attention_q``,
-``set_shard_rules``) are the identity without a mesh, and the port has no
-mesh yet, so they are left out.
+The sharding hints (``set_shard_rules``, ``constrain``,
+``constrain_attention_q``) resolve logical axes to a spec as the
+reference's do (``hint_spec``, ``attention_q_spec``), but return their
+input unchanged: the port's ranks hold whole activations and compute over
+the model axis is replicated, which is what a hint means on local tensors.
+``data_parallel`` tells a forward on one rank's rows of a global batch how
+many ranks share it, so a statistic over the batch (``data_mean``) is the
+global batch's, as the reference's one program computes it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -21,6 +28,126 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..kernels.ref import div
+
+# ---------------------------------------------------------------------------
+# sharding hints (rules installed by a launcher)
+# ---------------------------------------------------------------------------
+
+_ACTIVE_RULES: contextvars.ContextVar = contextvars.ContextVar(
+    "shard_rules", default=None)
+
+
+def set_shard_rules(rules) -> None:
+    """Install (mesh, {logical_name: mesh_axis | None}) for the hints
+    (``distributed.sharding.logical_rules``)."""
+    _ACTIVE_RULES.set(rules)
+
+
+def hint_spec(shape, logical_axes, rules=None):
+    """The spec a ``constrain(x, *logical_axes)`` hint asks for on a tensor
+    of ``shape`` (a tuple of mesh axes or None per dim), or None when it
+    asks for nothing. Divisibility-aware: a dim that does not divide by its
+    mesh axes' size drops its hint."""
+    rules = _ACTIVE_RULES.get() if rules is None else rules
+    if rules is None:
+        return None
+    mesh, table = rules
+
+    def axis_size(a):
+        if a is None:
+            return 1
+        n = 1
+        for nm in (a if isinstance(a, tuple) else (a,)):
+            n *= mesh.shape[nm]
+        return n
+
+    axes = []
+    for i, name in enumerate(logical_axes):
+        a = table.get(name)
+        n = axis_size(a)
+        axes.append(a if (a is not None and n > 1 and shape[i] % n == 0)
+                    else None)
+    return None if all(a is None for a in axes) else tuple(axes)
+
+
+def constrain(x, *logical_axes: Optional[str]):
+    """A sharding hint: ``x`` itself (see the module docstring)."""
+    return x
+
+
+def attention_q_spec(shape, rules=None):
+    """The spec ``constrain_attention_q`` asks for on a (B, Sq, H, D)
+    query: heads on the model axis when H divides it, else nothing."""
+    rules = _ACTIVE_RULES.get() if rules is None else rules
+    if rules is None:
+        return None
+    mesh, table = rules
+    model_ax = table.get("heads")
+    if model_ax is None:
+        return None
+    msize = mesh.shape[model_ax] if not isinstance(model_ax, tuple) else 0
+    if msize and msize > 1 and shape[2] % msize == 0:
+        return (table.get("batch"), None, model_ax, None)
+    return None
+
+
+def constrain_attention_q(q):
+    """The query's sharding hint: ``q`` itself."""
+    return q
+
+
+# ---------------------------------------------------------------------------
+# batch statistics over the data axes (installed by a trainer step)
+# ---------------------------------------------------------------------------
+
+_DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "data_group", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel(group, size: int):
+    """Within the block, a forward runs on this rank's rows of a global
+    batch split ``size`` ways over ``group``: ``data_size`` and
+    ``data_mean`` let a statistic over the batch (the MoE router's) be the
+    global batch's, as the reference's one program computes it."""
+    tok = _DATA_GROUP.set((group, size) if size > 1 else None)
+    try:
+        yield
+    finally:
+        _DATA_GROUP.reset(tok)
+
+
+def data_size() -> int:
+    """How many ranks share the global batch (1 outside ``data_parallel``)."""
+    dp = _DATA_GROUP.get()
+    return 1 if dp is None else dp[1]
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean over the data ranks forward; the gradient passes unscaled.
+    Every rank's loss then holds the global statistic, and the trainer's
+    mean over ranks of the gradients gives each rank's rows the 1/size
+    share of it that the one-process gradient gives them."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        from ..distributed import runtime
+
+        return div(runtime.all_reduce(x.detach(), group, label="batch_stats"),
+                   float(size))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def data_mean(x):
+    """The mean over the data ranks of a per-rank mean ``x`` (equal rows on
+    every rank, so the global batch's mean); ``x`` itself outside
+    ``data_parallel``."""
+    dp = _DATA_GROUP.get()
+    return x if dp is None else _DataMean.apply(x, *dp)
+
 
 # ---------------------------------------------------------------------------
 # initializers

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..configs.base import ModelConfig
-from .common import activation, dense_init, dot, einsum, take_rows
+from .common import (activation, data_mean, data_size, dense_init, dot,
+                     einsum, take_rows)
 
 
 def init_mlp(key, cfg: ModelConfig, device="cuda") -> Dict:
@@ -119,7 +120,8 @@ def group_size(n_tok: int, moe_group: int) -> int:
 def route(p, xt, cfg: ModelConfig):
     """xt: (ng, g, d) -> (probs, gate_vals, gate_idx, aux): the f32 router's
     softmax, the top-k gates renormalised to sum to 1, their expert ids,
-    and the Switch load-balance loss E * sum(frac_tokens * frac_prob)."""
+    and the Switch load-balance loss E * sum(frac_tokens * frac_prob),
+    its two fractions over the global batch (``common.data_mean``)."""
     E, k = cfg.n_experts, cfg.top_k
     logits = xt.to(torch.float32) @ p["router"].to(torch.float32)   # (ng,g,E)
     probs = torch.softmax(logits, dim=-1)
@@ -129,6 +131,8 @@ def route(p, xt, cfg: ModelConfig):
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(F.one_hot(gate_idx[..., 0], E).to(torch.float32),
                     dim=(0, 1))
+    if data_size() > 1:
+        me, ce = data_mean(torch.cat([me, ce])).split(E)
     aux = E * torch.sum(me * ce)
     return probs, gate_vals, gate_idx, aux
 
@@ -156,16 +160,24 @@ def capacity_slots(gate_vals, gate_idx, E: int, capacity: int):
 
 
 def moe_forward(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss). Under ``common.data_parallel`` ``x``
+    is this rank's rows of the global batch: the group size, the capacity
+    and the choice of the gather path are the global batch's, and a group
+    may not span two ranks' rows."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n_tok = B * S
-    g = group_size(n_tok, cfg.moe_group)
+    n_global = n_tok * data_size()
+    g = group_size(n_global, cfg.moe_group)
+    if n_tok % g:
+        raise ValueError(
+            f"MoE groups of {g} tokens (of {n_global} over {data_size()} "
+            f"ranks) span two ranks' {n_tok} tokens")
     ng = n_tok // g
     xt = x.reshape(ng, g, d)
     _, gate_vals, gate_idx, aux = route(p, xt, cfg)
 
-    if n_tok <= 256:
+    if n_global <= 256:
         # decode / tiny batches: exact per-token expert-weight gather
         y = _gather_moe(p, xt.reshape(n_tok, d), gate_vals.reshape(n_tok, k),
                         gate_idx.reshape(n_tok, k), cfg).reshape(ng, g, d)

@@ -791,7 +791,7 @@ def test_restore_placement_and_its_refusals(tmp_path):
     # the checkpoint layer knows no leaf names of its own
     back = ckpt.restore(template, str(tmp_path), device="meta")
     assert all(v.device.type == "meta" for _, v in flatten_with_path(back))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="shardings do not cover"):
         ckpt.restore(state, str(tmp_path), shardings={})
     with pytest.raises(FileNotFoundError):
         ckpt.restore(state, str(tmp_path / "empty"))

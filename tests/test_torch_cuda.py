@@ -54,6 +54,14 @@ Each wrapper call launches its kernel once.
   where a pulse of P flipped, <= 0.1 %) and bit-equal from run to run
   with deterministic cuDNN; a max-pool window of ties routes its gradient
   as on the CPU.
+* Distribution (``tests/torch_ranks.py``: two gloo ranks sharing the card,
+  their collectives staged through host memory; NCCL ranks where there is
+  a card each): the sharded tile update
+  of a mixed bank (rows, a stack updated whole, a flattened 'fused'
+  class, Adam moments, a split batch) gathered bit-equal to the
+  one-process update on the card under both backends, each rank
+  launching K1 on the card; the compressed all-reduce on CUDA tensors
+  bit-equal to the same ranks on the CPU.
 """
 import numpy as np
 import pytest
@@ -808,3 +816,48 @@ def test_lenet5_maxpool_ties_route_on_the_card_as_on_the_cpu(cuda):
         grads.append(t.grad.cpu())
     assert torch.count_nonzero(grads[0]).item() == cot.numel()
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["vmap", "fused"])
+def test_sharded_update_on_the_card_equals_one_process(cuda, tmp_path,
+                                                        backend):
+    import torch_ranks
+    from repro_torch.core.paths import flatten_with_path
+
+    res = torch_ranks.run("bank", 2, str(tmp_path), timeout=300,
+                          device="cuda", data=2, model=1, kind="mixed",
+                          backend=backend)
+    r0 = res[0]
+    assert all(r["launches"] > 0 for r in res), [r["launches"] for r in res]
+    got = dict(flatten_with_path(r0["state"]))
+    for p, v in flatten_with_path(res[1]["state"]):
+        assert torch.equal(got[p], v), p
+    for p, v in flatten_with_path(r0["one_state"]):
+        assert torch.equal(got[p], v), p
+    for a, b in zip(r0["metrics"], r0["one_metrics"]):
+        assert {k: float(v) for k, v in a.items()} \
+            == {k: float(v) for k, v in b.items()}
+
+
+@pytest.mark.cuda
+def test_compressed_allreduce_on_the_card_equals_the_cpu(cuda, tmp_path):
+    import torch_ranks
+
+    rs = np.random.RandomState(3)
+    torch.save(torch.from_numpy(rs.randn(2, 70000).astype(np.float32)),
+               tmp_path / "x.pt")
+    torch.save(torch.from_numpy((0.01 * rs.randn(2, 70000)).astype(np.float32)),
+               tmp_path / "e.pt")
+    kw = dict(x_file=str(tmp_path / "x.pt"), err_file=str(tmp_path / "e.pt"))
+    card = torch_ranks.run("compress", 2, str(tmp_path / "card"), timeout=300,
+                           device="cuda", **kw)
+    cpu = torch_ranks.run("compress", 2, str(tmp_path / "cpu"), timeout=300,
+                          **kw)
+    for a, b in zip(card, cpu):
+        # ranks sharing a card meet over gloo, staged through host memory;
+        # ranks with a card each over NCCL
+        assert a["route"] == {"gloo": "host", "nccl": "direct"}[a["backend"]]
+        assert b["route"] == "direct" and b["backend"] == "gloo"
+        for k in ("mean", "err", "fb_mean", "fb_err"):
+            assert torch.equal(a[k], b[k]), k

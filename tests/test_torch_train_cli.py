@@ -12,8 +12,8 @@ the JAX package's (``repro.launch.train``).
   package's ``ckpt_extra`` on the same state within 1e-6 relative (the
   two frameworks sum ``x @ w`` in other orders, ROADMAP queue 3).
 * The tile configs of ``make_tile_cfg`` equal the reference's (dtypes by
-  name), a mesh is refused, and ``--data-vocab`` (the port's own flag)
-  bounds the token stream.
+  name), a mesh without a process group of its size is refused, and
+  ``--data-vocab`` (the port's own flag) bounds the token stream.
 """
 import contextlib
 import dataclasses
@@ -197,8 +197,9 @@ def test_tile_configs_match_reference(smoke):
 
 
 def test_cli_refuses_a_mesh_and_a_data_vocab_past_the_model():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.main(["--smoke", "--model-parallel", "2", "--device", "cpu"])
+    # a mesh needs a process group of its size (none in this process)
+    with pytest.raises(ValueError, match=r"mesh of 2 ranks.*world size 1"):
+        train.main(["--smoke", "--data-parallel", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="data-vocab"):
         train.main(["--smoke", "--data-vocab", "513", "--device", "cpu"])
 
