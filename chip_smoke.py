@@ -160,6 +160,18 @@ Phases, each printing its own lines; any failure exits non-zero:
               state, and one more step; (d) the reference's 2x2
               sharded bank on four ranks: its specs, tile bytes per rank
               <= total / 2 + 1024, two steps bit-equal to one process
+ 16. tp       compute over the model axis (``--model-parallel``,
+              ``distributed.sharding.tp_layout``), ranks as in phase 15:
+              (a) phase 10a's CLI run with --model-parallel 2, 4 steps:
+              steps 0-1 within 1e-3 (relative) of phase 10a's, no
+              model-group all-gather of a weight in the forward,
+              model-group all-reduces a step and K1 launches a rank as
+              ``tp_layout`` and the bank predict; ms/step, the
+              all-reduces' ms and bytes, peak memory and tile bytes a
+              rank, and the model's forward and backward profiled a rank
+              against one process's; (b) the smoke LM on a (2, 2) mesh of
+              four ranks, card == CPU (loss rtol 1e-5, leaves within 1e-5
+              but for <= 0.1 %)
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -2664,6 +2676,229 @@ def phase_dist(card: str, lm_losses):
     return dict(launches=launches, step_ms=med)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: compute over the model axis (``--model-parallel``), ranks as in
+# phase 15 (spawned, gloo, staged through host memory).
+# (a) phase 10a's CLI run with --model-parallel 2 on two ranks sharing the
+#     card, 4 steps: steps 0-1 within 1e-3 (relative) of phase 10a's
+#     one-rank losses (step 0's learning rate is 0.1 under both
+#     schedules); no model-group all-gather of a weight in the forward;
+#     model-group all-reduce calls equal to ``tp_layout(...).all_reduces()``
+#     a step, and K1 launches a rank to ``expected_k1`` (at data 1 every
+#     rank updates every tile whole); prints ms/step, the model-group
+#     all-reduces' ms and bytes a step, peak memory and tile bytes a rank,
+#     and one ``loss_and_grads`` (the model's forward and backward with its
+#     collectives) profiled on each rank against the same call of one
+#     process at full width;
+# (b) the smoke LM through the CLI on a (2, 2) mesh of four ranks sharing
+#     the card, 3 steps, against the same four ranks on the CPU: loss
+#     within rtol 1e-5, every float leaf of each rank's blocks within 1e-5
+#     but for <= 0.1 % of its elements (phase 11a's standard).
+TP_STEPS = 4
+TP_SMOKE_ARGV = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "4", "--seq",
+                 "16", "--steps", "3", "--log-every", "1",
+                 "--data-parallel", "2", "--model-parallel", "2"]
+
+
+def tp_batch():
+    """Phase 10a's step-0 batch on the card."""
+    import torch
+
+    from repro_torch.data import BigramLM
+
+    data = BigramLM(vocab=8192, seed=7)
+    return {k: torch.as_tensor(v.copy()).to("cuda")
+            for k, v in data.batch(0, 8, 128).items()}
+
+
+def tp_model_ms(trainer, state):
+    """One ``loss_and_grads`` of phase 10a's step-0 batch after a warm-up
+    call: (device ms of its kernels, device ms of its copies, model-group
+    collectives counted in it), ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.distributed import runtime
+
+    batch, key = tp_batch(), prng.PRNGKey(9)
+    trainer.loss_and_grads(state["params"], state["tiles"], batch, key)
+    torch.cuda.synchronize()
+    runtime.reset_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.loss_and_grads(state["params"], state["tiles"], batch, key)
+        torch.cuda.synchronize()
+    kern = copy = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copy += e.time_range.elapsed_us() / 1e3
+        else:
+            kern += e.time_range.elapsed_us() / 1e3
+    stats = {k: dict(v) for k, v in runtime.STATS.items()}
+    return kern, copy, stats
+
+
+def tp_one_rank():
+    """The one-process ``loss_and_grads`` at phase 10a's width on the card
+    (state from the CLI's seeds)."""
+    import torch
+
+    from repro_torch import prng
+
+    torch.cuda.empty_cache()
+    model, one = _qwen_trainer(None)
+    params = model.init(prng.PRNGKey(0), "cuda")
+    state = one.init(prng.PRNGKey(1), params)
+    del params
+    kern, copy, _ = tp_model_ms(one, state)
+    del state
+    torch.cuda.empty_cache()
+    return kern, copy
+
+
+def tp_pair():
+    """(a) on this rank."""
+    import torch
+
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_stats()
+    ops.reset_launch_counts()
+    state, hist, _ = run_cli(LM_ARGV + ["--model-parallel", "2", "--steps",
+                                        str(TP_STEPS), "--device", "cuda"])
+    stats = {k: dict(v) for k, v in runtime.STATS.items()}
+    launches = ops.LAUNCHES["analog_update"]
+    peak = torch.cuda.max_memory_allocated()
+    model, tr = _qwen_trainer(make_host_mesh(1, 2))
+    tr.abstract_state(model.abstract_params("cuda"), "cuda")
+    kern, copy, fb = tp_model_ms(tr, state)
+    return dict(hist=hist, stats=stats, launches=launches, peak=peak,
+                expected=expected_k1(tr, state["tiles"]) * TP_STEPS,
+                all_reduces=tr.tp.all_reduces(),
+                split=len(tr.tp.split), params=len(tr.tp.entries),
+                tile_bytes=tile_state_bytes(state), kern_ms=kern,
+                copy_ms=copy, fb=fb)
+
+
+def tp_mesh_smoke():
+    """(b) on this rank: the smoke CLI on the (2, 2) mesh on the card, then
+    on the CPU; this rank's blocks of both final states compared."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        state, hist, _ = run_cli(TP_SMOKE_ARGV + ["--device", device])
+        runs[device] = (dict(flatten_with_path(state)), hist)
+    (card, hist), (cpu, want) = runs["cuda"], runs["cpu"]
+    off = worst = 0
+    for p, v in cpu.items():
+        c = card[p].cpu()
+        if not v.is_floating_point():
+            off += int(not torch.equal(c, v))
+            continue
+        bad = (c.double() - v.double()).abs() > 1e-5
+        off += int(bad.double().mean() > 1e-3)
+        worst = max(worst, float(bad.double().mean()))
+    return dict(hist=hist, want=want, leaves=len(cpu), off=off, worst=worst)
+
+
+def phase_tp(card: str, lm_losses):
+    """Phase 16 (see above); ``lm_losses``: phase 10a's one-rank losses.
+    Returns the K1 launches of (a) and its ms/step."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    one_kern, one_copy = tp_one_rank()
+    pair = dist_spawn(2, tp_pair)
+    hist = pair[0]["hist"]
+    losses = [m["loss"] for m in hist]
+    check([m["step"] for m in hist] == list(range(TP_STEPS)),
+          f"tp (a): steps {[m['step'] for m in hist]}")
+    check(all(math.isfinite(x) for x in losses), "tp (a): loss not finite")
+    gaps = [abs(x / y - 1) for x, y in zip(losses[:2], lm_losses[:2])]
+    check(max(gaps) < 1e-3, f"tp (a): steps 0-1 loss {losses[:2]} vs phase "
+          f"10a's {lm_losses[:2]}")
+    med = statistics.median(m["step_s"] for m in hist[1:]) * 1e3
+    for r, rp in enumerate(pair):
+        st = rp["stats"]
+        weights = [k for k in st if k.startswith("model/all_gather/weights")]
+        check(not weights, f"tp (a) rank {r}: the forward gathered weights "
+              f"over the model axis: {weights}")
+        ar = {f: sum(v[f] for k, v in st.items()
+                     if k.startswith("model/all_reduce"))
+              for f in ("calls", "bytes", "seconds")}
+        check(ar["calls"] == rp["all_reduces"] * TP_STEPS,
+              f"tp (a) rank {r}: {ar['calls']} model-group all-reduces, "
+              f"tp_layout predicts {rp['all_reduces']} x {TP_STEPS}")
+        fb = {f: sum(v[f] for k, v in rp["fb"].items()
+                     if k.startswith("model/all_reduce"))
+              for f in ("calls", "seconds")}
+        check(fb["calls"] == rp["all_reduces"],
+              f"tp (a) rank {r}: {fb['calls']} all-reduces in one "
+              f"loss_and_grads, predicted {rp['all_reduces']}")
+        check(rp["launches"] == rp["expected"],
+              f"tp (a) rank {r}: {rp['launches']} K1 launches, expected "
+              f"{rp['expected']}")
+        gg = st.get("model/all_gather/grads", {})
+        mg = {f: sum(v[f] for k, v in st.items()
+                     if k.startswith("model/all_gather")
+                     and not k.endswith("/grads"))
+              for f in ("calls", "bytes", "seconds")}
+        print(f"tp (a) rank {r}: {rp['split']} of {rp['params']} parameters "
+              f"split; model-group all-reduces {ar['calls'] // TP_STEPS} a "
+              f"step (tp_layout: {rp['all_reduces']}), "
+              f"{ar['seconds'] * 1e3 / TP_STEPS:.1f} ms and "
+              f"{ar['bytes'] / TP_STEPS / 1e6:.2f} MB a step (host clock, "
+              f"staged); split gradients gathered "
+              f"{gg.get('seconds', 0) * 1e3 / TP_STEPS:.1f} ms and "
+              f"{gg.get('bytes', 0) / TP_STEPS / 1e9:.3f} GB a step; the "
+              f"update's model-axis gathers {mg['calls'] // TP_STEPS} calls, "
+              f"{mg['bytes'] / TP_STEPS / 1e9:.3f} GB, "
+              f"{mg['seconds'] * 1e3 / TP_STEPS:.1f} ms a step; 0 weight "
+              f"gathers in the forward; K1 launches {rp['launches']} "
+              f"(expected {rp['expected']}); peak allocated "
+              f"{rp['peak'] / 2 ** 30:.3f} GiB, tile state "
+              f"{rp['tile_bytes']} bytes on {card}")
+        print(f"tp (a) rank {r}: one loss_and_grads (forward and backward, "
+              f"profiled): kernels {rp['kern_ms']:.3f} ms, copies "
+              f"{rp['copy_ms']:.3f} ms of device time, its {fb['calls']} "
+              f"all-reduces {fb['seconds'] * 1e3:.1f} ms host clock; one "
+              f"process: kernels {one_kern:.3f} ms, copies {one_copy:.3f} ms "
+              f"on {card}")
+    print(f"tp (a): qwen2-0.5b full width and depth, --model-parallel 2 on 2 "
+          f"ranks sharing the card, loss {losses}, steps 0-1 {gaps[0]:.3e} / "
+          f"{gaps[1]:.3e} (relative) from phase 10a's one rank; median "
+          f"{med:.2f} ms/step (steps 1-3, host clock) on {card}")
+    quad = dist_spawn(4, tp_mesh_smoke, timeout=300)
+    for r, q in enumerate(quad):
+        got = [m["loss"] for m in q["hist"]]
+        want = [m["loss"] for m in q["want"]]
+        check(len(got) == len(want) == 3 and all(
+            abs(a / b - 1) <= 1e-5 for a, b in zip(got, want)),
+            f"tp (b) rank {r}: card {got} vs CPU {want}")
+        check(q["off"] == 0, f"tp (b) rank {r}: {q['off']} of {q['leaves']} "
+              f"leaves past 1e-5 on > 0.1 % of their elements")
+    gaps = [abs(m["loss"] / w["loss"] - 1)
+            for m, w in zip(quad[0]["hist"], quad[0]["want"])]
+    print(f"tp (b): the smoke LM on a (2, 2) mesh of 4 ranks, card == CPU: "
+          f"loss gaps {[f'{g:.2e}' for g in gaps]} (rtol 1e-5), "
+          f"{quad[0]['leaves']} leaves a rank within 1e-5 but for at most "
+          f"{max(q['worst'] for q in quad):.2e} of their elements on {card}")
+    launches = sum(r["launches"] for r in pair)
+    print(f"tp: phase 16 took {time.time() - t0:.1f} s, {launches} K1 "
+          f"launches in (a) on {card}")
+    return dict(launches=launches, step_ms=med)
+
+
 def main() -> int:
     import torch
 
@@ -2732,15 +2967,18 @@ def main() -> int:
     paper = phase_paper(card)
     dist = phase_dist(card, lm["losses"])
     print(f"dist: {dist['step_ms']:.2f} ms/step on 2 ranks on {card}")
+    tp = phase_tp(card, lm["losses"])
+    print(f"tp: {tp['step_ms']:.2f} ms/step on 2 model ranks on {card}")
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
                         + serve["train_launches"] + paper["launches"]
-                        + dist["launches"])
+                        + dist["launches"] + tp["launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
     kern["paper_launches"] = paper["launches"]
     kern["dist_launches"] = dist["launches"]
+    kern["tp_launches"] = tp["launches"]
     kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",

@@ -30,15 +30,25 @@ the data axes, the model axis on the member dims its rules name; host
 leaves (key, step, seeds) whole and equal on every rank. In the step:
   1. ``begin_step`` runs on each rank's blocks as they are stored (it draws
      no noise and reduces nothing over a tile);
-  2. each rank computes the effective weights of its blocks and gathers
-     them (and the digital parameters) whole, runs forward and backward on
-     its rows of the global batch (under ``microbatch`` its share of each
-     global microbatch), and the gradients, loss and aux are averaged over
-     the data axes. That is the one-process step for a loss that is a mean
-     of per-row terms over equal rows; a statistic over the batch inside
-     the model (the MoE router's load-balance fractions, group size and
-     capacity) is made the global batch's by ``models.common.data_parallel``;
-  3. the digital update runs on each rank's block of the moments, with
+  2. (``loss_and_grads``) each rank computes the effective weights of its
+     blocks and gathers them and the digital parameters over the data
+     axes; the model axis too unless ``tensor_parallel`` (a
+     ``sharding.tp_layout``) splits that weight's compute, in which case
+     the rank keeps its compute block: the block it stores where the
+     stored spec puts the model axis on the split dim, else its slice cut
+     locally after the gather (a class whose members' rules conflict
+     stores its member dims whole). The forward and backward run on its
+     rows of the global batch (under ``microbatch`` its share of each
+     global microbatch) inside ``models.common.data_parallel`` (a
+     statistic over the batch, the MoE router's, is the global batch's)
+     and ``models.common.model_parallel`` (the split modules' all-reduces
+     over the model group); the gradients, loss and aux are averaged over
+     the data axes, the split weights' gradients on their blocks, which
+     are then gathered whole over the model group in one all-gather of
+     their bytes (a concatenation, exact). Without ``tensor_parallel``
+     the model axis only shards storage and every rank computes whole;
+  3. the digital update runs on each rank's block of the moments (its
+     stored parameter block cut over the moments' data dims), with
      clipping on the whole averaged gradients; the pulse update runs on
      whole tiles: where the stack axis carries the data axes, each rank
      updates its rows, with each tile's members gathered whole over the
@@ -47,12 +57,11 @@ leaves (key, step, seeds) whole and equal on every rank. In the step:
      divides; elsewhere every rank gathers the stack, updates all of it
      and keeps its block. ``distributed.sharding.shard_stacked_call``
      makes each row split, as in the reference. Per-tile key streams and
-     noise do not depend on a tile's position in a stack, so every rank's
-     rows are bit-equal to the one-process update. Per-tile metrics are
-     gathered in stack order before the mean or sum, so metrics equal the
-     one-process step's.
-Compute over the model axis is replicated (the model-axis hints of
-``models.common`` are the identity).
+     noise do not depend on a tile's position in a stack, so given equal
+     gradients every rank's rows are bit-equal to the one-process update.
+     Per-tile metrics are gathered in stack order before the mean or sum.
+A row split sums two partial products, so with ``tensor_parallel`` the
+gradients differ from one process's in float sum order only.
 """
 from __future__ import annotations
 
@@ -234,12 +243,15 @@ def _map_result(res, state_fn, metric_fn):
 class AnalogTrainer:
     def __init__(self, loss_fn, cfg: TrainerConfig,
                  analog_filter: Optional[PathPredicate] = None, mesh=None, *,
-                 plan: Optional[AnalogPlan] = None):
+                 plan: Optional[AnalogPlan] = None, tensor_parallel=None):
         """``plan``: an AnalogPlan mapping parameter paths to TilePolicies;
         when omitted, ``(cfg.tile, analog_filter)`` maps onto a one-rule
         plan behind a one-time DeprecationWarning. ``mesh``: a
         ``launch.mesh.Mesh`` whose size is the process group's world size
-        (see the module docstring); a mesh of one rank is one process."""
+        (see the module docstring); a mesh of one rank is one process.
+        ``tensor_parallel``: the ``distributed.sharding.tp_layout`` of the
+        model ``loss_fn`` runs, over ``mesh``'s model axis; without it the
+        model axis only shards storage and compute is replicated."""
         self.loss_fn = loss_fn
         self.cfg = cfg
         if plan is None:
@@ -249,6 +261,15 @@ class AnalogTrainer:
         self.plan = plan
         self.analog_filter = analog_filter
         self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.tp = None
+        if tensor_parallel is not None and tensor_parallel.size > 1:
+            msize = (shd.mesh_axis_sizes(self.mesh)[3] if self.mesh is not None
+                     else 1)
+            if msize != tensor_parallel.size:
+                raise ValueError(
+                    f"a layout over {tensor_parallel.size} model ranks on a "
+                    f"mesh whose model axis has {msize}")
+            self.tp = tensor_parallel
         # NamedShardings of the state (the layout of every rank's blocks),
         # set by init / abstract_state / shard_state under a mesh
         self.shardings = None
@@ -416,39 +437,47 @@ class AnalogTrainer:
         return (None if isinstance(tiles, TileBank) else
                 {p: self._tile_cfg_of(p) for p in tiles})
 
-    def _merged(self, params, tiles, path_cfgs):
+    def _merged(self, params, tiles, path_cfgs, compute: bool = False):
         """``merge_effective`` of whole digital ``params``; under a mesh each
         rank computes the effective weight of its blocks (the per-tile
-        scalars cut to its rows) and gathers it whole."""
+        scalars cut to its rows) and gathers it whole, or, for the forward
+        (``compute``) under ``tensor_parallel``, its compute block
+        (``_compute_gather``)."""
         if self.mesh is None:
             return merge_effective(params, tiles, self.cfg.tile, path_cfgs)
 
         mesh = self.mesh
+        split = self._tp_dim if compute else (lambda p: None)
 
-        def whole_eff(prefix, st, gcfg, n=None):
+        def whole_eff(prefix, st, gcfg, dims, n=None):
             # a class stack of n members per group: on this rank's rows
             sw = self._specs[f"{prefix}/W"]
             fn = lambda s: alg.effective_weight(s, gcfg)  # noqa: E731
             res = (None if n is None else
                    shd.shard_stacked_call(fn, mesh, n, st, axis=1))
             if res is None:
-                return shd.gather(fn(st), sw, mesh)
+                return self._compute_gather(fn(st), sw, dims)
             rows = shd.stacked_rows(mesh, n, axis=1)
-            return shd.gather(res, shd.P(None, rows[1], *sw[2:]), mesh)
+            return self._compute_gather(res, shd.P(None, rows[1], *sw[2:]),
+                                        dims)
 
         eff = {}
         if isinstance(tiles, TileBank):
             pidx = dict(tiles.index)
             for cname, gnames in tiles.class_index:
                 gcfg = _group_tile_cfg(tiles, gnames[0], self.cfg.tile)
-                whole = whole_eff(f"tiles/{cname}", tiles.classes[cname], gcfg,
-                                  len(pidx[gnames[0]]))
+                dims = [split(p) for g in gnames for p in pidx[g]]
+                whole, kept = whole_eff(f"tiles/{cname}", tiles.classes[cname],
+                                        gcfg, dims, len(pidx[gnames[0]]))
                 for ci, g in enumerate(gnames):
                     for i, p in enumerate(pidx[g]):
-                        eff[p] = whole[ci, i]
+                        eff[p] = self._compute_cut(whole[ci, i], split(p),
+                                                   kept)
         else:
             for p, ts in tiles.items():
-                eff[p] = whole_eff(f"tiles/{p}", ts, path_cfgs[p])
+                whole, kept = whole_eff(f"tiles/{p}", ts, path_cfgs[p],
+                                        [split(p)])
+                eff[p] = self._compute_cut(whole, split(p), kept)
         return tree_map_with_path(
             lambda p, leaf: eff[p] if (leaf is None and p in eff) else leaf,
             params, keep_none=True)
@@ -456,6 +485,77 @@ class AnalogTrainer:
     def _data_group(self):
         data_axes, dsize, _, _ = shd.mesh_axis_sizes(self.mesh)
         return (self.mesh.group(data_axes) if dsize > 1 else None), dsize
+
+    # -- compute over the model axis (``tensor_parallel``) ------------------
+    def _tp_dim(self, path: str) -> Optional[int]:
+        """The dim (from the end) of ``path`` that the forward takes this
+        rank's block of; None when it takes the whole weight."""
+        return None if self.tp is None else self.tp.dim(path)
+
+    def _model_axis(self):
+        """(group, size, this rank's index) of the model axis."""
+        _, _, model_ax, msize = shd.mesh_axis_sizes(self.mesh)
+        return (self.mesh.group(model_ax), msize,
+                self.mesh.index(model_ax))
+
+    def _compute_gather(self, t, spec, dims):
+        """``t`` (this rank's blocks under ``spec``) gathered over every
+        sharded dim but one: the model axis's, when it is the dim that
+        every member's forward splits (``dims``, each from the end or None)
+        and so already this rank's compute block. Returns (tensor, the
+        kept dim from the end or None)."""
+        _, _, model_ax, _ = shd.mesh_axis_sizes(self.mesh)
+        entries = shd._entries(spec, t.ndim)
+        keep = None
+        for d, e in enumerate(entries):
+            if e == model_ax and all(m == d - t.ndim for m in dims):
+                keep = d
+        rest = shd.P(*[None if d == keep else e for d, e in enumerate(entries)])
+        return (shd.gather(t, rest, self.mesh, tag="weights"),
+                None if keep is None else keep - t.ndim)
+
+    def _compute_cut(self, t, dim, kept):
+        """This rank's compute block of the weight ``t`` on ``dim`` (from
+        the end; None: the whole weight), unless ``t`` is one already."""
+        if dim is None or dim == kept:
+            return t
+        _, size, index = self._model_axis()
+        n = t.shape[dim] // size
+        return t.narrow(dim, index * n, n)
+
+    def _compute_params(self, params):
+        """The digital parameters the forward reads, from this rank's
+        stored blocks: whole, or under ``tensor_parallel`` the split ones
+        as this rank's compute blocks."""
+        def view(p, t):
+            dim = self._tp_dim(p)
+            whole, kept = self._compute_gather(t, self._specs[f"params/{p}"],
+                                               [dim])
+            return self._compute_cut(whole, dim, kept)
+
+        return tree_map_with_path(view, params)
+
+    def _whole_grads(self, grads):
+        """The gradients of the split parameters (this rank's blocks) made
+        whole: their bytes in one all-gather over the model group, each
+        block put back on its dim (a concatenation, exact)."""
+        split = [(p, g) for p, g in flatten_with_path(grads)
+                 if self._tp_dim(p) is not None]
+        if not split:
+            return grads
+        group, size, _ = self._model_axis()
+        buf = torch.cat([g.contiguous().reshape(-1).view(torch.uint8)
+                         for _, g in split])
+        rows = runtime.all_gather(buf, group, label="model/all_gather/grads")
+        rows = rows.view(size, -1)
+        whole, at = {}, 0
+        for p, g in split:
+            nb = g.numel() * g.element_size()
+            blocks = [rows[r, at:at + nb].clone().view(g.dtype).view(g.shape)
+                      for r in range(size)]
+            whole[p] = torch.cat(blocks, dim=self._tp_dim(p))
+            at += nb
+        return tree_map_with_path(lambda p, g: whole.get(p, g), grads)
 
     def _local_batch(self, batch):
         """This rank's rows of the global batch; True when any leaf was
@@ -500,9 +600,12 @@ class AnalogTrainer:
         return out
 
     def _apply_digital(self, params, grads, opt, step, lr):
-        """``apply_opt`` under the mesh: clipping on the whole gradients,
-        the update on this rank's block of the moments, the new
-        parameters gathered and cut to their own layout."""
+        """``apply_opt`` under the mesh on this rank's stored ``params``
+        blocks and the whole ``grads``: clipping on the whole gradients,
+        the update on this rank's block of the moments (the parameter
+        block cut over the moments' data dims), the new parameters
+        gathered over those dims only. The update is element-wise, so the
+        blocks are the one-process update's."""
         cfg = self.cfg.digital
         layout = self._layout()
         gnorm = torch.zeros((), dtype=torch.float32)
@@ -511,13 +614,25 @@ class AnalogTrainer:
         cfg = dataclasses.replace(cfg, clip_norm=0.0)
         moments = layout["opt"].get("mu")
         if moments is None:
-            new_params, new_opt, _ = apply_opt(params, grads, opt, step, lr, cfg)
-        else:
             new_params, new_opt, _ = apply_opt(
-                shd.shard_tree(params, moments),
-                shd.shard_tree(grads, moments), opt, step, lr, cfg)
-            new_params = shd.gather_tree(new_params, moments)
-        return shd.shard_tree(new_params, layout["params"]), new_opt, gnorm
+                params, shd.shard_tree(grads, layout["params"]), opt, step,
+                lr, cfg)
+            return new_params, new_opt, gnorm
+        pspec = {p: s.spec for p, s in flatten_with_path(layout["params"])}
+        mspec = {p: s.spec for p, s in flatten_with_path(moments)}
+
+        def data_dims(p, nd):
+            return [d for d, (a, b) in enumerate(zip(
+                shd._entries(mspec[p], nd), shd._entries(pspec[p], nd)))
+                if a != b]
+
+        new_params, new_opt, _ = apply_opt(
+            tree_map_with_path(lambda p, t: shd.shard(
+                t, mspec[p], self.mesh, dims=data_dims(p, t.ndim)), params),
+            shd.shard_tree(grads, moments), opt, step, lr, cfg)
+        return tree_map_with_path(lambda p, t: shd.gather(
+            t, mspec[p], self.mesh, dims=data_dims(p, t.ndim)),
+            new_params), new_opt, gnorm
 
     # -- state ------------------------------------------------------------
     def init(self, key, params, sp_estimates: Optional[Dict[str, Any]] = None) -> TrainState:
@@ -608,32 +723,9 @@ class AnalogTrainer:
                 for p, ts in sorted(state["tiles"].items())
             }
 
-        # phase 2: forward/backward on effective weights (+ accumulation);
-        # under a mesh on this rank's rows of the batch, averaged after
-        params = state["params"]
-        split = False
-        if self.mesh is not None:
-            params = shd.gather_tree(params, self._layout()["params"])
-            batch, split = self._local_batch(batch)
-        eff = self._merged(params, tiles, path_cfgs)
-        if split:
-            # batch statistics inside the model (the MoE router's) are the
-            # global batch's; imported here, as models import the core
-            from ..models.common import data_parallel
-
-            with data_parallel(*self._data_group()):
-                loss, aux, grads = self._forward_backward(eff, batch, k_model)
-        else:
-            loss, aux, grads = self._forward_backward(eff, batch, k_model)
-        if split:
-            flat = flatten_with_path(grads)
-            akeys = [k for k in sorted(aux) if torch.is_tensor(aux[k])]
-            reduced = self._mean_over_data(
-                [loss] + [aux[k] for k in akeys] + [g for _, g in flat])
-            loss = reduced[0]
-            aux = {**aux, **dict(zip(akeys, reduced[1:1 + len(akeys)]))}
-            by_path = dict(zip((p for p, _ in flat), reduced[1 + len(akeys):]))
-            grads = tree_map_with_path(lambda p, _: by_path[p], grads)
+        # phase 2: forward/backward on effective weights (+ accumulation)
+        loss, aux, grads = self.loss_and_grads(state["params"], tiles, batch,
+                                               k_model)
 
         lr = lr_at(state["step"], self.cfg.schedule)
 
@@ -641,11 +733,11 @@ class AnalogTrainer:
         dgrads = mask_digital_grads(grads, tiles)
         if self.mesh is None:
             new_params, new_opt, gnorm = apply_opt(
-                params, dgrads, state["opt"], state["step"], lr,
+                state["params"], dgrads, state["opt"], state["step"], lr,
                 self.cfg.digital)
         else:
             new_params, new_opt, gnorm = self._apply_digital(
-                params, dgrads, state["opt"], state["step"], lr)
+                state["params"], dgrads, state["opt"], state["step"], lr)
 
         # phase 3b: analog branch (pulse updates)
         agrads = extract_analog_grads(grads, tiles)
@@ -688,6 +780,46 @@ class AnalogTrainer:
             opt=new_opt,
         )
         return new_state, metrics
+
+    def loss_and_grads(self, params, tiles, batch, key):
+        """Phase 2 of the step: (loss, aux, whole gradients) of ``batch`` on
+        the digital ``params`` and the effective weights of ``tiles`` (under
+        a mesh: this rank's stored blocks of both), accumulated over
+        ``cfg.microbatch``. Under a mesh, on this rank's rows of the batch,
+        averaged over the data axes; under ``tensor_parallel``, on this
+        rank's compute blocks, the split gradients then gathered whole."""
+        path_cfgs = self._path_cfgs(tiles)
+        split = False
+        if self.mesh is not None:
+            params = self._compute_params(params)
+            batch, split = self._local_batch(batch)
+        eff = self._merged(params, tiles, path_cfgs, compute=True)
+        del params
+        if split or self.tp is not None:
+            # batch statistics inside the model (the MoE router's) are the
+            # global batch's, and the split modules meet over the model
+            # axis; imported here, as models import the core
+            from ..models.common import data_parallel, model_parallel
+
+            group, dsize = self._data_group() if split else (None, 1)
+            with data_parallel(group, dsize), model_parallel(
+                    *(self._model_axis() if self.tp else (None, 1, 0))):
+                loss, aux, grads = self._forward_backward(eff, batch, key)
+        else:
+            loss, aux, grads = self._forward_backward(eff, batch, key)
+        del eff
+        if split:
+            flat = flatten_with_path(grads)
+            akeys = [k for k in sorted(aux) if torch.is_tensor(aux[k])]
+            reduced = self._mean_over_data(
+                [loss] + [aux[k] for k in akeys] + [g for _, g in flat])
+            loss = reduced[0]
+            aux = {**aux, **dict(zip(akeys, reduced[1:1 + len(akeys)]))}
+            by_path = dict(zip((p for p, _ in flat), reduced[1 + len(akeys):]))
+            grads = tree_map_with_path(lambda p, _: by_path[p], grads)
+        if self.tp is not None:
+            grads = self._whole_grads(grads)
+        return loss, aux, grads
 
     def _forward_backward(self, eff, batch, k_model):
         """(loss, aux, grads) of ``batch``, accumulated over

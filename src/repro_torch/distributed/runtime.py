@@ -21,7 +21,9 @@ checkpoint use.
   through the rank's card the same way. No call probes or falls back. ``STATS`` counts
   the calls, bytes and host-clock seconds (the copies included) of the
   collectives under each caller's label, and the bytes copied when
-  staging ("staged").
+  staging ("staged"). Collectives over a model group carry labels that
+  start with ``model/all_reduce/`` or ``model/all_gather/``, so a step's
+  model-group traffic reads apart from its data-group traffic.
 - Only collectives that torch 2.11 and 2.13 both have: ``all_gather`` of a
   list and ``all_reduce`` (a reduce-scatter is an all-reduce then a slice).
 """
@@ -197,8 +199,10 @@ def barrier() -> None:
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum",
                label: str = "all_reduce") -> torch.Tensor:
-    """The group's SUM or MAX of ``t`` (a new tensor; ``t`` itself when
-    ``group`` is None)."""
+    """The group's SUM or MAX of ``t`` (a new tensor, in ``t``'s dtype;
+    ``t`` itself when ``group`` is None). It never writes ``t``, so an
+    autograd function may call it on its input: ``models.common``'s
+    tensor-parallel operators do, forward and backward."""
     if group is None:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]

@@ -33,6 +33,7 @@ the tests; the port's trainer lays state out by ``state_shardings``.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 import warnings
 from typing import Optional, Tuple
@@ -410,6 +411,186 @@ def logical_rules(mesh):
 
 
 # ---------------------------------------------------------------------------
+# compute over the model axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TPEntry:
+    """How one parameter is computed with over the model axis: ``kind``
+    "column" (its output columns split), "row" (its input rows split; the
+    output summed over the model group), "vocab" (the embedding's rows) or
+    "replicated" (``why`` says why); ``dim`` the split dim, counted from
+    the end (so a body-stacked leaf's leading period axis does not move
+    it), None when replicated."""
+    kind: str
+    dim: Optional[int] = None
+    why: str = ""
+
+
+# out of this slice: these modules keep replicated compute under a model axis
+_LATER = {"mla": "MLA runs replicated (item 15c)",
+          "mix": "RG-LRU and SSD run replicated (item 15c)",
+          "cross": "cross-attention runs replicated (item 15c)",
+          "encdec": "the encoder-decoder runs replicated (item 15c)"}
+
+
+class TPLayout:
+    """``tp_layout``'s answer: ``entries`` {parameter path: TPEntry} over
+    a model axis of ``size`` ranks; ``instances`` {path: layers the leaf
+    stacks}; ``remat``: the body's periods are recomputed in backward."""
+
+    def __init__(self, size: int, entries, instances, remat: bool):
+        self.size = size
+        self.entries = dict(entries)
+        self.instances = dict(instances)
+        self.remat = remat
+
+    def dim(self, path: str) -> Optional[int]:
+        """The dim of ``path`` this rank holds a 1/size block of while it
+        computes (None: the whole weight)."""
+        e = self.entries.get(path)
+        return None if e is None else e.dim
+
+    @property
+    def split(self):
+        return sorted(p for p, e in self.entries.items() if e.dim is not None)
+
+    def summary(self) -> str:
+        """One line per kind: the split parameters' names with their count,
+        then each reason for replication with the names it covers."""
+        groups = {}
+        for p, e in sorted(self.entries.items()):
+            key = (e.kind, e.why)
+            name = "/".join(p.split("/")[-2:]) if "/" in p else p
+            groups.setdefault(key, {}).setdefault(name, 0)
+            groups[key][name] += 1
+        lines = [f"tensor parallel over {self.size} model ranks: "
+                 f"{len(self.split)} of {len(self.entries)} parameters split"]
+        for (kind, why), names in sorted(groups.items()):
+            tail = f" ({why})" if why else ""
+            lines.append(f"  {kind}: " + ", ".join(
+                f"{n} x{c}" if c > 1 else n for n, c in names.items()) + tail)
+        return "\n".join(lines)
+
+    def all_reduces(self, microbatch: int = 1) -> int:
+        """Model-group all-reduce calls of one train step, as the model's
+        operators issue them (``models.common``): a split module's output
+        sum in the forward and again in a checkpointed period's recompute,
+        its input's gradient, and the gradient of each whole weight or
+        gate it reads on this rank's heads or hidden units only."""
+        calls = {}
+        for p, e in self.entries.items():
+            if e.dim is None:
+                continue
+            if p in ("embed", "head"):
+                # the embedding's sum, the logits' input gradient, the
+                # CE's max, sums and argmax
+                calls["vocab"] = 5
+                continue
+            mod, name = p.rsplit("/", 1)
+            once = 2 + int(self.remat and "/body/" in p)
+            if mod.endswith("/moe"):
+                shared = name.startswith("s")
+                mod += "/shared" if shared else "/routed"
+                once += int(not shared)           # the gates' gradient
+            elif mod.endswith("/attn"):
+                once += sum(1 for n in ("wk", "wv", "bk", "bv", "qn", "kn")
+                            if self.dim(f"{mod}/{n}") is None
+                            and f"{mod}/{n}" in self.entries)
+            calls[mod] = self.instances[p] * once
+        return sum(calls.values()) * microbatch
+
+
+def tp_layout(cfg, mesh) -> TPLayout:
+    """Which parameters of ``cfg``'s model (``models.lm.LM``) each rank
+    computes with a block of over ``mesh``'s model axis.
+
+    The split dim is the one ``rule_template`` names "M" and ``param_spec``
+    shards; a module splits where the reference's hint shards its
+    activation (``models.common.attention_q_spec`` on the query heads,
+    ``hint_spec`` on the MLP's hidden units and on the vocabulary), so the
+    port computes over the model axis where the reference's GSPMD program
+    does. K/V split when the KV heads divide too, else each rank reads
+    the whole ``wk``/``wv`` (a block of ``param_spec`` may cut a head
+    there); the routed and shared experts split where ``param_spec`` cuts
+    their ffn dim (the reference shards those weights and no activation
+    hint pins them). Everything else is replicated, with the reason."""
+    from ..models.common import attention_q_spec, hint_spec
+    from ..models.lm import LM
+
+    _, _, model_ax, msize = mesh_axis_sizes(mesh)
+    params = LM(cfg).abstract_params("meta")
+    rules = logical_rules(mesh)
+    flat = flatten_with_path(params)
+    mods = {}
+    for p, _ in flat:
+        mod, _, name = p.rpartition("/")
+        mods.setdefault(mod, set()).add(name)
+
+    def hinted(width, logical):
+        spec = hint_spec((1, 1, width), ("batch", None, logical), rules)
+        return spec is not None and spec[2] == model_ax
+
+    H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    heads = attention_q_spec((1, 1, H, D), rules) is not None
+    vocab = hinted(cfg.vocab, "vocab")
+    entries, instances = {}, {}
+    for p, leaf in flat:
+        shape = tuple(leaf.shape)
+        mod, _, name = p.rpartition("/")
+        part = mod.rpartition("/")[2]
+        tmpl = rule_template(p, len(shape))
+        spec = param_spec(p, shape, mesh)
+        cut = [d - len(shape) for d, e in enumerate(spec) if e == model_ax]
+        dim = cut[0] if cut and tmpl[cut[0]] == "M" else None
+        instances[p] = shape[0] if "/body/" in p else 1
+
+        def split(kind, ok, why):
+            if msize <= 1:
+                return TPEntry("replicated", None, "no model axis")
+            if not ok:
+                return TPEntry("replicated", None, why)
+            if dim is None:
+                return TPEntry("replicated", None,
+                               f"{shape} does not divide over {msize}")
+            return TPEntry(kind, dim)
+
+        if cfg.is_encdec:
+            e = TPEntry("replicated", None, _LATER["encdec"])
+        elif p in ("embed", "head"):
+            e = split("vocab" if p == "embed" else "column", vocab,
+                      f"{cfg.vocab} ids do not divide over {msize}")
+        elif part == "attn" and "wdkv" in mods[mod]:
+            e = TPEntry("replicated", None, _LATER["mla"])
+        elif part in ("mix", "cross"):
+            e = TPEntry("replicated", None, _LATER[part])
+        elif part == "attn":
+            qwhy = f"{H} query heads do not divide over {msize}"
+            if name in ("wq", "bq"):
+                e = split("column", heads, qwhy)
+            elif name == "wo":
+                e = split("row", heads, qwhy)
+            elif name in ("wk", "wv", "bk", "bv"):
+                e = split("column", heads and KV % msize == 0,
+                          f"{KV} KV heads do not divide over {msize}: each "
+                          f"rank reads the heads its query heads use"
+                          if heads else qwhy)
+            else:
+                e = TPEntry("replicated", None, "one weight over every head")
+        elif part == "mlp" and name in ("wi", "wg", "wo"):
+            e = split("row" if name == "wo" else "column",
+                      hinted(cfg.d_ff, "mlp"),
+                      f"d_ff {cfg.d_ff} does not divide over {msize}")
+        elif part == "moe" and name != "router":
+            e = split("row" if name.endswith("wo") else "column", True, "")
+        else:
+            e = TPEntry("replicated", None, "not split over the model axis")
+        entries[p] = e
+    return TPLayout(msize, entries, instances, cfg.remat)
+
+
+# ---------------------------------------------------------------------------
 # local shards
 # ---------------------------------------------------------------------------
 
@@ -440,14 +621,18 @@ def shard(t, spec, mesh, dims=None):
     return out.clone() if out is not t else t
 
 
-def gather(t, spec, mesh, dims=None):
+def gather(t, spec, mesh, dims=None, tag: str = ""):
     """The full tensor from this rank's block ``t`` under ``spec`` (over
     ``dims`` only, when given): one all-gather per sharded dim, over the
-    ranks that hold the other blocks of that dim. Collective."""
+    ranks that hold the other blocks of that dim. Collective. Counted in
+    ``runtime.STATS`` as "all_gather", "model/all_gather" over the model
+    axis, with "/tag" after when given."""
     for d, e in enumerate(_entries(spec, t.ndim)):
         if e is None or (dims is not None and d not in dims):
             continue
-        t = runtime.all_gather(t, mesh.group(e), dim=d)
+        label = ("model/" if "model" in _axes(e) else "") + "all_gather"
+        t = runtime.all_gather(t, mesh.group(e), dim=d,
+                               label=label + (f"/{tag}" if tag else ""))
     return t
 
 

@@ -19,7 +19,10 @@ ranks' environment starts the process group), or in ranks whose caller
 started it (``distributed.runtime.init(rank, world, init_file)``) before
 ``main``. The process group's world size must be D x M. Every rank draws
 the global ``--batch`` and trains on its rows of it; rank 0 logs and writes
-the checkpoints, which every rank gathers.
+the checkpoints, which every rank gathers. The M ranks of a model group
+split the compute of the attention heads, the MLP's and the experts'
+hidden units and the vocabulary where ``sharding.tp_layout`` says (printed
+once); the rest runs replicated.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --steps 10 --data-parallel 2 --device cpu
@@ -56,7 +59,7 @@ from ..core.trainer import AnalogTrainer, TrainerConfig
 from ..data import BigramLM, Prefetcher
 from ..distributed import runtime
 from ..distributed.fault import PreemptionHandler, StragglerMonitor
-from ..distributed.sharding import logical_rules
+from ..distributed.sharding import logical_rules, tp_layout
 from ..lifetime import gdc
 from ..models.common import set_shard_rules
 from ..models.lm import LM
@@ -91,14 +94,17 @@ def make_plan(algorithm: str, smoke: bool) -> api.AnalogPlan:
 def make_trainer(model: LM, algorithm: str, smoke: bool, steps: int,
                  lr: float = 0.1, mesh=None) -> AnalogTrainer:
     """The CLI's trainer: SGD-momentum with clipping on the digital leaves,
-    a warm-up cosine schedule over ``steps``, the ``--algorithm`` plan."""
+    a warm-up cosine schedule over ``steps``, the ``--algorithm`` plan;
+    on a mesh with a model axis, compute split over it by
+    ``sharding.tp_layout``."""
     tcfg = TrainerConfig(
         digital=DigitalOptConfig(kind="sgdm", clip_norm=1.0),
         schedule=ScheduleConfig(kind="cosine", base_lr=lr, total_steps=steps,
                                 warmup_steps=min(20, steps // 5)),
     )
+    tp = tp_layout(model.cfg, mesh) if mesh is not None else None
     return AnalogTrainer(model.loss, tcfg, plan=make_plan(algorithm, smoke),
-                         mesh=mesh)
+                         mesh=mesh, tensor_parallel=tp)
 
 
 def ckpt_extra(trainer, state) -> dict:
@@ -171,6 +177,9 @@ def main(argv=None):
 
     params = model.init(prng.PRNGKey(0), device)
     log(f"[train] {trainer.describe_plan(params)}", flush=True)
+    if trainer.tp is not None:
+        for line in trainer.tp.summary().splitlines():
+            log(f"[train] {line}", flush=True)
     state = trainer.init(prng.PRNGKey(1), params)
     del params
 

@@ -45,8 +45,9 @@ import torch
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec
-from .common import (apply_mrope, apply_rope, dense_init, dot, einsum,
-                     rms_norm, zeros)
+from .common import (apply_mrope, apply_rope, copy_to_model, dense_init, dot,
+                     einsum, model_index, reduce_from_model, rms_norm,
+                     split_width, zeros)
 
 NEG_INF = -2.0e38
 
@@ -230,8 +231,46 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _qkv(p, x, cfg: ModelConfig):
+    """(q, k, v) of ``x`` on the heads this rank computes: all of them, or
+    under ``common.model_parallel`` its block of the query heads (``wq``'s
+    columns, split by ``distributed.sharding.tp_layout``) and the KV heads
+    those read (see ``_kv_heads``)."""
+    D = cfg.head_dim
+    H = p["wq"].shape[-1] // D
+    if not split_width(p["wq"].shape[-1], cfg.n_heads * D, "attn/wq"):
+        return _qkv_heads(p, x, cfg, H, cfg.n_kv)
+    kv, KV = _kv_heads(p, cfg, H)
+    ps = {**{n: p[n] for n in ("wq", "bq") if n in p}, **kv}
+    for n in ("qn", "kn"):
+        if n in p:      # one weight over every head: its gradient summed
+            ps[n] = copy_to_model(p[n])
+    return _qkv_heads(ps, copy_to_model(x), cfg, H, KV)
+
+
+def _kv_heads(p, cfg: ModelConfig, H: int):
+    """The K/V weights (and biases) of the KV heads this rank's ``H`` query
+    heads read, and their count: ``wk``/``wv``'s blocks when ``tp_layout``
+    split them, else the slice of the whole weights (read on every rank,
+    their gradients summed over the model group) that GQA's head ``h ->
+    h // (n_heads / n_kv)`` maps this rank's query heads to. Raises when
+    those heads do not form equal groups over contiguous KV heads."""
+    D, KV = cfg.head_dim, cfg.n_kv
+    names = [n for n in ("wk", "wv", "bk", "bv") if n in p]
+    if split_width(p["wk"].shape[-1], KV * D, "attn/wk"):
+        return {n: p[n] for n in names}, p["wk"].shape[-1] // D
+    G = cfg.n_heads // KV
+    first = model_index() * H
+    lo, hi = first // G, (first + H - 1) // G + 1
+    if not (G % H == 0 or (H % G == 0 and first % G == 0)):
+        raise ValueError(f"query heads {first}..{first + H - 1} read KV heads "
+                         f"{lo}..{hi - 1} unevenly (groups of {G})")
+    return ({n: copy_to_model(p[n]).narrow(-1, lo * D, (hi - lo) * D)
+             for n in names}, hi - lo)
+
+
+def _qkv_heads(p, x, cfg: ModelConfig, H: int, KV: int):
     B, S, d = x.shape
-    H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    D = cfg.head_dim
     q = dot(x, p["wq"])
     k = dot(x, p["wk"])
     v = dot(x, p["wv"])
@@ -267,7 +306,13 @@ def attn_forward(p, x, cfg: ModelConfig, *, kind: str, positions, causal=True):
     window = cfg.window if kind == "attn_local" else 0
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk)
-    return dot(out.reshape(x.shape[0], x.shape[1], -1), p["wo"])
+    out = out.reshape(x.shape[0], x.shape[1], -1)
+    if split_width(p["wo"].shape[0], cfg.n_heads * cfg.head_dim, "attn/wo"):
+        # a row split: this rank's heads' share of the output, summed in the
+        # activation's dtype (where the reference's hint at
+        # attention.py:350 puts the model axis back on the residual)
+        return reduce_from_model(dot(out, p["wo"]))
+    return dot(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ Where the reference scans the periods (``lax.scan``), the port loops over
 ``leaf[i]`` of the stacked leaves, so a gradient reaches the stacked leaf
 and the analog tiles hold the stacked arrays. ``cfg.remat`` wraps one
 period in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps
-``period_fn``.
+``period_fn``; its recompute re-enters the forward's data and model axes
+(``common.parallel_context``) and, under a model axis, runs the whole
+period, so the collectives it issues are the forward's on every rank.
 
 The serve modes (``prefill``: the fixed-batch driver's dense cache;
 ``chunk``: the engine's bucketed/chunked prefill into the paged cache;
@@ -27,10 +29,11 @@ leaves, as its parameters are.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .. import prng
 from ..configs.base import ModelConfig
@@ -38,7 +41,7 @@ from ..core.paths import TensorSpec, tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
-from .common import dot, rms_norm, zeros
+from .common import dot, model_size, parallel_context, rms_norm, zeros
 
 SERVING_MODES = ("prefill", "chunk", "decode")
 
@@ -460,12 +463,21 @@ def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
             return h, aux_acc
 
         remat = cfg.remat and mode == "fwd" and torch.is_grad_enabled()
-        for i in range(n_periods):
-            if remat:
-                x, aux_total = checkpoint(period_fn, x, aux_total, i,
-                                          use_reentrant=False)
-            else:
-                x, aux_total = period_fn(x, aux_total, i)
+        # the recompute runs where backward runs (autograd's device
+        # threads): under the forward's data and model axes, and to the
+        # period's end, so every rank issues the same collectives in the
+        # same order whatever saved tensors it needs first
+        enter = parallel_context()
+        with (set_checkpoint_early_stop(False) if model_size() > 1
+              else contextlib.nullcontext()):
+            for i in range(n_periods):
+                if remat:
+                    x, aux_total = checkpoint(
+                        period_fn, x, aux_total, i, use_reentrant=False,
+                        context_fn=lambda: (contextlib.nullcontext(),
+                                            enter()))
+                else:
+                    x, aux_total = period_fn(x, aux_total, i)
 
     for i, kind in enumerate(tail):
         x, aux, _ = run_layer(params["tail"][f"l{i}"], x, kind,

@@ -8,11 +8,22 @@ attn/wq``), so analog plans, sharding templates and checkpoints select the
 same paths in both packages. Initializers draw through ``repro_torch.prng``
 as ``jax.random`` draws, in float32, then cast to the config's dtype.
 
-The sharding hints (``set_shard_rules``, ``constrain``,
-``constrain_attention_q``) resolve logical axes to a spec as the
-reference's do (``hint_spec``, ``attention_q_spec``), but return their
-input unchanged: the port's ranks hold whole activations and compute over
-the model axis is replicated, which is what a hint means on local tensors.
+The sharding hints (``set_shard_rules``, ``hint_spec``,
+``attention_q_spec``) resolve logical axes to a spec as the reference's
+do; ``constrain`` and ``constrain_attention_q`` return their input
+unchanged, since a port rank holds plain local tensors. What the
+reference's hints make GSPMD do over the model axis, the port does by
+hand under ``model_parallel``: the trainer hands a forward this rank's
+block of every weight that ``distributed.sharding.tp_layout`` splits, and
+the modules that read them (``attention.attn_forward``,
+``moe.mlp_forward``, ``moe.moe_forward``, ``lm.LM``) bracket their split
+products with Megatron's two operators, ``copy_to_model`` (identity
+forward, a sum all-reduce of the gradient over the model group) and
+``reduce_from_model`` (a sum all-reduce forward, identity backward); the
+vocabulary's embedding read (``vocab_rows``) and cross-entropy
+(``softmax_cross_entropy(..., vocab=)``) take their rank's block of the
+vocabulary. Outside ``model_parallel`` every one of them is the identity
+and a module whose weights are whole runs as one process does.
 ``data_parallel`` tells a forward on one rank's rows of a global batch how
 many ranks share it, so a statistic over the batch (``data_mean``) is the
 global batch's, as the reference's one program computes it.
@@ -147,6 +158,147 @@ def data_mean(x):
     ``data_parallel``."""
     dp = _DATA_GROUP.get()
     return x if dp is None else _DataMean.apply(x, *dp)
+
+
+# ---------------------------------------------------------------------------
+# compute over the model axis (installed by a trainer step)
+# ---------------------------------------------------------------------------
+
+_MODEL_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "model_group", default=None)
+
+
+@contextlib.contextmanager
+def model_parallel(group, size: int, index: int):
+    """Within the block, a forward runs on this rank's blocks of the split
+    weights: ``size`` ranks of ``group`` each hold block ``index`` of every
+    weight that ``distributed.sharding.tp_layout`` splits. A size of 1 is
+    one process (the operators are the identity)."""
+    if size > 1 and group is None:
+        raise ValueError(f"a model axis of {size} ranks needs its group")
+    tok = _MODEL_GROUP.set((group, size, index) if size > 1 else None)
+    try:
+        yield
+    finally:
+        _MODEL_GROUP.reset(tok)
+
+
+def model_size() -> int:
+    """How many ranks split the model's weights (1 outside
+    ``model_parallel``)."""
+    mp = _MODEL_GROUP.get()
+    return 1 if mp is None else mp[1]
+
+
+def model_index() -> int:
+    """This rank's block index over the model axis (0 outside)."""
+    mp = _MODEL_GROUP.get()
+    return 0 if mp is None else mp[2]
+
+
+def parallel_context():
+    """A context manager that installs the data and model axes active now:
+    ``torch.utils.checkpoint`` recomputes a forward inside backward, where
+    autograd's device threads see no context variable of the caller."""
+    saved = (_DATA_GROUP.get(), _MODEL_GROUP.get())
+
+    @contextlib.contextmanager
+    def enter():
+        toks = (_DATA_GROUP.set(saved[0]), _MODEL_GROUP.set(saved[1]))
+        try:
+            yield
+        finally:
+            _MODEL_GROUP.reset(toks[1])
+            _DATA_GROUP.reset(toks[0])
+
+    return enter
+
+
+def split_width(local: int, whole: int, what: str) -> bool:
+    """Whether a module's weight is this rank's block of ``whole`` columns
+    or rows (``local``, a 1/size share) rather than the whole weight.
+    Raises when it is neither, or when it is a block outside
+    ``model_parallel``: a module never runs on a block as if it were
+    whole."""
+    if local == whole:
+        return False
+    m = model_size()
+    if m > 1 and local * m == whole:
+        return True
+    raise ValueError(f"{what}: {local} of {whole} columns or rows on a model "
+                     f"axis of {m} rank(s)")
+
+
+def _model_reduce(x, group, label, op="sum"):
+    from ..distributed import runtime
+
+    return runtime.all_reduce(x, group, op=op, label=label)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group (each
+    rank's split product gives its part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_reduce(g, ctx.group, "model/all_reduce/grad"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward (a row split's partial
+    products, in their own dtype); the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group, label):
+        return _model_reduce(x, group, label)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_model(x):
+    """The input of a split region (``x`` itself outside
+    ``model_parallel``)."""
+    mp = _MODEL_GROUP.get()
+    return x if mp is None else _CopyToModel.apply(x, mp[0])
+
+
+def reduce_from_model(x, label: str = "model/all_reduce/out"):
+    """The output of a split region: the sum of every rank's part (``x``
+    itself outside ``model_parallel``)."""
+    mp = _MODEL_GROUP.get()
+    return x if mp is None else _ReduceFromModel.apply(x, mp[0], label)
+
+
+def _vocab_block(n_local: int, vocab: int, what: str):
+    """(first id of this rank's block, block size) of a vocabulary split
+    over the model axis, or None when the table is whole."""
+    if not split_width(n_local, vocab, what):
+        return None
+    return model_index() * n_local, n_local
+
+
+def vocab_rows(table, ids, vocab: int):
+    """``take_rows(table, ids)`` where ``table`` may be this rank's block of
+    the vocabulary's rows: ids outside the block read 0, then the ranks'
+    reads are summed (one all-reduce), which adds each row to zeros, so the
+    result is the whole table's read bit for bit."""
+    block = _vocab_block(table.shape[0], vocab, "embed")
+    if block is None:
+        return take_rows(table, ids)
+    lo, n = block
+    local = ids - lo
+    inside = (local >= 0) & (local < n)
+    x = take_rows(table, torch.where(inside, local, 0))
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return reduce_from_model(x, "model/all_reduce/embed")
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +439,22 @@ def apply_mrope(x, positions3, sections: Tuple[int, ...], base: float = 10000.0)
 # ---------------------------------------------------------------------------
 
 
-def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
-    """Token-level CE in f32 with optional z-loss; returns (loss, aux)."""
+def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
+                          vocab: Optional[int] = None):
+    """Token-level CE in f32 with optional z-loss; returns (loss, aux).
+    ``logits`` may be this rank's block of a ``vocab`` split over the model
+    axis (``_vocab_parallel_ce``); the loss and accuracy are then the
+    whole vocabulary's on every rank."""
     lf = logits.to(torch.float32)
     labels = labels.long()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+    block = None if vocab is None else _vocab_block(lf.shape[-1], vocab,
+                                                    "logits")
+    if block is not None:
+        lse, ll, pred = _vocab_parallel_ce(lf, labels, block, vocab)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+        pred = torch.argmax(lf, -1)
     ce = lse - ll
     zl = z_loss * torch.square(lse)
     per_tok = ce + zl
@@ -300,5 +462,35 @@ def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
         mask = torch.ones_like(ce)
     denom = torch.clamp_min(torch.sum(mask), 1.0)
     loss = torch.sum(per_tok * mask) / denom
-    acc = torch.sum((torch.argmax(lf, -1) == labels) * mask) / denom
+    acc = torch.sum((pred == labels) * mask) / denom
     return loss, {"ce": torch.sum(ce * mask) / denom, "accuracy": acc}
+
+
+def _vocab_parallel_ce(lf, labels, block, vocab: int):
+    """(logsumexp, label logit, argmax) over the whole vocabulary from
+    ``lf``, this rank's float32 logits of the ids ``block`` (first id,
+    count): the global max (a MAX all-reduce, held constant, as
+    logsumexp's gradient does not depend on it), the sum of ``exp(lf -
+    max)`` and the label's logit (read on the rank that holds it, 0
+    elsewhere) in one sum all-reduce; the argmax is the smallest global id
+    that holds the global max (torch's first-index rule), one more MAX
+    all-reduce of the negated ids."""
+    group = _MODEL_GROUP.get()[0]
+    lo, n = block
+    with torch.no_grad():
+        lmax = torch.amax(lf, dim=-1)
+        gmax = _model_reduce(lmax, group, "model/all_reduce/max", op="max")
+        first = torch.argmax((lf == gmax[..., None]).to(torch.uint8), -1)
+        cand = torch.where(lmax == gmax, first + lo,
+                           torch.full_like(first, vocab))
+        pred = -_model_reduce(-cand, group, "model/all_reduce/max",
+                               op="max")
+    local = labels - lo
+    inside = (local >= 0) & (local < n)
+    ll = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    ll = torch.where(inside, ll, torch.zeros((), dtype=ll.dtype,
+                                             device=ll.device))
+    sums = reduce_from_model(torch.stack(
+        [torch.sum(torch.exp(lf - gmax[..., None]), dim=-1), ll]),
+        "model/all_reduce/ce")
+    return gmax + torch.log(sums[0]), sums[1], pred

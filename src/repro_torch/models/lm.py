@@ -7,6 +7,11 @@ Port of the JAX package's ``models/lm.py``:
   loss(params, batch, rng) -> (loss, aux)   (next-token CE with z-loss,
                                              plus the MoE aux loss)
 
+Under ``common.model_parallel`` (a trainer step on a model axis) the
+embedding, the logits and the loss run on this rank's block of the
+vocabulary when ``distributed.sharding.tp_layout`` splits it; ``forward``
+then returns that block of the logits.
+
 Modality frontends are the reference's stubs: ``frames`` are precomputed
 frame/patch embeddings; the VLM fuses them additively with the token
 embeddings, the audio enc-dec feeds them to its encoder (a bidirectional
@@ -40,8 +45,8 @@ from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec, tree_map
 from .blocks import (apply_stack, commit_stack_prefill, init_paged_stack_cache,
                      init_stack, init_stack_cache)
-from .common import (dot, embed_init, rms_norm, softmax_cross_entropy,
-                     take_rows, zeros)
+from .common import (copy_to_model, dot, embed_init, rms_norm,
+                     softmax_cross_entropy, split_width, vocab_rows, zeros)
 
 
 class LM:
@@ -80,7 +85,9 @@ class LM:
     # ------------------------------------------------------------- embeddings
     def _embed(self, params, tokens, frames=None):
         cfg = self.cfg
-        x = take_rows(params["embed"], tokens.long())
+        # under a model axis ``embed`` may be this rank's block of the
+        # vocabulary (``vocab_rows``: equal to the whole table's read)
+        x = vocab_rows(params["embed"], tokens.long(), cfg.vocab)
         if cfg.embed_scale:
             scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                             dtype=torch.float32))
@@ -93,6 +100,10 @@ class LM:
         cfg = self.cfg
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         head = params["embed"].T if cfg.tied_embeddings else params["head"]
+        if split_width(head.shape[-1], cfg.vocab, "head"):
+            # this rank's block of the vocabulary's logits (the reference's
+            # hint at lm.py:70), read by ``softmax_cross_entropy(vocab=)``
+            x = copy_to_model(x)
         return dot(x, head)
 
     def _encode(self, params, frames):
@@ -121,7 +132,8 @@ class LM:
         cfg = self.cfg
         logits, aux_moe = self.forward(params, batch["tokens"],
                                        batch.get("frames"))
-        loss, aux = softmax_cross_entropy(logits, batch["labels"])
+        loss, aux = softmax_cross_entropy(logits, batch["labels"],
+                                          vocab=cfg.vocab)
         if cfg.n_experts:
             loss = loss + cfg.aux_loss_coef * aux_moe
             aux["moe_aux"] = aux_moe

@@ -8,7 +8,10 @@ an intra-group cumsum, and moved with one-hot dispatch/combine einsums.
 ``moe_impl="ragged"`` sorts the (token, slot) pairs by expert and runs one
 product per expert over its contiguous rows (the reference's
 ``jax.lax.ragged_dot``). DeepSeek-style shared experts add an always-on
-dense branch.
+dense branch. Under ``common.model_parallel`` the dense FFN, the routed
+experts and the shared experts each run on this rank's block of their
+hidden units (``distributed.sharding.tp_layout``) and sum their output
+over the model group; the router runs whole on every rank.
 
 Integer routing matches the reference bit for bit: top-k is a stable
 descending sort (``jax.lax.top_k`` returns the lower index first on ties;
@@ -30,8 +33,9 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..configs.base import ModelConfig
-from .common import (activation, data_mean, data_size, dense_init, dot,
-                     einsum, take_rows)
+from .common import (activation, copy_to_model, data_mean, data_size,
+                     dense_init, dot, einsum, reduce_from_model, split_width,
+                     take_rows)
 
 
 def init_mlp(key, cfg: ModelConfig, device="cuda") -> Dict:
@@ -47,12 +51,27 @@ def init_mlp(key, cfg: ModelConfig, device="cuda") -> Dict:
 
 
 def mlp_forward(p, x, cfg: ModelConfig):
-    h = dot(x, p["wi"])
+    """The dense FFN. Under ``common.model_parallel`` with ``wi``/``wg``'s
+    column blocks and ``wo``'s row block (``tp_layout``), this rank's
+    share of the hidden units, summed over the model group (the cut the
+    reference hints at moe.py:194)."""
+    return _ffn(p, x, cfg, ("wi", "wg", "wo"), cfg.d_ff, "mlp")
+
+
+def _ffn(p, x, cfg: ModelConfig, names, width: int, what: str):
+    """``act(x @ wi) [* x @ wg] @ wo`` over ``p[names]``, each rank on its
+    block of the ``width`` hidden units when they are split."""
+    wi, wg, wo = names
+    split = split_width(p[wi].shape[-1], width, f"{what}/{wi}")
+    if split:
+        x = copy_to_model(x)
+    h = dot(x, p[wi])
     if cfg.glu:
-        h = activation(h, cfg.activation) * dot(x, p["wg"])
+        h = activation(h, cfg.activation) * dot(x, p[wg])
     else:
         h = activation(h, cfg.activation)
-    return dot(h, p["wo"])
+    y = dot(h, p[wo])
+    return reduce_from_model(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -94,12 +113,8 @@ def _expert_ffn(p, xe, cfg: ModelConfig):
 
 
 def _shared_ffn(p, x, cfg: ModelConfig):
-    h = dot(x, p["swi"])
-    if cfg.glu:
-        h = activation(h, cfg.activation) * dot(x, p["swg"])
-    else:
-        h = activation(h, cfg.activation)
-    return dot(h, p["swo"])
+    return _ffn(p, x, cfg, ("swi", "swg", "swo"),
+                (cfg.d_ff_expert or cfg.d_ff) * cfg.n_shared, "moe")
 
 
 def top_k(x, k: int):
@@ -176,22 +191,32 @@ def moe_forward(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     ng = n_tok // g
     xt = x.reshape(ng, g, d)
     _, gate_vals, gate_idx, aux = route(p, xt, cfg)
+    # the routed experts on this rank's block of each expert's ffn dim
+    # (``tp_layout``): the router runs whole on every rank, the experts'
+    # input and gates enter the split region, each token's combined
+    # output is summed over the model group
+    split = split_width(p["wi"].shape[-1], cfg.d_ff_expert or cfg.d_ff,
+                        "moe/wi")
+    xs = copy_to_model(xt) if split else xt
+    gates = copy_to_model(gate_vals) if split else gate_vals
 
     if n_global <= 256:
         # decode / tiny batches: exact per-token expert-weight gather
-        y = _gather_moe(p, xt.reshape(n_tok, d), gate_vals.reshape(n_tok, k),
+        y = _gather_moe(p, xs.reshape(n_tok, d), gates.reshape(n_tok, k),
                         gate_idx.reshape(n_tok, k), cfg).reshape(ng, g, d)
     elif cfg.moe_impl == "einsum":
         capacity = int(max(1, round(cfg.capacity_factor * g * k / E)))
-        combine, mask = capacity_slots(gate_vals, gate_idx, E, capacity)
+        combine, mask = capacity_slots(gates, gate_idx, E, capacity)
         dispatch = mask.to(xt.dtype)                                    # (ng,g,E,C)
-        xe = einsum("ngec,ngd->necd", dispatch, xt)                     # (ng,E,C,d)
+        xe = einsum("ngec,ngd->necd", dispatch, xs)                     # (ng,E,C,d)
         ye = _expert_ffn(p, xe, cfg)                                    # (ng,E,C,d)
         y = einsum("ngec,necd->ngd", combine.to(xt.dtype), ye)
     elif cfg.moe_impl == "ragged":
-        y = _ragged_moe(p, xt, gate_vals, gate_idx, cfg)
+        y = _ragged_moe(p, xs, gates, gate_idx, cfg)
     else:
         raise ValueError(cfg.moe_impl)
+    if split:
+        y = reduce_from_model(y)
 
     if cfg.n_shared:
         y = y + _shared_ffn(p, xt, cfg)

@@ -4,8 +4,9 @@
 module, one per rank (a gloo process group over a rendezvous file in
 ``workdir``), waits for all of them within ``timeout`` seconds (a hung
 collective kills every rank and fails the test) and returns each rank's
-result. A program is a function ``(mesh_or_None, device, **kw) -> dict``
-of this module's ``PROGRAMS``; each rank's result is ``torch.save``'d.
+result; ``start`` returns at once and ``Ranks.wait`` collects them. A
+program is a function ``(mesh_or_None, device, **kw) -> dict`` of this
+module's ``PROGRAMS``; each rank's result is ``torch.save``'d.
 It imports no JAX: the card tests run these programs too.
 """
 from __future__ import annotations
@@ -25,34 +26,54 @@ SRC = os.path.join(os.path.dirname(HERE), "src")
 def run(program: str, world: int, workdir: str, timeout: float = 120,
         device: str = "cpu", **kw):
     """Run ``program`` on ``world`` ranks; returns [rank 0's result, ...]."""
+    return start(program, world, workdir, timeout, device, **kw).wait()
+
+
+class Ranks:
+    """Ranks started by ``start``; ``wait()`` returns their results."""
+
+    def __init__(self, program, procs, timeout):
+        self.program, self.procs = program, procs
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+
+    def wait(self):
+        try:
+            for _, p in self.procs:
+                p.wait(timeout=max(self.deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for _, p in self.procs:
+                p.kill()
+            raise AssertionError(f"{self.program} on {len(self.procs)} ranks "
+                                 f"did not finish in {self.timeout} s")
+        bad = [r for r, (_, p) in enumerate(self.procs) if p.returncode != 0]
+        if bad:
+            with open(self.procs[bad[0]][0] + ".log") as f:
+                log = f.read()
+            raise AssertionError(f"{self.program}: ranks {bad} failed; rank "
+                                 f"{bad[0]}:\n" + log[-3000:])
+        return [torch.load(out, weights_only=False) for out, _ in self.procs]
+
+
+def start(program: str, world: int, workdir: str, timeout: float = 120,
+          device: str = "cpu", **kw) -> Ranks:
+    """Start ``program`` on ``world`` ranks and return at once, so the
+    caller can work while they run (``Ranks.wait``); each rank's output
+    goes to a log file beside its result."""
     os.makedirs(workdir, exist_ok=True)
-    init_file = os.path.join(workdir, f"rdzv_{program}_{time.time_ns()}")
+    tag = time.time_ns()
+    init_file = os.path.join(workdir, f"rdzv_{program}_{tag}")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
                OMP_NUM_THREADS="1")
     procs = []
     for r in range(world):
-        out = os.path.join(workdir, f"{program}_rank{r}.pt")
-        procs.append((out, subprocess.Popen(
-            [sys.executable, "-m", "torch_ranks", program, str(r), str(world),
-             init_file, out, device, json.dumps(kw)],
-            env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
-    deadline = time.monotonic() + timeout
-    logs = []
-    try:
-        for _, p in procs:
-            left = max(deadline - time.monotonic(), 1.0)
-            stdout, stderr = p.communicate(timeout=left)
-            logs.append(stdout + stderr)
-    except subprocess.TimeoutExpired:
-        for _, p in procs:
-            p.kill()
-        raise AssertionError(f"{program} on {world} ranks did not finish in "
-                             f"{timeout} s")
-    bad = [r for r, (_, p) in enumerate(procs) if p.returncode != 0]
-    assert not bad, (f"{program}: ranks {bad} failed; rank {bad[0]}:\n"
-                     + logs[bad[0]][-3000:])
-    return [torch.load(out, weights_only=False) for out, _ in procs]
+        out = os.path.join(workdir, f"{program}_{tag}_rank{r}.pt")
+        with open(out + ".log", "w") as log:
+            procs.append((out, subprocess.Popen(
+                [sys.executable, "-m", "torch_ranks", program, str(r),
+                 str(world), init_file, out, device, json.dumps(kw)],
+                env=env, cwd=HERE, stdout=log, stderr=subprocess.STDOUT)))
+    return Ranks(program, procs, timeout)
 
 
 # ---------------------------------------------------------------------------
@@ -243,15 +264,22 @@ def cli(mesh, device, argv):
     from repro_torch.models.lm import LM
     from repro_torch.configs import get_config
 
+    from repro_torch.distributed import runtime
+    from repro_torch.launch.mesh import make_host_mesh
+
+    def flag(name, default):
+        return argv[argv.index(name) + 1] if name in argv else default
+
+    runtime.reset_stats()
     state, hist = train.main(argv)
-    dp = int(argv[argv.index("--data-parallel") + 1])
-    arch = argv[argv.index("--arch") + 1] if "--arch" in argv else "qwen2-0.5b"
-    model = LM(get_config(arch, smoke=True))
+    stats = {k: dict(v) for k, v in runtime.STATS.items()}
+    mesh = make_host_mesh(int(flag("--data-parallel", 1)),
+                          int(flag("--model-parallel", 1)))
+    model = LM(get_config(flag("--arch", "qwen2-0.5b"), smoke=True))
     tr = train.make_trainer(model, "erider", True, 1, mesh=mesh)
     tr.abstract_state(model.abstract_params(device), device)
-    assert mesh.shape["data"] == dp
-    return {"history": hist, "state": _to(gather_tree(state, tr.shardings),
-                                          "cpu")}
+    return {"history": hist, "stats": stats,
+            "state": _to(gather_tree(state, tr.shardings), "cpu")}
 
 
 def lm_micro(mesh, device, arch, batch, seq, microbatch, steps):
@@ -283,6 +311,250 @@ def lm_micro(mesh, device, arch, batch, seq, microbatch, steps):
     return {"history": hist, "state": _to(state, "cpu")}
 
 
+def cli_runs(mesh, device, argvs):
+    """``cli`` for each of ``argvs`` in turn on these ranks."""
+    return [cli(mesh, device, argv) for argv in argvs]
+
+
+def lm_batches(cfg, batch: int, seq: int, steps: int, device="cpu"):
+    """The CLI's bigram batches (seed 7), with seeded ``frames`` for a
+    model with a frontend."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import BigramLM
+
+    data = BigramLM(vocab=cfg.vocab, seed=7)
+    rng = np.random.default_rng(18)
+    out = []
+    for s in range(steps):
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in data.batch(s, batch, seq).items()}
+        if cfg.frontend:
+            b["frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+                (batch, seq, cfg.d_model))).astype(np.float32)).to(device)
+        out.append(b)
+    return out
+
+
+def lm_steps(mesh, device, arch, batch, seq, steps):
+    """``steps`` train steps of the CLI's trainer on the smoke ``arch``
+    (``lm_batches``); returns the metrics, the gathered final state and
+    the collectives counted (one process when ``mesh`` is None)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import runtime
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    cfg = get_config(arch, smoke=True)
+    model = LM(cfg)
+    tr = train.make_trainer(model, "erider", True, steps, mesh=mesh)
+    state = tr.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), device))
+    runtime.reset_stats()
+    hist = []
+    for b in lm_batches(cfg, batch, seq, steps, device):
+        state, m = tr.train_step(state, b)
+        hist.append({k: float(v) for k, v in m.items()})
+    stats = {k: dict(v) for k, v in runtime.STATS.items()}
+    if tr.mesh is not None:
+        state = tr.gather_state(state)
+    return {"history": hist, "state": _to(state, "cpu"), "stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: the operators and the split modules on a model axis
+# ---------------------------------------------------------------------------
+
+
+def _seeded(seed, shape, scale=1.0):
+    import numpy as np
+
+    return torch.from_numpy(np.asarray(scale * np.random.default_rng(seed)
+                                       .standard_normal(tuple(shape)),
+                                       dtype=np.float32))
+
+
+def _tp_run(fn, params, args, dims, axis, seed):
+    """``fn(params, *args)`` and the gradients of ``sum(out * R) [+ the
+    other outputs]`` (R seeded) w.r.t. every float argument and parameter:
+    one process on whole ``params`` and under ``model_parallel(*axis)`` on
+    this rank's blocks (``dims``: {name: split dim from the end}). Returns
+    both, the reference's parameter gradients cut to this rank's blocks,
+    and the collectives the split forward counted."""
+    import contextlib
+
+    from repro_torch.distributed import runtime
+    from repro_torch.models.common import model_parallel
+
+    group, size, index = axis
+
+    def cut(name, t):
+        d = dims.get(name)
+        if d is None:
+            return t
+        n = t.shape[d] // size
+        return t.narrow(d, index * n, n)
+
+    def once(split):
+        ps = {k: (cut(k, v) if split else v).detach().clone()
+              .requires_grad_(True) for k, v in params.items()}
+        xs = [a.detach().clone().requires_grad_(a.is_floating_point())
+              for a in args]
+        ctx = model_parallel(group, size, index) if split else \
+            contextlib.nullcontext()
+        with ctx:
+            runtime.reset_stats()
+            out = fn(ps, *xs)
+            calls = {k: v["calls"] for k, v in runtime.STATS.items()}
+            outs = out if isinstance(out, tuple) else (out,)
+            r = _seeded(seed, outs[0].shape)
+            loss = torch.sum(outs[0] * r) + sum(torch.sum(o) for o in outs[1:])
+            wrt = [x for x in xs if x.requires_grad] + list(ps.values())
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        gx = grads[:len(wrt) - len(ps)]
+        gp = dict(zip(ps, grads[len(wrt) - len(ps):]))
+        return [o.detach() for o in outs], list(gx), gp, calls
+
+    out, gx, gp, calls = once(True)
+    rout, rgx, rgp, _ = once(False)
+    rgp = {k: (None if g is None else cut(k, g)) for k, g in rgp.items()}
+    return {"out": out, "ref_out": rout, "dx": gx, "ref_dx": rgx,
+            "grads": gp, "ref_grads": rgp, "calls": calls}
+
+
+def _tp_module_cases():
+    """{case: (arch, config changes, module prefix, layer kind, tokens)}"""
+    return {
+        "gqa_bias": ("qwen2-0.5b", {}, "stack/body/p0/attn", "attn", 32),
+        "qk_norm": ("qwen3-14b", {}, "stack/body/p0/attn", "attn", 32),
+        "window_kv_whole": ("gemma3-4b", {}, "stack/body/p0/attn",
+                            "attn_local", 40),
+        "mrope": ("qwen2-vl-2b", {}, "stack/body/p0/attn", "attn", 32),
+        "mlp": ("qwen2-0.5b", {}, "stack/body/p0/mlp", "mlp", 32),
+        "moe_einsum": ("mixtral-8x7b", {}, "stack/body/p0/moe", "moe", 320),
+        "moe_gather": ("mixtral-8x7b", {}, "stack/body/p0/moe", "moe", 64),
+        "moe_ragged": ("mixtral-8x7b", {"moe_impl": "ragged"},
+                       "stack/body/p0/moe", "moe", 320),
+        "moe_shared": ("deepseek-v2-236b", {}, "stack/body/p0/moe", "moe",
+                       320),
+        "vocab": ("qwen2-0.5b", {}, "", "vocab", 32),
+    }
+
+
+def tp_modules(mesh, device, cases=None):
+    """Each case of ``_tp_module_cases`` on this rank's blocks (cut by the
+    CLI's ``tp_layout``) against one process, plus the operators alone:
+    a column-then-row product between ``copy_to_model`` and
+    ``reduce_from_model``, ``vocab_rows`` and the vocab-parallel CE (z-loss,
+    a mask, argmax ties inside and across the blocks)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention, common, moe
+    from repro_torch.models.lm import LM
+
+    axis = (mesh.group("model"), mesh.shape["model"], mesh.index("model"))
+    out = {}
+    for name, (arch, change, prefix, kind, n_tok) in _tp_module_cases().items():
+        if cases is not None and name not in cases:
+            continue
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **change)
+        model = LM(cfg)
+        whole = model.init(prng.PRNGKey(3), device)
+        layout = sharding.tp_layout(cfg, mesh)
+        flat = dict(flatten_with_path(whole))
+        B, S = 2, n_tok // 2
+        x = _seeded(11, (B, S, cfg.d_model))
+        if kind == "vocab":
+            params = {"embed": flat["embed"], "ln_f": flat["ln_f"]}
+            dims = {"embed": layout.dim("embed")}
+            ids = torch.arange(B * S).reshape(B, S) * 37 % cfg.vocab
+
+            def fn(p, ids, labels):
+                h = model._embed(p, ids)
+                logits = model._logits(p, h)
+                return common.softmax_cross_entropy(logits, labels,
+                                                    vocab=cfg.vocab)[0]
+
+            args = (ids, (ids * 5 + 1) % cfg.vocab)
+        else:
+            leaves = {p[len(prefix) + 1:]: t[0] for p, t in flat.items()
+                      if p.startswith(prefix + "/")}
+            params = leaves
+            dims = {k: layout.dim(f"{prefix}/{k}") for k in leaves}
+            args = (x,)
+            if kind in ("attn", "attn_local"):
+                # (B, S), as ``LM.forward`` passes them (M-RoPE takes three
+                # equal streams of text positions)
+                pos = torch.arange(S)[None].expand(B, S)
+
+                def fn(p, x, kind=kind, pos=pos):
+                    return attention.attn_forward(p, x, cfg, kind=kind,
+                                                  positions=pos)
+            elif kind == "mlp":
+                def fn(p, x):
+                    return moe.mlp_forward(p, x, cfg)
+            else:
+                def fn(p, x):
+                    return moe.moe_forward(p, x, cfg)
+        res = _tp_run(fn, params, args, dims, axis, seed=12)
+        res["split"] = sorted(k for k, d in dims.items() if d is not None)
+        out[name] = res
+    if cases is None or "ops" in cases:
+        out["ops"] = _tp_ops(axis)
+    return out
+
+
+def _tp_ops(axis):
+    """The operators alone (see ``tp_modules``)."""
+    from repro_torch.models import common
+
+    w, v = _seeded(21, (6, 8)), _seeded(22, (8, 5))
+
+    def mlp(p, x):
+        h = torch.tanh(common.copy_to_model(x) @ p["w"])
+        return common.reduce_from_model(h @ p["v"])
+
+    table = _seeded(23, (16, 4))
+    ids = torch.tensor([[0, 7, 8, 15, 3], [9, 9, 1, 14, 8]])
+
+    def read(p, ids):
+        return common.vocab_rows(p["table"], ids, 16)
+
+    logits = _seeded(24, (2, 3, 16))
+    # ties for the argmax: inside block 0 (ids 2, 5), across the blocks
+    # (ids 6 and 9), and one whole row of equal logits
+    logits[0, 0, 2] = logits[0, 0, 5] = 9.0
+    logits[0, 1, 6] = logits[0, 1, 9] = 9.0
+    logits[1, 2, :] = 0.5
+    labels = torch.tensor([[2, 9, 4], [0, 15, 0]])
+    mask = torch.tensor([[1.0, 1.0, 0.0], [1.0, 1.0, 1.0]])
+
+    def ce(p, labels, mask):
+        loss, aux = common.softmax_cross_entropy(p["logits"], labels, mask,
+                                                 z_loss=1e-2, vocab=16)
+        return torch.stack([loss, aux["ce"], aux["accuracy"]])
+
+    return {"mlp": _tp_run(mlp, {"w": w, "v": v}, (_seeded(25, (3, 6)),),
+                           {"w": -1, "v": -2}, axis, seed=26),
+            "rows": _tp_run(read, {"table": table}, (ids,), {"table": -2},
+                            axis, seed=27),
+            "ce": _tp_run(ce, {"logits": logits}, (labels, mask),
+                          {"logits": -1}, axis, seed=28)}
+
+
+def tp_all(mesh, device, argvs, archs, batch, seq, steps):
+    """The tensor-parallel tests' two-rank run: ``tp_modules``, the CLI on
+    each of ``argvs`` and ``lm_steps`` of each of ``archs``."""
+    return {"modules": tp_modules(mesh, device),
+            "cli": cli_runs(mesh, device, argvs),
+            "lm": {a: lm_steps(mesh, device, a, batch, seq, steps)
+                   for a in archs}}
+
+
 def _to(tree, device):
     from repro_torch.core.paths import tree_map_with_path
 
@@ -292,7 +564,8 @@ def _to(tree, device):
 
 
 PROGRAMS = {"compress": compress, "bank": bank, "elastic": elastic,
-            "cli": cli, "lm_micro": lm_micro}
+            "cli": cli, "lm_micro": lm_micro, "cli_runs": cli_runs,
+            "lm_steps": lm_steps, "tp_modules": tp_modules, "tp_all": tp_all}
 
 
 def main(argv):
