@@ -172,6 +172,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               against one process's; (b) the smoke LM on a (2, 2) mesh of
               four ranks, card == CPU (loss rtol 1e-5, leaves within 1e-5
               but for <= 0.1 %)
+ 17. tp_mixers  the model axis for MLA, RG-LRU, SSD, cross-attention and
+              the encoder-decoder, ranks as in phase 16: (a) MiniCPM3-4B
+              (MLA) and (b) Mamba2-2.7B (SSD, B/C read whole at one group)
+              at full width, 4 layers, through the CLI's trainer with
+              --model-parallel 2, 3 steps, against one rank of the same
+              depth: steps 0-1 within 1e-3 (relative), model-group
+              all-reduces a step as ``tp_layout`` predicts, no split
+              weight gathered in the forward, K1 launches a rank as the
+              bank predicts; ms/step, the all-reduces' ms, peak memory and
+              tile bytes a rank, the model's forward and backward profiled
+              a rank against one rank's; (c) the smoke RecurrentGemma-9B,
+              SeamlessM4T (fed frames) and DeepSeek-V2 on (1, 2), card ==
+              CPU (loss rtol 1e-5, leaves within 1e-5 but for <= 0.1 %)
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -2711,17 +2724,17 @@ def tp_batch():
             for k, v in data.batch(0, 8, 128).items()}
 
 
-def tp_model_ms(trainer, state):
-    """One ``loss_and_grads`` of phase 10a's step-0 batch after a warm-up
-    call: (device ms of its kernels, device ms of its copies, model-group
-    collectives counted in it), ``torch.profiler``."""
+def tp_model_ms(trainer, state, batch=None):
+    """One ``loss_and_grads`` of ``batch`` (phase 10a's step-0 batch when
+    None) after a warm-up call: (device ms of its kernels, device ms of its
+    copies, model-group collectives counted in it), ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import prng
     from repro_torch.distributed import runtime
 
-    batch, key = tp_batch(), prng.PRNGKey(9)
+    batch, key = batch or tp_batch(), prng.PRNGKey(9)
     trainer.loss_and_grads(state["params"], state["tiles"], batch, key)
     torch.cuda.synchronize()
     runtime.reset_stats()
@@ -2789,8 +2802,6 @@ def tp_pair():
 def tp_mesh_smoke():
     """(b) on this rank: the smoke CLI on the (2, 2) mesh on the card, then
     on the CPU; this rank's blocks of both final states compared."""
-    import torch
-
     from repro_torch.core.paths import flatten_with_path
 
     runs = {}
@@ -2798,6 +2809,16 @@ def tp_mesh_smoke():
         state, hist, _ = run_cli(TP_SMOKE_ARGV + ["--device", device])
         runs[device] = (dict(flatten_with_path(state)), hist)
     (card, hist), (cpu, want) = runs["cuda"], runs["cpu"]
+    off, worst = leaves_off(card, cpu)
+    return dict(hist=hist, want=want, leaves=len(cpu), off=off, worst=worst)
+
+
+def leaves_off(card: dict, cpu: dict):
+    """(leaves of ``cpu`` that ``card`` misses, the largest share of a
+    leaf's elements off): a float leaf misses when more than 0.1 % of its
+    elements are past 1e-5, an integer leaf when it differs at all."""
+    import torch
+
     off = worst = 0
     for p, v in cpu.items():
         c = card[p].cpu()
@@ -2807,7 +2828,7 @@ def tp_mesh_smoke():
         bad = (c.double() - v.double()).abs() > 1e-5
         off += int(bad.double().mean() > 1e-3)
         worst = max(worst, float(bad.double().mean()))
-    return dict(hist=hist, want=want, leaves=len(cpu), off=off, worst=worst)
+    return off, worst
 
 
 def phase_tp(card: str, lm_losses):
@@ -2899,6 +2920,275 @@ def phase_tp(card: str, lm_losses):
     return dict(launches=launches, step_ms=med)
 
 
+# Phase 17: the model axis for MLA, RG-LRU, Mamba-2 SSD, cross-attention
+# and the encoder-decoder, ranks as in phase 16.
+# (a) MiniCPM3-4B (MLA, expanded as configured) and (b) Mamba2-2.7B (SSD,
+#     one group: B/C stored split, read whole) at full width, depth cut to
+#     4 layers (``step_profile.cut_depth``) so that two ranks fit on the
+#     card, through the CLI's trainer (``make_trainer``: bf16 hash tiles,
+#     batch 8, tokens from the first 8192 ids, seq 128 / 512), 3 steps with
+#     --model-parallel 2 on two ranks sharing the card against one rank of
+#     the same depth in this phase: steps 0-1 within 1e-3 (relative);
+#     model-group all-reduce calls a step equal to
+#     ``tp_layout(...).all_reduces()``; no model-group all-gather of a
+#     split weight in the forward (``model/all_gather/weights``; a weight
+#     stored split but read whole gathers as ``model/all_gather/whole``);
+#     K1 launches a rank as the bank predicts; prints ms/step, the
+#     all-reduces' ms a step, peak memory and tile bytes a rank, and one
+#     ``loss_and_grads`` profiled a rank against the one rank's;
+# (c) the smoke RecurrentGemma-9B, SeamlessM4T (fed frames) and
+#     DeepSeek-V2 on (1, 2), phase 11a's batches, 3 steps on the card
+#     against the same ranks on the CPU from one state: loss within rtol
+#     1e-5, every float leaf of the rank's blocks within 1e-5 but for
+#     <= 0.1 % of its elements. RecurrentGemma-9B and SeamlessM4T stay at
+#     smoke size: their 256 K-id vocabularies at full width make two ranks
+#     on one card too large for the phase's time.
+MIX_TP = [("minicpm3-4b", 128), ("mamba2-2.7b", 512)]
+MIX_TP_LAYERS, MIX_TP_STEPS = 4, 3
+MIX_TP_SMOKE = ["recurrentgemma-9b", "seamless-m4t-large-v2",
+                "deepseek-v2-236b"]
+
+
+def mix_tp_batch(step: int, seq: int):
+    """The bigram batch of ``step`` (8 rows, the first 8192 ids) on the
+    card."""
+    import torch
+
+    from repro_torch.data import BigramLM
+
+    data = BigramLM(vocab=8192, seed=7)
+    return {k: torch.as_tensor(v.copy()).to("cuda")
+            for k, v in data.batch(step, FULL_BATCH, seq).items()}
+
+
+def mix_tp_run(arch: str, seq: int, mesh):
+    """(a) or (b) in this process: one rank (``mesh`` None) or this rank of
+    the (1, 2) mesh. Returns the losses and step seconds, the collectives
+    and K1 launches counted over the steps, the peak memory, the tile
+    bytes held and the profiled ``loss_and_grads``."""
+    import gc
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.benchmarks.step_profile import cut_depth
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import runtime
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(cut_depth(get_config(arch), MIX_TP_LAYERS))
+    tr = train.make_trainer(model, "erider", False, MIX_TP_STEPS, mesh=mesh)
+    state = tr.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), "cuda"))
+    bank = state["tiles"]
+    n_paths = sum(len(ps) for _, ps in bank.index)
+    runtime.reset_stats()
+    ops.reset_launch_counts()
+    hist = []
+    for s in range(MIX_TP_STEPS):
+        batch = mix_tp_batch(s, seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        hist.append(dict(loss=float(m["loss"]),
+                         step_s=time.perf_counter() - t0))
+    stats = {k: dict(v) for k, v in runtime.STATS.items()}
+    launches = ops.LAUNCHES["analog_update"]
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(hist=hist, stats=stats, launches=launches, peak=peak,
+               tile_bytes=tile_state_bytes(state), n_paths=n_paths)
+    if mesh is not None:
+        out.update(expected=expected_k1(tr, state["tiles"]) * MIX_TP_STEPS,
+                   all_reduces=tr.tp.all_reduces(), split=len(tr.tp.split),
+                   params=len(tr.tp.entries))
+    else:
+        out.update(expected=2 * n_paths * MIX_TP_STEPS)
+    kern, copy, fb = tp_model_ms(tr, state, mix_tp_batch(0, seq))
+    out.update(kern_ms=kern, copy_ms=copy, fb=fb)
+    del state, bank, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mix_tp_smoke(arch: str, mesh):
+    """(c) for one arch on this rank: the CLI's smoke trainer on the mesh,
+    its state drawn on the CPU, 3 steps on the card and on the CPU."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config(arch, smoke=True))
+    tr = train.make_trainer(model, "erider", True, LM_CHECK_STEPS, mesh=mesh)
+    cpu = tr.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), "cpu"))
+    batches = zoo_batches(model.cfg, LM_CHECK_STEPS)
+    runs = {}
+    for device, st in (("cuda", to_device(cpu, "cuda")), ("cpu", cpu)):
+        ops.reset_launch_counts()
+        hist = []
+        for b in batches:
+            st, m = tr.train_step(st, {k: v.to(device) for k, v in b.items()})
+            hist.append(float(m["loss"]))
+        runs[device] = (dict(flatten_with_path(st)), hist,
+                        ops.LAUNCHES["analog_update"])
+    (card, hist, launches), (want, cpu_hist, _) = runs["cuda"], runs["cpu"]
+    off, worst = leaves_off(card, want)
+    return dict(hist=hist, want=cpu_hist, leaves=len(want), off=off,
+                worst=worst, launches=launches, split=len(tr.tp.split))
+
+
+def mix_tp_pair():
+    """(a), (b) and (c) on this rank of the (1, 2) mesh, with half the
+    host's cores (the two ranks share them); the seconds each took."""
+    import torch
+
+    from repro_torch.distributed.sharding import logical_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import set_shard_rules
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    mesh = make_host_mesh(1, 2)
+    set_shard_rules(logical_rules(mesh))
+    out, secs = {"smoke": {}}, {}
+    for arch, seq in MIX_TP:
+        t0 = time.time()
+        out[arch] = mix_tp_run(arch, seq, mesh)
+        secs[arch] = time.time() - t0
+    for arch in MIX_TP_SMOKE:
+        t0 = time.time()
+        out["smoke"][arch] = mix_tp_smoke(arch, mesh)
+        secs[arch] = time.time() - t0
+    out["seconds"] = secs
+    return out
+
+
+def phase_tp_mixers(card: str):
+    """Phase 17 (see above). Returns its K1 launches and (a)'s and (b)'s
+    ms/step."""
+    import torch
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    one = {arch: mix_tp_run(arch, seq, None) for arch, seq in MIX_TP}
+    t_one = time.time() - t0
+    pair = dist_spawn(2, mix_tp_pair)
+    launches = sum(o["launches"] for o in one.values())
+    step_ms = {}
+    for tag, (arch, seq) in zip("ab", MIX_TP):
+        base = one[arch]
+        want = [h["loss"] for h in base["hist"]]
+        check(base["launches"] == base["expected"],
+              f"tp_mixers ({tag}) one rank: {base['launches']} K1 launches, "
+              f"expected {base['expected']}")
+        base_ms = statistics.median(h["step_s"] for h in base["hist"][1:]) * 1e3
+        for r, rp in enumerate(pair):
+            res = rp[arch]
+            got = [h["loss"] for h in res["hist"]]
+            check(len(got) == MIX_TP_STEPS
+                  and all(math.isfinite(x) for x in got),
+                  f"tp_mixers ({tag}) rank {r}: losses {got}")
+            gaps = [abs(x / y - 1) for x, y in zip(got[:2], want[:2])]
+            check(max(gaps) < 1e-3, f"tp_mixers ({tag}) rank {r}: steps 0-1 "
+                  f"loss {got[:2]} vs one rank's {want[:2]}")
+            st = res["stats"]
+            weights = [k for k in st
+                       if k.startswith("model/all_gather/weights")]
+            check(not weights, f"tp_mixers ({tag}) rank {r}: a split weight "
+                  f"gathered over the model axis: {weights}")
+            ar = {f: sum(v[f] for k, v in st.items()
+                         if k.startswith("model/all_reduce"))
+                  for f in ("calls", "bytes", "seconds")}
+            check(ar["calls"] == res["all_reduces"] * MIX_TP_STEPS,
+                  f"tp_mixers ({tag}) rank {r}: {ar['calls']} model-group "
+                  f"all-reduces, tp_layout predicts {res['all_reduces']} x "
+                  f"{MIX_TP_STEPS}")
+            fb = {f: sum(v[f] for k, v in res["fb"].items()
+                         if k.startswith("model/all_reduce"))
+                  for f in ("calls", "seconds")}
+            check(fb["calls"] == res["all_reduces"],
+                  f"tp_mixers ({tag}) rank {r}: {fb['calls']} all-reduces in "
+                  f"one loss_and_grads, predicted {res['all_reduces']}")
+            check(res["launches"] == res["expected"],
+                  f"tp_mixers ({tag}) rank {r}: {res['launches']} K1 "
+                  f"launches, expected {res['expected']}")
+            whole = st.get("model/all_gather/whole", {})
+            gg = st.get("model/all_gather/grads", {})
+            upd = {f: sum(v[f] for k, v in st.items()
+                          if k.startswith("model/all_gather")
+                          and not k.endswith(("/grads", "/whole")))
+                   for f in ("calls", "bytes", "seconds")}
+            med = statistics.median(h["step_s"] for h in res["hist"][1:]) * 1e3
+            step_ms[arch] = med
+            print(f"tp_mixers ({tag}) rank {r}: {arch}, {MIX_TP_LAYERS} "
+                  f"layers, seq {seq}: {res['split']} of {res['params']} "
+                  f"parameters split; model-group all-reduces "
+                  f"{ar['calls'] // MIX_TP_STEPS} a step (tp_layout: "
+                  f"{res['all_reduces']}), {ar['seconds'] * 1e3 / MIX_TP_STEPS:.1f}"
+                  f" ms and {ar['bytes'] / MIX_TP_STEPS / 1e6:.2f} MB a step "
+                  f"(host clock, staged); weights read whole gathered "
+                  f"{whole.get('calls', 0) // MIX_TP_STEPS} calls, "
+                  f"{whole.get('bytes', 0) / MIX_TP_STEPS / 1e6:.2f} MB a step; "
+                  f"split gradients gathered "
+                  f"{gg.get('seconds', 0) * 1e3 / MIX_TP_STEPS:.1f} ms and "
+                  f"{gg.get('bytes', 0) / MIX_TP_STEPS / 1e9:.3f} GB a step; "
+                  f"the update's model-axis gathers {upd['calls'] // MIX_TP_STEPS}"
+                  f" calls, {upd['bytes'] / MIX_TP_STEPS / 1e9:.3f} GB, "
+                  f"{upd['seconds'] * 1e3 / MIX_TP_STEPS:.1f} ms a step; 0 "
+                  f"split-weight gathers in the forward; K1 launches "
+                  f"{res['launches']} (expected {res['expected']}); peak "
+                  f"allocated {res['peak'] / 2 ** 30:.3f} GiB (one rank: "
+                  f"{base['peak'] / 2 ** 30:.3f}), tile state "
+                  f"{res['tile_bytes']} bytes (one rank: {base['tile_bytes']})"
+                  f" on {card}")
+            print(f"tp_mixers ({tag}) rank {r}: one loss_and_grads (forward "
+                  f"and backward, profiled): kernels {res['kern_ms']:.3f} ms, "
+                  f"copies {res['copy_ms']:.3f} ms of device time, its "
+                  f"{fb['calls']} all-reduces {fb['seconds'] * 1e3:.1f} ms host"
+                  f" clock; one rank: kernels {base['kern_ms']:.3f} ms, copies "
+                  f"{base['copy_ms']:.3f} ms on {card}")
+            launches += res["launches"]
+        print(f"tp_mixers ({tag}): {arch} full width, {MIX_TP_LAYERS} layers, "
+              f"batch {FULL_BATCH} x seq {seq}, --model-parallel 2 on 2 ranks "
+              f"sharing the card, loss {got}, steps 0-1 {gaps[0]:.3e} / "
+              f"{gaps[1]:.3e} (relative) from one rank's {want}; median "
+              f"{step_ms[arch]:.2f} ms/step against one rank's "
+              f"{base_ms:.2f} (steps 1-2, host clock) on {card}")
+    for arch in MIX_TP_SMOKE:
+        for r, rp in enumerate(pair):
+            q = rp["smoke"][arch]
+            check(len(q["hist"]) == len(q["want"]) == LM_CHECK_STEPS and all(
+                abs(a / b - 1) <= 1e-5 for a, b in zip(q["hist"], q["want"])),
+                f"tp_mixers (c) {arch} rank {r}: card {q['hist']} vs CPU "
+                f"{q['want']}")
+            check(q["off"] == 0, f"tp_mixers (c) {arch} rank {r}: {q['off']} "
+                  f"of {q['leaves']} leaves past 1e-5 on > 0.1 % of their "
+                  f"elements")
+            check(q["split"] > 0, f"tp_mixers (c) {arch}: nothing split")
+            launches += q["launches"]
+        q = pair[0]["smoke"][arch]
+        gaps = [abs(a / b - 1) for a, b in zip(q["hist"], q["want"])]
+        print(f"tp_mixers (c): {arch} smoke on (1, 2), {q['split']} "
+              f"parameters split, card == CPU: loss gaps "
+              f"{[f'{g:.2e}' for g in gaps]} (rtol 1e-5), {q['leaves']} leaves "
+              f"a rank within 1e-5 but for at most "
+              f"{max(p['smoke'][arch]['worst'] for p in pair):.2e} of their "
+              f"elements on {card}")
+    secs = ", ".join(f"{a} {t:.1f}" for a, t in pair[0]["seconds"].items())
+    print(f"tp_mixers: phase 17 took {time.time() - t0:.1f} s (one rank's "
+          f"(a) and (b) {t_one:.1f} s; rank 0's parts: {secs} s), {launches} "
+          f"K1 launches on {card}")
+    return dict(launches=launches, step_ms=step_ms)
+
+
 def main() -> int:
     import torch
 
@@ -2969,16 +3259,22 @@ def main() -> int:
     print(f"dist: {dist['step_ms']:.2f} ms/step on 2 ranks on {card}")
     tp = phase_tp(card, lm["losses"])
     print(f"tp: {tp['step_ms']:.2f} ms/step on 2 model ranks on {card}")
+    mix = phase_tp_mixers(card)
+    for arch, ms in mix["step_ms"].items():
+        print(f"tp_mixers[{arch}]: {ms:.2f} ms/step on 2 model ranks on "
+              f"{card}")
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
                         + serve["train_launches"] + paper["launches"]
-                        + dist["launches"] + tp["launches"])
+                        + dist["launches"] + tp["launches"]
+                        + mix["launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
     kern["paper_launches"] = paper["launches"]
     kern["dist_launches"] = dist["launches"]
     kern["tp_launches"] = tp["launches"]
+    kern["tp_mixers_launches"] = mix["launches"]
     kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",

@@ -37,7 +37,15 @@ leaves (key, step, seeds) whole and equal on every rank. In the step:
      the rank keeps its compute block: the block it stores where the
      stored spec puts the model axis on the split dim, else its slice cut
      locally after the gather (a class whose members' rules conflict
-     stores its member dims whole). The forward and backward run on its
+     stores its member dims whole). A weight that a rank stores split
+     but computes with whole (SSD's ``wb``/``wc`` and their convolutions
+     at one group, K/V heads that do not divide) is gathered over the
+     model axis (``runtime.STATS`` label ``model/all_gather/whole``); a
+     split weight never is. ``tp_layout`` splits dense attention,
+     cross-attention, MLA, the RG-LRU, SSD, the MLP, the experts and the
+     vocabulary, each where the reference's hints shard it, in the
+     decoder and in an encoder-decoder's encoder. The forward and
+     backward run on its
      rows of the global batch (under ``microbatch`` its share of each
      global microbatch) inside ``models.common.data_parallel`` (a
      statistic over the batch, the MoE router's, is the global batch's)
@@ -60,8 +68,9 @@ leaves (key, step, seeds) whole and equal on every rank. In the step:
      noise do not depend on a tile's position in a stack, so given equal
      gradients every rank's rows are bit-equal to the one-process update.
      Per-tile metrics are gathered in stack order before the mean or sum.
-A row split sums two partial products, so with ``tensor_parallel`` the
-gradients differ from one process's in float sum order only.
+A row split sums two partial products and SSD's gated norm two partial
+sums of squares, so with ``tensor_parallel`` the gradients differ from
+one process's in float sum order only.
 """
 from __future__ import annotations
 
@@ -511,7 +520,10 @@ class AnalogTrainer:
             if e == model_ax and all(m == d - t.ndim for m in dims):
                 keep = d
         rest = shd.P(*[None if d == keep else e for d, e in enumerate(entries)])
-        return (shd.gather(t, rest, self.mesh, tag="weights"),
+        # "whole": a weight every member computes with whole (SSD's B/C at
+        # one group, undivided K/V), which the model axis may store split
+        tag = "weights" if any(m is not None for m in dims) else "whole"
+        return (shd.gather(t, rest, self.mesh, tag=tag),
                 None if keep is None else keep - t.ndim)
 
     def _compute_cut(self, t, dim, kept):

@@ -418,21 +418,14 @@ def logical_rules(mesh):
 @dataclasses.dataclass(frozen=True)
 class TPEntry:
     """How one parameter is computed with over the model axis: ``kind``
-    "column" (its output columns split), "row" (its input rows split; the
-    output summed over the model group), "vocab" (the embedding's rows) or
-    "replicated" (``why`` says why); ``dim`` the split dim, counted from
-    the end (so a body-stacked leaf's leading period axis does not move
-    it), None when replicated."""
+    "column" (its output columns or channels split), "row" (its input rows
+    split; the output summed over the model group), "vocab" (the
+    embedding's rows) or "replicated" (``why`` says why); ``dim`` the split
+    dim, counted from the end (so a body-stacked leaf's leading period axis
+    does not move it), None when replicated."""
     kind: str
     dim: Optional[int] = None
     why: str = ""
-
-
-# out of this slice: these modules keep replicated compute under a model axis
-_LATER = {"mla": "MLA runs replicated (item 15c)",
-          "mix": "RG-LRU and SSD run replicated (item 15c)",
-          "cross": "cross-attention runs replicated (item 15c)",
-          "encdec": "the encoder-decoder runs replicated (item 15c)"}
 
 
 class TPLayout:
@@ -478,7 +471,15 @@ class TPLayout:
         operators issue them (``models.common``): a split module's output
         sum in the forward and again in a checkpointed period's recompute,
         its input's gradient, and the gradient of each whole weight or
-        gate it reads on this rank's heads or hidden units only."""
+        gate it reads on this rank's heads or hidden units only. MLA sums
+        the gradients of its three latents (``ql``, ``ckv``, ``k_pe``) in
+        place of its input's; cross-attention also sums the encoder
+        output's; SSD's gated norm sums its sum of squares forward (again
+        in the recompute) and backward and its weight's gradient."""
+        def whole(mod, *names):
+            return sum(1 for n in names if f"{mod}/{n}" in self.entries
+                       and self.dim(f"{mod}/{n}") is None)
+
         calls = {}
         for p, e in self.entries.items():
             if e.dim is None:
@@ -489,15 +490,19 @@ class TPLayout:
                 calls["vocab"] = 5
                 continue
             mod, name = p.rsplit("/", 1)
-            once = 2 + int(self.remat and "/body/" in p)
+            remat = int(self.remat and "/body/" in p)
+            once = 2 + remat
             if mod.endswith("/moe"):
                 shared = name.startswith("s")
                 mod += "/shared" if shared else "/routed"
                 once += int(not shared)           # the gates' gradient
-            elif mod.endswith("/attn"):
-                once += sum(1 for n in ("wk", "wv", "bk", "bv", "qn", "kn")
-                            if self.dim(f"{mod}/{n}") is None
-                            and f"{mod}/{n}" in self.entries)
+            elif f"{mod}/wdkv" in self.entries:
+                once += 2                         # MLA
+            elif mod.endswith(("/attn", "/cross")):
+                once += whole(mod, "wk", "wv", "bk", "bv", "qn", "kn") + int(
+                    mod.endswith("/cross"))
+            elif f"{mod}/a_log" in self.entries:
+                once += 3 + remat + whole(mod, "wb", "wc", "conv_b", "conv_c")
             calls[mod] = self.instances[p] * once
         return sum(calls.values()) * microbatch
 
@@ -509,15 +514,29 @@ def tp_layout(cfg, mesh) -> TPLayout:
     The split dim is the one ``rule_template`` names "M" and ``param_spec``
     shards; a module splits where the reference's hint shards its
     activation (``models.common.attention_q_spec`` on the query heads,
-    ``hint_spec`` on the MLP's hidden units and on the vocabulary), so the
-    port computes over the model axis where the reference's GSPMD program
-    does. K/V split when the KV heads divide too, else each rank reads
-    the whole ``wk``/``wv`` (a block of ``param_spec`` may cut a head
-    there); the routed and shared experts split where ``param_spec`` cuts
-    their ffn dim (the reference shards those weights and no activation
-    hint pins them). Everything else is replicated, with the reason."""
+    ``hint_spec`` on the MLP's hidden units, the RG-LRU's channels and the
+    vocabulary), so the port computes over the model axis where the
+    reference's GSPMD program does:
+
+    * dense attention, cross-attention and the encoder-decoder's encoder:
+      the query heads, K/V when the KV heads divide too, else each rank
+      reads the whole ``wk``/``wv`` (a block of ``param_spec`` may cut a
+      head there);
+    * MLA: its up-projections and ``wo`` on the query heads; the latent
+      projections (``wdq``, ``wdkv``, ``wkr`` and their norms) run whole;
+    * RG-LRU: its channels when the gate blocks divide too (each rank owns
+      whole blocks of ``war``/``wai``);
+    * SSD: its heads; ``wb``/``wc`` and their convolutions when the groups
+      divide too, else each rank reads them whole; the gated norm's weight
+      is read at each rank's slice;
+    * the routed and shared experts where ``param_spec`` cuts their ffn dim
+      (the reference shards those weights and no activation hint pins
+      them).
+
+    Everything else is replicated, with the reason."""
     from ..models.common import attention_q_spec, hint_spec
     from ..models.lm import LM
+    from ..models.recurrent import _rglru_blocks
 
     _, _, model_ax, msize = mesh_axis_sizes(mesh)
     params = LM(cfg).abstract_params("meta")
@@ -534,7 +553,14 @@ def tp_layout(cfg, mesh) -> TPLayout:
 
     H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
     heads = attention_q_spec((1, 1, H, D), rules) is not None
+    qwhy = f"{H} query heads do not divide over {msize}"
     vocab = hinted(cfg.vocab, "vocab")
+    blocks = _rglru_blocks(cfg)
+    rglru = hinted(cfg.rnn_width, "mlp") and blocks % msize == 0
+    rwhy = (f"rnn_width {cfg.rnn_width} or its {blocks} gate blocks do not "
+            f"divide over {msize}")
+    ssd = cfg.ssm_heads % msize == 0
+    swhy = f"{cfg.ssm_heads} SSM heads do not divide over {msize}"
     entries, instances = {}, {}
     for p, leaf in flat:
         shape = tuple(leaf.shape)
@@ -556,17 +582,35 @@ def tp_layout(cfg, mesh) -> TPLayout:
                                f"{shape} does not divide over {msize}")
             return TPEntry(kind, dim)
 
-        if cfg.is_encdec:
-            e = TPEntry("replicated", None, _LATER["encdec"])
-        elif p in ("embed", "head"):
+        if p in ("embed", "head"):
             e = split("vocab" if p == "embed" else "column", vocab,
                       f"{cfg.vocab} ids do not divide over {msize}")
         elif part == "attn" and "wdkv" in mods[mod]:
-            e = TPEntry("replicated", None, _LATER["mla"])
-        elif part in ("mix", "cross"):
-            e = TPEntry("replicated", None, _LATER[part])
-        elif part == "attn":
-            qwhy = f"{H} query heads do not divide over {msize}"
+            if name in ("wuq", "wuk", "wuv"):
+                e = split("column", heads, qwhy)
+            elif name == "wo":
+                e = split("row", heads, qwhy)
+            else:
+                e = TPEntry("replicated", None,
+                            "a latent projection, whole on every rank")
+        elif part == "mix" and "a_log" in mods[mod]:
+            if name == "wout":
+                e = split("row", ssd, swhy)
+            elif name in ("wb", "wc", "conv_b", "conv_c"):
+                e = split("column", ssd and cfg.ssm_groups % msize == 0,
+                          f"{cfg.ssm_groups} SSM groups do not divide over "
+                          f"{msize}: each rank reads B and C whole"
+                          if ssd else swhy)
+            elif name == "norm" and ssd and msize > 1:
+                e = TPEntry("replicated", None, "one weight over all of "
+                            "d_inner: each rank reads its slice")
+            elif name == "norm":
+                e = split("column", False, swhy)
+            else:
+                e = split("column", ssd, swhy)
+        elif part == "mix":
+            e = split("row" if name == "wout" else "column", rglru, rwhy)
+        elif part in ("attn", "cross"):
             if name in ("wq", "bq"):
                 e = split("column", heads, qwhy)
             elif name == "wo":

@@ -20,9 +20,10 @@ started it (``distributed.runtime.init(rank, world, init_file)``) before
 ``main``. The process group's world size must be D x M. Every rank draws
 the global ``--batch`` and trains on its rows of it; rank 0 logs and writes
 the checkpoints, which every rank gathers. The M ranks of a model group
-split the compute of the attention heads, the MLP's and the experts'
-hidden units and the vocabulary where ``sharding.tp_layout`` says (printed
-once); the rest runs replicated.
+split the compute where ``sharding.tp_layout`` says (printed once): the
+heads of dense attention, cross-attention, MLA and SSD, the RG-LRU's gate
+blocks, the MLP's and the experts' hidden units and the vocabulary; the
+rest (MLA's latents, SSD's B/C at one group, norms) runs replicated.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen2-0.5b \\
       --smoke --steps 10 --data-parallel 2 --device cpu

@@ -11,6 +11,14 @@ the backward (``_Flash.backward``) recomputes the probabilities per chunk
 from ``(q, k, v, out, lse)``. Autograd through the chunk loop would keep
 O(Sq * Sk) residuals, which the 4k training shape exists to avoid.
 
+Under ``common.model_parallel`` (``distributed.sharding.tp_layout``) the
+training forwards run on this rank's block of the query heads: GQA and
+cross-attention with the KV heads those read, MLA with its latents
+(``ql``, ``ckv``, ``k_pe``) computed whole on every rank and entering the
+rank's heads through ``copy_to_model``; ``wo``'s rows are summed over the
+model group. The serving paths run whole, as the reference serves under
+no mesh.
+
 This is plain PyTorch in the reference's order of operations: ``q`` scaled
 by ``Dk ** -0.5`` in its storage dtype, scores and accumulators in
 float32, masked scores at ``NEG_INF``, ``l`` floored at 1e-37, the output
@@ -614,11 +622,25 @@ def commit_prefill_pages(cache, dense, idx, *, stacked: bool):
 # ---------------------------------------------------------------------------
 
 
+def _mla_split(p, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds this rank's block of MLA's query heads
+    (``wuq``/``wuk``/``wuv`` columns, ``wo`` rows; ``tp_layout``)."""
+    return split_width(p["wo"].shape[0], cfg.n_heads * cfg.v_head_dim,
+                       "attn/wo")
+
+
 def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope, q_pe) of this rank's heads. The query latent ``ql`` is
+    computed whole on every rank; under a split it enters ``wuq``'s block
+    through ``copy_to_model`` (each rank's heads give part of its
+    gradient, so of ``wdq``'s and ``qln``'s)."""
     B, S, _ = x.shape
-    H, nope, rope = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    nope, rope = cfg.qk_nope, cfg.qk_rope
     ql = rms_norm(dot(x, p["wdq"]), p["qln"], cfg.norm_eps)
-    q = dot(ql, p["wuq"]).reshape(B, S, H, nope + rope)
+    if split_width(p["wuq"].shape[-1], cfg.n_heads * (nope + rope),
+                   "attn/wuq"):
+        ql = copy_to_model(ql)
+    q = dot(ql, p["wuq"]).reshape(B, S, -1, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_base)
     return q_nope, q_pe
@@ -631,33 +653,57 @@ def _mla_kv_latent(p, x, cfg: ModelConfig, positions):
     return ckv, k_pe
 
 
+def _mla_latents(p, x, cfg: ModelConfig, positions, split: bool):
+    """(ckv, k_pe), whole on every rank; under a split each enters the
+    rank's heads through ``copy_to_model``, so the gradients of ``wdkv``,
+    ``kvln`` and ``wkr`` sum every rank's heads' parts."""
+    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    if split:
+        ckv, k_pe = copy_to_model(ckv), copy_to_model(k_pe)
+    return ckv, k_pe
+
+
+def _mla_out(p, out, split: bool):
+    """``out @ wo``: under a split this rank's heads' share, summed over the
+    model group (the reference's hints at attention.py:619 and :640)."""
+    y = dot(out, p["wo"])
+    return reduce_from_model(y) if split else y
+
+
 def mla_forward(p, x, cfg: ModelConfig, *, positions, causal=True):
     """Train/prefill MLA, in one of two forms of the same math: expanded
     (per-head K/V materialized from the latent) or, under
     ``cfg.mla_absorbed``, absorbed (attention directly against the shared
-    latent ``c_kv ++ k_pe``, one KV head)."""
+    latent ``c_kv ++ k_pe``, one KV head). Under ``common.model_parallel``
+    on this rank's block of the heads (``_mla_split``)."""
     if cfg.mla_absorbed:
         return _mla_forward_absorbed(p, x, cfg, positions=positions,
                                      causal=causal)
     B, S, _ = x.shape
-    H, nope, v_dim = cfg.n_heads, cfg.qk_nope, cfg.v_head_dim
+    nope, v_dim = cfg.qk_nope, cfg.v_head_dim
+    split = _mla_split(p, cfg)
     q_nope, q_pe = _mla_q(p, x, cfg, positions)
-    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    H = q_nope.shape[2]
+    ckv, k_pe = _mla_latents(p, x, cfg, positions, split)
     k_nope = dot(ckv, p["wuk"]).reshape(B, S, H, nope)
     v = dot(ckv, p["wuv"]).reshape(B, S, H, v_dim)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, cfg.qk_rope)],
                   dim=-1)
     out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
-    return dot(out.reshape(B, S, H * v_dim), p["wo"])
+    return _mla_out(p, out.reshape(B, S, H * v_dim), split)
 
 
 def _mla_forward_absorbed(p, x, cfg: ModelConfig, *, positions, causal=True):
     B, S, _ = x.shape
-    H, nope, v_dim, kvl, rope = (cfg.n_heads, cfg.qk_nope, cfg.v_head_dim,
-                                 cfg.kv_lora, cfg.qk_rope)
+    nope, v_dim, kvl, rope = (cfg.qk_nope, cfg.v_head_dim, cfg.kv_lora,
+                              cfg.qk_rope)
+    split = _mla_split(p, cfg)
     q_nope, q_pe = _mla_q(p, x, cfg, positions)
-    ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    H = q_nope.shape[2]
+    # the shared latent is every head's K/V: under a split it enters this
+    # rank's heads once, through ``copy_to_model``
+    ckv, k_pe = _mla_latents(p, x, cfg, positions, split)
     wuk = p["wuk"].reshape(kvl, H, nope)
     q_lat = einsum("bqhn,khn->bqhk", q_nope, wuk)             # (B,S,H,kvl)
     # flash scales by (kvl+rope)^-1/2; the true scale is (nope+rope)^-1/2
@@ -669,7 +715,7 @@ def _mla_forward_absorbed(p, x, cfg: ModelConfig, *, positions, causal=True):
     o_lat = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     wuv = p["wuv"].reshape(kvl, H, v_dim)
     out = einsum("bqhk,khv->bqhv", o_lat, wuv)
-    return dot(out.reshape(B, S, H * v_dim), p["wo"])
+    return _mla_out(p, out.reshape(B, S, H * v_dim), split)
 
 
 def mla_prefill(p, x, cfg: ModelConfig, *, positions, cache):
@@ -873,11 +919,24 @@ def mla_chunk_lanes(p, x, cfg: ModelConfig, *, positions, lengths, lanes,
 
 
 def cross_forward(p, x, enc_out, cfg: ModelConfig):
+    """The decoder's queries over the encoder's output. Under
+    ``common.model_parallel``, as ``attn_forward``: this rank's query heads
+    and the KV heads they read (``_kv_heads``), ``x`` and ``enc_out``
+    entering through ``copy_to_model``, ``wo``'s rows summed over the model
+    group."""
     B, S, _ = x.shape
-    H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    D = cfg.head_dim
+    H = p["wq"].shape[-1] // D
     Se = enc_out.shape[1]
+    split = split_width(p["wq"].shape[-1], cfg.n_heads * D, "cross/wq")
+    if split:
+        kv, KV = _kv_heads(p, cfg, H)
+        x, enc_out = copy_to_model(x), copy_to_model(enc_out)
+    else:
+        kv, KV = p, cfg.n_kv
     q = dot(x, p["wq"]).reshape(B, S, H, D)
-    k = dot(enc_out, p["wk"]).reshape(B, Se, KV, D)
-    v = dot(enc_out, p["wv"]).reshape(B, Se, KV, D)
+    k = dot(enc_out, kv["wk"]).reshape(B, Se, KV, D)
+    v = dot(enc_out, kv["wv"]).reshape(B, Se, KV, D)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    return dot(out.reshape(B, S, H * D), p["wo"])
+    y = dot(out.reshape(B, S, H * D), p["wo"])
+    return reduce_from_model(y) if split else y

@@ -15,7 +15,8 @@ and the analog tiles hold the stacked arrays. ``cfg.remat`` wraps one
 period in ``torch.utils.checkpoint`` as ``jax.checkpoint`` wraps
 ``period_fn``; its recompute re-enters the forward's data and model axes
 (``common.parallel_context``) and, under a model axis, runs the whole
-period, so the collectives it issues are the forward's on every rank.
+period, so the collectives it issues are the forward's on every rank
+(every mixer's, the cross sub-block's and SSD's norm sums included).
 
 The serve modes (``prefill``: the fixed-batch driver's dense cache;
 ``chunk``: the engine's bucketed/chunked prefill into the paged cache;

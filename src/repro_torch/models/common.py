@@ -16,11 +16,15 @@ reference's hints make GSPMD do over the model axis, the port does by
 hand under ``model_parallel``: the trainer hands a forward this rank's
 block of every weight that ``distributed.sharding.tp_layout`` splits, and
 the modules that read them (``attention.attn_forward``,
+``attention.mla_forward``, ``attention.cross_forward``,
+``recurrent.rglru_forward``, ``recurrent.ssm_forward``,
 ``moe.mlp_forward``, ``moe.moe_forward``, ``lm.LM``) bracket their split
 products with Megatron's two operators, ``copy_to_model`` (identity
 forward, a sum all-reduce of the gradient over the model group) and
-``reduce_from_model`` (a sum all-reduce forward, identity backward); the
-vocabulary's embedding read (``vocab_rows``) and cross-entropy
+``reduce_from_model`` (a sum all-reduce forward, identity backward); a
+norm over split channels (SSD's gated norm, ``rms_norm_over_model``)
+sums its sum of squares over the group both ways (``sum_over_model``);
+the vocabulary's embedding read (``vocab_rows``) and cross-entropy
 (``softmax_cross_entropy(..., vocab=)``) take their rank's block of the
 vocabulary. Outside ``model_parallel`` every one of them is the identity
 and a module whose weights are whole runs as one process does.
@@ -274,6 +278,48 @@ def reduce_from_model(x, label: str = "model/all_reduce/out"):
     itself outside ``model_parallel``)."""
     mp = _MODEL_GROUP.get()
     return x if mp is None else _ReduceFromModel.apply(x, mp[0], label)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The sum over the model group forward and backward: a statistic that
+    every rank's block adds to and every rank's block reads, so each
+    rank's gradient of it holds only its block's part."""
+
+    @staticmethod
+    def forward(ctx, x, group, label):
+        ctx.group, ctx.label = group, label
+        return _model_reduce(x, group, label)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_reduce(g, ctx.group, ctx.label + "/grad"), None, None
+
+
+def sum_over_model(x, label: str = "model/all_reduce/norm"):
+    """The sum of every rank's ``x`` forward, its gradient summed too
+    (``x`` itself outside ``model_parallel``)."""
+    mp = _MODEL_GROUP.get()
+    return x if mp is None else _SumOverModel.apply(x, mp[0], label)
+
+
+def rms_norm_over_model(x, w, eps: float = 1e-6):
+    """``rms_norm(x, w)`` where ``x`` may be this rank's block of the
+    ``w.shape[-1]`` channels it normalises over (split by the product
+    before it): each rank's float32 sum of squares is summed over the model
+    group forward and backward (``sum_over_model``) before the rsqrt, and
+    the whole ``w`` is read at this rank's slice, its gradient summed. One
+    norm over all the channels, as one process computes it (a norm per
+    block would be another function)."""
+    width = w.shape[-1]
+    if not split_width(x.shape[-1], width, "norm"):
+        return rms_norm(x, w, eps)
+    n = x.shape[-1]
+    w = copy_to_model(w).narrow(-1, model_index() * n, n)
+    xf = x.to(torch.float32)
+    ss = sum_over_model(torch.sum(torch.square(xf), dim=-1, keepdim=True))
+    out = xf * torch.rsqrt(div(ss, float(width)) + eps) * (
+        1.0 + w.to(torch.float32))
+    return out.to(x.dtype)
 
 
 def _vocab_block(n_local: int, vocab: int, what: str):

@@ -10,7 +10,9 @@ Port of the JAX package's ``models/lm.py``:
 Under ``common.model_parallel`` (a trainer step on a model axis) the
 embedding, the logits and the loss run on this rank's block of the
 vocabulary when ``distributed.sharding.tp_layout`` splits it; ``forward``
-then returns that block of the logits.
+then returns that block of the logits. An encoder-decoder's encoder runs
+under the same axes (its attention and MLP split as the decoder's), and
+each decoder layer's cross-attention reads its output.
 
 Modality frontends are the reference's stubs: ``frames`` are precomputed
 frame/patch embeddings; the VLM fuses them additively with the token

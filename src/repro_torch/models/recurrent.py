@@ -17,6 +17,16 @@ over time would issue S launches a layer on the card). XLA-CPU contracts
 ``a2 * b1 + b2`` into a fused multiply-add inside a fusion, so the two
 packages agree within a tolerance, not bit for bit. ``torch.einsum`` may
 contract SSD's three-operand einsums in another order than ``jnp.einsum``.
+
+Under ``common.model_parallel`` the training forwards run on this rank's
+block of the channels (``distributed.sharding.tp_layout``): the RG-LRU's
+whole gate blocks, its recurrence and ``lam`` (each block's recurrence is
+its own), SSD's heads with their ``A``, ``dt_bias`` and ``d_skip``, and
+``B``/``C`` by group, or whole when the groups do not divide (the weights
+read whole, their gradients summed). Both sum ``wout``'s row split over the
+model group; SSD's gated norm, over all of ``d_inner``, sums its sum of
+squares over the group (``common.rms_norm_over_model``). The serving paths
+run whole, as the reference serves under no mesh.
 """
 from __future__ import annotations
 
@@ -28,7 +38,9 @@ import torch.nn.functional as F
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec
-from .common import dense_init, dot, einsum, rms_norm, zeros
+from .common import (copy_to_model, dense_init, dot, einsum, model_index,
+                     reduce_from_model, rms_norm_over_model, split_width,
+                     zeros)
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +193,19 @@ def _rglru_gates(p, u, cfg: ModelConfig):
 
 
 def _rglru_core(p, x, cfg: ModelConfig):
-    gate = F.gelu(dot(x, p["wy"]).to(torch.float32), approximate="tanh")
-    u, conv_state = causal_conv(dot(x, p["wx"]), p["conv"])
+    """(y, h, conv state) on this rank's channels: all of them, or under
+    ``common.model_parallel`` its block of whole gate blocks (``wx``/``wy``
+    columns, ``conv``, ``war``/``wai``, ``lam``), ``wout``'s rows summed
+    over the model group (where the reference's hint at recurrent.py:115
+    puts the model axis back on the residual)."""
+    split = split_width(p["wx"].shape[-1], cfg.rnn_width, "mix/wx")
+    xin = copy_to_model(x) if split else x
+    gate = F.gelu(dot(xin, p["wy"]).to(torch.float32), approximate="tanh")
+    u, conv_state = causal_conv(dot(xin, p["wx"]), p["conv"])
     a, b = _rglru_gates(p, u, cfg)
     _, h = associative_scan(_linear_combine, (a, b), axis=1)
     y = dot((gate * h).to(x.dtype), p["wout"])
-    return y, h, conv_state
+    return (reduce_from_model(y) if split else y), h, conv_state
 
 
 def rglru_forward(p, x, cfg: ModelConfig):
@@ -333,24 +352,44 @@ def ssd_chunked(x, dt_a, B, C, chunk: int, init_state=None):
 
 
 def _ssm_split(p, x, cfg: ModelConfig, conv_state=None, lengths=None):
-    H, N, G = cfg.ssm_heads, cfg.d_state, cfg.ssm_groups
+    """(z, xs, B, C, dt, conv state) on this rank's heads: all of them, or
+    under ``common.model_parallel`` its block (``wz``/``wx``/``wdt``
+    columns, ``conv_x``, ``dt_bias``), ``B``/``C`` of its groups when
+    ``tp_layout`` split ``wb``/``wc``, else read whole (their weights
+    through ``copy_to_model``: each rank's heads give part of their
+    gradient) and cut to its heads' groups."""
+    N, G = cfg.d_state, cfg.ssm_groups
+    H = p["wdt"].shape[-1]                     # this rank's heads
+    split = split_width(H, cfg.ssm_heads, "mix/wdt")
+    bc = {n: p[n] for n in ("wb", "wc", "conv_b", "conv_c")}
+    first = 0
+    if split:
+        x = copy_to_model(x)
+        if not split_width(p["wb"].shape[-1], G * N, "mix/wb"):
+            bc = {n: copy_to_model(w) for n, w in bc.items()}
+            first = model_index() * H
     cs = conv_state or {}
     z = dot(x, p["wz"])
     xs, ncx = causal_conv(dot(x, p["wx"]), p["conv_x"], cs.get("x"), lengths)
-    B_, ncb = causal_conv(dot(x, p["wb"]), p["conv_b"], cs.get("b"), lengths)
-    C_, ncc = causal_conv(dot(x, p["wc"]), p["conv_c"], cs.get("c"), lengths)
+    B_, ncb = causal_conv(dot(x, bc["wb"]), bc["conv_b"], cs.get("b"), lengths)
+    C_, ncc = causal_conv(dot(x, bc["wc"]), bc["conv_c"], cs.get("c"), lengths)
     new_conv = {"x": ncx, "b": ncb, "c": ncc}
     dt = dot(x, p["wdt"])                                           # (B,S,H)
     xs, B_, C_ = F.silu(xs), F.silu(B_), F.silu(C_)
     Bsz, S = x.shape[0], x.shape[1]
     xs = xs.reshape(Bsz, S, H, cfg.ssm_head_dim)
     # jnp.repeat over heads as expand: its backward is a reduction, in a
-    # fixed order (repeat_interleave's adds with atomics on CUDA)
-    rep = H // G
-    B_ = B_.reshape(Bsz, S, G, 1, N).expand(Bsz, S, G, rep, N).reshape(
-        Bsz, S, H, N)
-    C_ = C_.reshape(Bsz, S, G, 1, N).expand(Bsz, S, G, rep, N).reshape(
-        Bsz, S, H, N)
+    # fixed order (repeat_interleave's adds with atomics on CUDA); head h
+    # reads group h // (ssm_heads / G)
+    rep = cfg.ssm_heads // G
+    Gl = B_.shape[-1] // N                     # the groups read here
+
+    def per_head(t):
+        t = t.reshape(Bsz, S, Gl, 1, N).expand(Bsz, S, Gl, rep, N).reshape(
+            Bsz, S, Gl * rep, N)
+        return t if Gl * rep == H else t.narrow(2, first, H)
+
+    B_, C_ = per_head(B_), per_head(C_)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])
     if lengths is not None:
         # a zero dt past a row's valid run makes its padding exact for SSD:
@@ -363,9 +402,15 @@ def _ssm_split(p, x, cfg: ModelConfig, conv_state=None, lengths=None):
 
 
 def _ssm_out(p, y, z, x, cfg: ModelConfig):
+    """The gated norm over all of ``d_inner`` and ``wout``: on this rank's
+    channels under ``common.model_parallel``, ``wout``'s rows summed over
+    the model group (the reference's hint at recurrent.py:300)."""
     y = y * F.silu(z.to(torch.float32))
-    y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-    return dot(y, p["wout"])
+    y = rms_norm_over_model(y.to(x.dtype), p["norm"], cfg.norm_eps)
+    out = dot(y, p["wout"])
+    if split_width(p["wout"].shape[0], cfg.d_inner, "mix/wout"):
+        return reduce_from_model(out)
+    return out
 
 
 def _ssm_core(p, x, cfg: ModelConfig, state=None, lengths=None):
@@ -377,7 +422,7 @@ def _ssm_core(p, x, cfg: ModelConfig, state=None, lengths=None):
     y, final = ssd_chunked(xs.to(f32) * dt[..., None], dt * A, B_, C_,
                            cfg.ssm_chunk, init_state=init_h)
     y = y + p["d_skip"][None, None, :, None] * xs.to(f32)
-    y = y.reshape(*x.shape[:2], cfg.d_inner)
+    y = y.reshape(*x.shape[:2], -1)
     return _ssm_out(p, y, z, x, cfg), final, new_conv
 
 

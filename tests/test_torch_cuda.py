@@ -61,9 +61,9 @@ Each wrapper call launches its kernel once.
   class, Adam moments, a split batch) gathered bit-equal to the
   one-process update on the card under both backends, each rank
   launching K1 on the card; the compressed all-reduce on CUDA tensors
-  bit-equal to the same ranks on the CPU; the smoke LM's steps on a (1, 2)
-  mesh (compute split over the model axis) on the card within rtol 1e-5
-  of the same ranks on the CPU.
+  bit-equal to the same ranks on the CPU; the smoke LM's, MiniCPM3's
+  (MLA) and Mamba2's (SSD) steps on a (1, 2) mesh (compute split over the
+  model axis) on the card within rtol 1e-5 of the same ranks on the CPU.
 """
 import numpy as np
 import pytest
@@ -885,6 +885,42 @@ def test_model_parallel_steps_on_the_card_match_the_cpu(cuda, tmp_path):
         for k in ("loss", "tile/sp_err"):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
     assert any(k.startswith("model/all_reduce") for k in card[0]["stats"])
+    got = dict(flatten_with_path(card[0]["state"]))
+    for p, v in flatten_with_path(cpu[0]["state"]):
+        if not v.is_floating_point():
+            assert torch.equal(got[p], v), p
+            continue
+        off = (got[p].double() - v.double()).abs() > 1e-5
+        assert float(off.double().mean()) <= 1e-3, (p, int(off.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,seq", [("minicpm3-4b", 16),
+                                      ("mamba2-2.7b", 24)])
+def test_model_parallel_mixers_on_the_card_match_the_cpu(cuda, tmp_path, arch,
+                                                         seq):
+    """MLA (minicpm3-4b: up-projections on the heads, latents whole) and SSD
+    (mamba2-2.7b: heads split, B/C read whole at one group, the gated
+    norm's sum of squares summed over the ranks, a padded tail at seq 24)
+    through the smoke CLI trainer on a (1, 2) mesh of two ranks sharing the
+    card, 2 steps, against the same two ranks on the CPU: loss and sp_err
+    within rtol 1e-5, every float leaf within 1e-5 but for <= 0.1 % of its
+    elements (a flipped pulse), as the dense model axis is held above."""
+    import torch_ranks
+    from repro_torch.core.paths import flatten_with_path
+
+    kw = dict(data=1, model=2, arch=arch, batch=4, seq=seq, steps=2)
+    card = torch_ranks.run("lm_steps", 2, str(tmp_path / "card"), timeout=300,
+                           device="cuda", **kw)
+    cpu = torch_ranks.run("lm_steps", 2, str(tmp_path / "cpu"), timeout=300,
+                          **kw)
+    for a, b in zip(card[0]["history"], cpu[0]["history"]):
+        for k in ("loss", "tile/sp_err"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+    assert sum(v["calls"] for k, v in card[0]["stats"].items()
+               if k.startswith("model/all_reduce")) == sum(
+        v["calls"] for k, v in cpu[0]["stats"].items()
+        if k.startswith("model/all_reduce"))
     got = dict(flatten_with_path(card[0]["state"]))
     for p, v in flatten_with_path(cpu[0]["state"]):
         if not v.is_floating_point():

@@ -4,9 +4,11 @@ process and against the JAX package's host mesh.
 * ``distributed.sharding.tp_layout`` on the ten archs' full configs at a
   model axis of 2 and 4: a module splits exactly where the reference's
   hint shards its activation (``attention_q_spec`` on the query heads,
-  ``hint_spec`` on the MLP's hidden units and the vocabulary, both held to
-  JAX by ``test_torch_distributed``), on the dim ``param_spec`` shards;
-  MLA, RG-LRU, SSD, cross-attention and the encoder-decoder replicate.
+  ``hint_spec`` on the MLP's hidden units, the RG-LRU's channels and the
+  vocabulary, both held to JAX by ``test_torch_distributed``), on the dim
+  ``param_spec`` shards: MLA's up-projections on the heads, its latents
+  whole; the RG-LRU in whole gate blocks; SSD on its heads, B and C with
+  the groups; cross-attention and the encoder as dense attention.
 * Two gloo ranks on a (1, 2) mesh (``torch_ranks.tp_all``), float32 at
   smoke size: ``copy_to_model`` / ``reduce_from_model`` around a column
   and a row product, ``vocab_rows`` and the vocab-parallel CE (z-loss, a
@@ -29,8 +31,9 @@ process and against the JAX package's host mesh.
   of two forced host devices: loss and sp_err within ``JAX_RTOL``.
 * MLA (minicpm3-4b), RG-LRU (recurrentgemma-9b), SSD (mamba2-2.7b) and the
   encoder-decoder (seamless-m4t-large-v2, with frames) on (1, 2): their
-  out-of-slice modules replicated, within the CLI's standard of one
-  process (the encoder-decoder, whose every module replicates, bit-equal).
+  mixers split, within the CLI's standard of one process, with
+  ``tp_layout.all_reduces()`` model-group all-reduces a step
+  (``test_torch_tensor_parallel_mixers`` holds each mixer alone).
 """
 from __future__ import annotations
 
@@ -167,18 +170,47 @@ def test_tp_layout_splits_where_the_reference_hints(arch):
                 assert sh.param_spec(p, shape, mesh)[e.dim] == "model", label
                 assert sh.rule_template(p, len(shape))[e.dim] == "M", label
             mla = part == "attn" and f"{mod}/wdkv" in params
-            if cfg.is_encdec or mla or part in ("mix", "cross"):
-                assert e.kind == "replicated" and "15c" in e.why, label
-            elif p == "embed":
+            ssd = part == "mix" and f"{mod}/a_log" in params
+            assert "15c" not in e.why, label
+            if p == "embed":
                 assert (e.kind, e.dim) == (("vocab", -2) if vocab
                                            else ("replicated", None)), label
             elif p == "head":
                 assert (e.dim == -1) == (vocab is not None), label
-            elif part == "attn" and name in ("wq", "bq", "wo"):
+            elif mla and name in ("wuq", "wuk", "wuv", "wo"):
+                # the up-projections on the query heads, wo their rows
                 assert (e.dim is not None) == heads, label
                 assert e.kind == ("row" if name == "wo" else "column") \
                     or not heads, label
-            elif part == "attn" and name in ("wk", "wv", "bk", "bv"):
+            elif mla:
+                # wdq, wdkv, wkr and their norms: the latents run whole
+                assert e.dim is None, label
+            elif ssd and name in ("wb", "wc", "conv_b", "conv_c"):
+                # B and C split with the groups, else read whole
+                assert (e.dim is not None) == (
+                    cfg.ssm_heads % m == 0 and cfg.ssm_groups % m == 0), label
+            elif ssd and name == "norm":
+                assert e.dim is None, label
+            elif ssd:
+                assert (e.dim is not None) == (cfg.ssm_heads % m == 0), label
+                assert e.kind == ("row" if name == "wout" else "column") \
+                    or e.dim is None, label
+            elif part == "mix":
+                # the RG-LRU: its channels (the hint on u) in whole gate
+                # blocks
+                rnn = hint_spec((8, 16, cfg.rnn_width),
+                                ("batch", None, "mlp"), rules)
+                assert (e.dim is not None) == (
+                    rnn is not None and cfg.n_heads % m == 0), label
+                assert e.kind == ("row" if name == "wout" else "column") \
+                    or e.dim is None, label
+            elif part in ("attn", "cross") and name in ("wq", "bq", "wo"):
+                # dense attention, the encoder's and the cross-attention
+                assert (e.dim is not None) == heads, label
+                assert e.kind == ("row" if name == "wo" else "column") \
+                    or not heads, label
+            elif part in ("attn", "cross") and name in ("wk", "wv", "bk",
+                                                        "bv"):
                 assert (e.dim is not None) == (heads and cfg.n_kv % m == 0), \
                     label
             elif part == "mlp":
@@ -330,6 +362,8 @@ def test_cli_model_parallel_matches_the_jax_host_mesh(runs):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_out_of_slice_families_on_a_model_axis(runs, arch):
+    """MLA, the RG-LRU, SSD and the encoder-decoder (item 15c) split on
+    (1, 2), within the CLI's standard of one process."""
     got = runs["two"][0]["lm"][arch]
     want = runs["fam"][arch]
     for a, b in zip(got["history"], want["history"]):
@@ -337,16 +371,22 @@ def test_out_of_slice_families_on_a_model_axis(runs, arch):
             np.testing.assert_allclose(a[k], b[k], rtol=LOSS_RTOL,
                                        err_msg=f"{arch} {k}")
     layout = sh.tp_layout(get_config(arch, smoke=True), make_host_mesh(1, 2))
-    kinds = {e.why for p, e in layout.entries.items()
-             if "/mix/" in p or "/cross/" in p or "/enc/" in p
-             or ("/attn/" in p and get_config(arch).pattern[0] == "mla")}
-    assert kinds and all("15c" in w for w in kinds), kinds
-    if arch == "seamless-m4t-large-v2":
-        # nothing splits: the one process's step, bit for bit
-        assert not layout.split
-        assert got["history"] == want["history"]
-        two = dict(flatten_with_path(got["state"]))
-        for p, v in flatten_with_path(want["state"]):
-            assert torch.equal(two[p], v), p
-    else:
-        _leaves_close(got["state"], want["state"], arch)
+    mixers = {"minicpm3-4b": ("/attn/wuq", "/attn/wuk", "/attn/wuv",
+                              "/attn/wo"),
+              "recurrentgemma-9b": ("/mix/wx", "/mix/war", "/mix/lam",
+                                    "/mix/wout"),
+              "mamba2-2.7b": ("/mix/wx", "/mix/a_log", "/mix/wout"),
+              "seamless-m4t-large-v2": ("/cross/wq", "/cross/wo",
+                                        "enc/stack/body/p0/attn/wq")}[arch]
+    split = layout.split
+    for name in mixers:
+        assert any(p.endswith(name) for p in split), (arch, name)
+    assert not any("15c" in e.why for e in layout.entries.values()), arch
+    _leaves_close(got["state"], want["state"], arch)
+    for r in runs["two"]:
+        stats = r["lm"][arch]["stats"]
+        assert not any(k.startswith("model/all_gather/weights")
+                       for k in stats), sorted(stats)
+        calls = sum(v["calls"] for k, v in stats.items()
+                    if k.startswith("model/all_reduce"))
+        assert calls == layout.all_reduces() * 2, (arch, calls)

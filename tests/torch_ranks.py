@@ -336,17 +336,20 @@ def lm_batches(cfg, batch: int, seq: int, steps: int, device="cpu"):
     return out
 
 
-def lm_steps(mesh, device, arch, batch, seq, steps):
+def lm_steps(mesh, device, arch, batch, seq, steps, change=None):
     """``steps`` train steps of the CLI's trainer on the smoke ``arch``
-    (``lm_batches``); returns the metrics, the gathered final state and
-    the collectives counted (one process when ``mesh`` is None)."""
+    (``lm_batches``), its config changed by ``change`` when given; returns
+    the metrics, the gathered final state and the collectives counted (one
+    process when ``mesh`` is None)."""
+    import dataclasses
+
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.distributed import runtime
     from repro_torch.launch import train
     from repro_torch.models.lm import LM
 
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **(change or {}))
     model = LM(cfg)
     tr = train.make_trainer(model, "erider", True, steps, mesh=mesh)
     state = tr.init(prng.PRNGKey(1), model.init(prng.PRNGKey(0), device))
@@ -416,10 +419,21 @@ def _tp_run(fn, params, args, dims, axis, seed):
         return [o.detach() for o in outs], list(gx), gp, calls
 
     out, gx, gp, calls = once(True)
+    calls_all = {k: v["calls"] for k, v in runtime.STATS.items()}
     rout, rgx, rgp, _ = once(False)
     rgp = {k: (None if g is None else cut(k, g)) for k, g in rgp.items()}
     return {"out": out, "ref_out": rout, "dx": gx, "ref_dx": rgx,
-            "grads": gp, "ref_grads": rgp, "calls": calls}
+            "grads": gp, "ref_grads": rgp, "calls": calls,
+            "calls_all": calls_all}
+
+
+def _layer_params(flat, layout, prefix):
+    """The parameters of one layer, period 0 of the body stack at
+    ``prefix`` of the whole ``flat`` tree, and the dim ``layout`` splits
+    each on (None: whole)."""
+    params = {p[len(prefix) + 1:]: t[0] for p, t in flat.items()
+              if p.startswith(prefix + "/")}
+    return params, {k: layout.dim(f"{prefix}/{k}") for k in params}
 
 
 def _tp_module_cases():
@@ -481,10 +495,7 @@ def tp_modules(mesh, device, cases=None):
 
             args = (ids, (ids * 5 + 1) % cfg.vocab)
         else:
-            leaves = {p[len(prefix) + 1:]: t[0] for p, t in flat.items()
-                      if p.startswith(prefix + "/")}
-            params = leaves
-            dims = {k: layout.dim(f"{prefix}/{k}") for k in leaves}
+            params, dims = _layer_params(flat, layout, prefix)
             args = (x,)
             if kind in ("attn", "attn_local"):
                 # (B, S), as ``LM.forward`` passes them (M-RoPE takes three
@@ -546,6 +557,110 @@ def _tp_ops(axis):
                           {"logits": -1}, axis, seed=28)}
 
 
+def _tp_mixer_cases():
+    """{case: (arch, config changes, module prefix, layer kind, batch,
+    seq)}: the mixers of item 15c, one layer each. Mamba2's smoke chunk is
+    16 tokens, so 20 pad a tail of 12."""
+    mla, mix = "stack/body/p0/attn", "stack/body/p0/mix"
+    cross = "stack/body/p0/cross"
+    return {
+        "mla_expanded": ("minicpm3-4b", {}, mla, "mla", 2, 16),
+        "mla_absorbed": ("minicpm3-4b", {"mla_absorbed": True}, mla, "mla",
+                         2, 16),
+        "rglru": ("recurrentgemma-9b", {}, mix, "rec", 2, 16),
+        "ssd_g1": ("mamba2-2.7b", {}, mix, "ssm", 2, 20),
+        "ssd_g2": ("mamba2-2.7b", {"ssm_groups": 2}, mix, "ssm", 2, 20),
+        "cross_kv_split": ("seamless-m4t-large-v2", {}, cross, "cross", 2,
+                           16),
+        "cross_kv_whole": ("seamless-m4t-large-v2", {"n_kv": 1}, cross,
+                           "cross", 2, 16),
+    }
+
+
+def tp_mixers(mesh, device):
+    """Each case of ``_tp_mixer_cases`` on this rank's blocks (cut by
+    ``tp_layout``) against one process; the gated norm alone (over split
+    channels, then a row-split product); the encoder-decoder's whole loss
+    with frames (``LM.loss``)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import flatten_with_path, tree_map_with_path
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention, common, recurrent
+    from repro_torch.models.lm import LM
+
+    axis = (mesh.group("model"), mesh.shape["model"], mesh.index("model"))
+    out = {}
+    for name, (arch, change, prefix, kind, B, S) in _tp_mixer_cases().items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **change)
+        whole = dict(flatten_with_path(LM(cfg).init(prng.PRNGKey(3), device)))
+        params, dims = _layer_params(whole, sharding.tp_layout(cfg, mesh),
+                                     prefix)
+        pos = torch.arange(S)[None].expand(B, S)
+        args = (_seeded(11, (B, S, cfg.d_model)),)
+        if kind == "mla":
+            def fn(p, x, cfg=cfg, pos=pos):
+                return attention.mla_forward(p, x, cfg, positions=pos)
+        elif kind == "rec":
+            def fn(p, x, cfg=cfg):
+                return recurrent.rglru_forward(p, x, cfg)
+        elif kind == "ssm":
+            def fn(p, x, cfg=cfg):
+                return recurrent.ssm_forward(p, x, cfg)
+        else:
+            args += (_seeded(13, (B, S + 4, cfg.d_model)),)
+
+            def fn(p, x, enc, cfg=cfg):
+                return attention.cross_forward(p, x, enc, cfg)
+        res = _tp_run(fn, params, args, dims, axis, seed=12)
+        res["split"] = sorted(k for k, d in dims.items() if d is not None)
+        out[name] = res
+
+    def gated_norm(p):
+        y = common.rms_norm_over_model(p["y"] * F.silu(p["z"]), p["w"])
+        return common.reduce_from_model(y @ p["v"])
+
+    out["gated_norm"] = _tp_run(
+        gated_norm, {"y": _seeded(31, (2, 5, 12)), "z": _seeded(32, (2, 5, 12)),
+                     "w": _seeded(33, (12,), 0.1), "v": _seeded(34, (12, 5))},
+        (), {"y": -1, "z": -1, "v": -2}, axis, seed=35)
+
+    cfg = get_config("seamless-m4t-large-v2", smoke=True)
+    model = LM(cfg)
+    tree = model.init(prng.PRNGKey(3), device)
+    layout = sharding.tp_layout(cfg, mesh)
+    flat = dict(flatten_with_path(tree))
+    batch = lm_batches(cfg, 4, 16, 1, device)[0]
+
+    def encdec(p, frames):
+        params = tree_map_with_path(lambda q, _: p[q], tree)
+        return model.loss(params, {"tokens": batch["tokens"],
+                                   "labels": batch["labels"],
+                                   "frames": frames}, None)[0]
+
+    res = _tp_run(encdec, flat, (batch["frames"],),
+                  {p: layout.dim(p) for p in flat}, axis, seed=36)
+    res["all_reduces"] = layout.all_reduces()
+    out["encdec"] = res
+    return out
+
+
+def tp_mixers_all(mesh, device, argvs, variants, batch, seq, steps):
+    """The mixers' two- or four-rank run: ``tp_mixers`` (on a model axis
+    alone), the CLI on each of ``argvs`` and ``lm_steps`` of each of
+    ``variants`` ({name: (arch, config changes)})."""
+    out = {"cli": cli_runs(mesh, device, argvs),
+           "lm": {n: lm_steps(mesh, device, a, batch, seq, steps, change)
+                  for n, (a, change) in variants.items()}}
+    if mesh.shape["model"] == mesh.size:
+        out["modules"] = tp_mixers(mesh, device)
+    return out
+
+
 def tp_all(mesh, device, argvs, archs, batch, seq, steps):
     """The tensor-parallel tests' two-rank run: ``tp_modules``, the CLI on
     each of ``argvs`` and ``lm_steps`` of each of ``archs``."""
@@ -565,7 +680,8 @@ def _to(tree, device):
 
 PROGRAMS = {"compress": compress, "bank": bank, "elastic": elastic,
             "cli": cli, "lm_micro": lm_micro, "cli_runs": cli_runs,
-            "lm_steps": lm_steps, "tp_modules": tp_modules, "tp_all": tp_all}
+            "lm_steps": lm_steps, "tp_modules": tp_modules, "tp_all": tp_all,
+            "tp_mixers": tp_mixers, "tp_mixers_all": tp_mixers_all}
 
 
 def main(argv):
