@@ -81,7 +81,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               the gather dispatch), minicpm3-4b and mamba2-2.7b;
               (b) minicpm3-4b and (c) mamba2-2.7b at full
               width, depth cut to 8 layers, through the CLI's trainer
-              (bf16 hash tiles, batch 8, seq 128 / 512, 6 steps): finite
+              (bf16 hash tiles, batch 8, seq 128 / 512, 4 steps): finite
               loss and sp_err, the loss falling, 2 K1 launches per analog
               path per step; prints ms/step, peak memory and tile bytes.
               Phase 3 also holds K1 bit-equal on mixtral-8x7b's 4-D expert
@@ -162,7 +162,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               <= total / 2 + 1024, two steps bit-equal to one process
  16. tp       compute over the model axis (``--model-parallel``,
               ``distributed.sharding.tp_layout``), ranks as in phase 15:
-              (a) phase 10a's CLI run with --model-parallel 2, 4 steps:
+              (a) phase 10a's CLI run with --model-parallel 2, 3 steps:
               steps 0-1 within 1e-3 (relative) of phase 10a's, no
               model-group all-gather of a weight in the forward,
               model-group all-reduces a step and K1 launches a rank as
@@ -176,7 +176,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               the encoder-decoder, ranks as in phase 16: (a) MiniCPM3-4B
               (MLA) and (b) Mamba2-2.7B (SSD, B/C read whole at one group)
               at full width, 4 layers, through the CLI's trainer with
-              --model-parallel 2, 3 steps, against one rank of the same
+              --model-parallel 2, 2 steps, against one rank of the same
               depth: steps 0-1 within 1e-3 (relative), model-group
               all-reduces a step as ``tp_layout`` predicts, no split
               weight gathered in the forward, K1 launches a rank as the
@@ -185,6 +185,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               a rank against one rank's; (c) the smoke RecurrentGemma-9B,
               SeamlessM4T (fed frames) and DeepSeek-V2 on (1, 2), card ==
               CPU (loss rtol 1e-5, leaves within 1e-5 but for <= 0.1 %)
+ 18. analysis  the op-trace layer (``repro_torch.analysis``,
+              ``roofline``, ``launch/dryrun.py``): (a) K2 on two streams at
+              once (20 calls each at (896, 4864), different data), every
+              call's sums bit-equal to ``sums_in_launch_order``; the seven
+              graph contracts on CUDA tensors, traced, every rule but the
+              CPU memory ceiling, the serve entrypoints and begin_step under
+              ``torch.cuda.set_sync_debug_mode("error")``: ops, uploads,
+              host reads, K1 records and bytes each; the restack,
+              host_transfer and f64 mutants caught on one entrypoint each;
+              (b) ``dryrun.account_step`` of phase 10a's step on ``meta``
+              against the same step on the card: predicted peak within
+              10 % of ``max_memory_allocated``, tile bytes exact; (c)
+              qwen2-0.5b and mamba2-2.7b ``train_4k`` on pod16x16 and
+              pod2x16x16 on the host, after the card's phases: per-rank
+              peak, bottleneck, roofline fraction. Before (c), a CUDA graph
+              capture of serve_step_lanes (whether it captures, whether a
+              replay equals the eager step: a measurement, not a gate)
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -1309,7 +1326,7 @@ def lm_restart(root: str, smoke_argv=tuple(LM_SMOKE_ARGV)):
 # tied embeddings) at full width, each with its depth cut to 8 layers (62
 # and 64 in the configs), through the CLI's trainer (``make_trainer``, bf16
 # hash-noise tiles, ``update_backend="vmap"``), tokens from the first 8192
-# ids, 6 steps; Mamba2 at seq 512, so SSD runs two chunks of 256. (a)
+# ids, 4 steps; Mamba2 at seq 512, so SSD runs two chunks of 256. (a)
 # also restarts the CLI on the card, bit-equal, for one arch of each new
 # family (MoE, MLA, SSD).
 LM_ZOO = ["mixtral-8x7b", "deepseek-v2-236b", "minicpm3-4b",
@@ -1317,7 +1334,7 @@ LM_ZOO = ["mixtral-8x7b", "deepseek-v2-236b", "minicpm3-4b",
 ZOO_BATCH, ZOO_SEQ = 4, 80
 ZOO_RESTART = ["mixtral-8x7b", "minicpm3-4b", "mamba2-2.7b"]
 FULL_WIDTH = [("minicpm3-4b", 128), ("mamba2-2.7b", 512)]
-FULL_LAYERS, FULL_BATCH, FULL_STEPS = 8, 8, 6
+FULL_LAYERS, FULL_BATCH, FULL_STEPS = 8, 8, 4
 
 
 def to_device(state, device):
@@ -1442,7 +1459,7 @@ def lm_full_width(arch: str, seq: int, card: str):
     the CLI's ``make_trainer`` and ``trainer.jit_step()``: finite loss and
     sp_err at every step, the loss falling (mean of the last 3 below the
     first), 2 K1 launches per analog path per step. Records ms/step
-    (median over steps 2-6, host clock, synchronized), the peak allocated
+    (median over steps 2-4, host clock, synchronized), the peak allocated
     memory, the tile state's bytes and the launches."""
     import gc
 
@@ -2693,7 +2710,7 @@ def phase_dist(card: str, lm_losses):
 # Phase 16: compute over the model axis (``--model-parallel``), ranks as in
 # phase 15 (spawned, gloo, staged through host memory).
 # (a) phase 10a's CLI run with --model-parallel 2 on two ranks sharing the
-#     card, 4 steps: steps 0-1 within 1e-3 (relative) of phase 10a's
+#     card, 3 steps: steps 0-1 within 1e-3 (relative) of phase 10a's
 #     one-rank losses (step 0's learning rate is 0.1 under both
 #     schedules); no model-group all-gather of a weight in the forward;
 #     model-group all-reduce calls equal to ``tp_layout(...).all_reduces()``
@@ -2707,7 +2724,7 @@ def phase_dist(card: str, lm_losses):
 #     the card, 3 steps, against the same four ranks on the CPU: loss
 #     within rtol 1e-5, every float leaf of each rank's blocks within 1e-5
 #     but for <= 0.1 % of its elements (phase 11a's standard).
-TP_STEPS = 4
+TP_STEPS = 3
 TP_SMOKE_ARGV = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "4", "--seq",
                  "16", "--steps", "3", "--log-every", "1",
                  "--data-parallel", "2", "--model-parallel", "2"]
@@ -2898,7 +2915,7 @@ def phase_tp(card: str, lm_losses):
     print(f"tp (a): qwen2-0.5b full width and depth, --model-parallel 2 on 2 "
           f"ranks sharing the card, loss {losses}, steps 0-1 {gaps[0]:.3e} / "
           f"{gaps[1]:.3e} (relative) from phase 10a's one rank; median "
-          f"{med:.2f} ms/step (steps 1-3, host clock) on {card}")
+          f"{med:.2f} ms/step (steps 1-2, host clock) on {card}")
     quad = dist_spawn(4, tp_mesh_smoke, timeout=300)
     for r, q in enumerate(quad):
         got = [m["loss"] for m in q["hist"]]
@@ -2926,7 +2943,7 @@ def phase_tp(card: str, lm_losses):
 #     one group: B/C stored split, read whole) at full width, depth cut to
 #     4 layers (``step_profile.cut_depth``) so that two ranks fit on the
 #     card, through the CLI's trainer (``make_trainer``: bf16 hash tiles,
-#     batch 8, tokens from the first 8192 ids, seq 128 / 512), 3 steps with
+#     batch 8, tokens from the first 8192 ids, seq 128 / 512), 2 steps with
 #     --model-parallel 2 on two ranks sharing the card against one rank of
 #     the same depth in this phase: steps 0-1 within 1e-3 (relative);
 #     model-group all-reduce calls a step equal to
@@ -2944,7 +2961,7 @@ def phase_tp(card: str, lm_losses):
 #     smoke size: their 256 K-id vocabularies at full width make two ranks
 #     on one card too large for the phase's time.
 MIX_TP = [("minicpm3-4b", 128), ("mamba2-2.7b", 512)]
-MIX_TP_LAYERS, MIX_TP_STEPS = 4, 3
+MIX_TP_LAYERS, MIX_TP_STEPS = 4, 2
 MIX_TP_SMOKE = ["recurrentgemma-9b", "seamless-m4t-large-v2",
                 "deepseek-v2-236b"]
 
@@ -3161,7 +3178,7 @@ def phase_tp_mixers(card: str):
               f"sharing the card, loss {got}, steps 0-1 {gaps[0]:.3e} / "
               f"{gaps[1]:.3e} (relative) from one rank's {want}; median "
               f"{step_ms[arch]:.2f} ms/step against one rank's "
-              f"{base_ms:.2f} (steps 1-2, host clock) on {card}")
+              f"{base_ms:.2f} (step 1, host clock) on {card}")
     for arch in MIX_TP_SMOKE:
         for r, rp in enumerate(pair):
             q = rp["smoke"][arch]
@@ -3187,6 +3204,285 @@ def phase_tp_mixers(card: str):
           f"(a) and (b) {t_one:.1f} s; rank 0's parts: {secs} s), {launches} "
           f"K1 launches on {card}")
     return dict(launches=launches, step_ms=step_ms)
+
+
+# ---------------------------------------------------------------------------
+# 18. analysis: the graph contracts, the dry run and the K2 tickets
+# ---------------------------------------------------------------------------
+# The entrypoints whose step must make no synchronizing call on the card
+# (``torch.cuda.set_sync_debug_mode("error")`` raises on one)
+SYNC_FREE = ("begin_step", "prefill_commit", "prefill_commit_batch",
+             "serve_step_lanes", "serve_step_lanes_gdc")
+# a mutant on one entrypoint each, and the rule that must catch it
+CARD_MUTANTS = [("restack", "train_step_fused", "restack"),
+                ("host_transfer", "serve_step_lanes", "host-transfer"),
+                ("f64", "prefill_commit_batch", "dtype")]
+# the production cells accounted on the host (mesh, multi_pod)
+DRY_CELLS = [("qwen2-0.5b", False), ("mamba2-2.7b", True)]
+DRY_PEAK_RTOL = 0.10
+
+
+def sync_errors():
+    """A context in which a synchronizing CUDA call raises."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return ctx
+
+
+def k2_two_streams(calls: int = 20):
+    """K2 on two streams at once at (896, 4864), different data: every
+    call's sums bit-equal to ``sums_in_launch_order``. Returns the
+    launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sp_filter as k
+
+    shape = (896, 4864)
+    kw = dict(eta=0.3, tau_min=0.7, tau_max=1.3)
+    f32 = torch.float32
+    data = [sp_operands(shape, (f32, f32), seed, "cuda") for seed in (31, 32)]
+    want = [k.sums_in_launch_order(*o, plan=k.launch_plan(o[0].numel(), True),
+                                   **kw) for o in data]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(20_000_000)  # both queues fill, then run
+    before = ops.LAUNCHES["sp_filter"]
+    outs = [[], []]
+    for _ in range(calls):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(ops.sp_filter(*data[i], **kw))
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["sp_filter"] - before
+    equal = sum(torch.equal(gp, want[i][0]) and torch.equal(err, want[i][1])
+                for i in range(2) for _, gp, err in outs[i])
+    check(launches == 2 * calls, f"analysis: K2 launches {launches}")
+    check(equal == 2 * calls, f"analysis: K2 on two streams: {equal} of "
+          f"{2 * calls} calls' sums bit-equal to the launch order")
+    print(f"analysis: K2 on two streams at once, {calls} calls each at "
+          f"{shape}: {equal} of {2 * calls} sums bit-equal to "
+          f"sums_in_launch_order")
+    return launches
+
+
+def card_contracts(card: str):
+    """(a): the seven contracts on CUDA tensors. Returns the K1 launches."""
+    import torch
+
+    from repro_torch.analysis import graph_contracts as gc
+    from repro_torch.analysis.contracts import check_trace
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.op_cost import analyze_trace
+
+    launches = 0
+    for name in sorted(gc.CONTRACTS):
+        before = ops.LAUNCHES["analog_update"]
+        ctx = sync_errors() if name in SYNC_FREE else None
+        tr, aliased = gc.trace_entrypoint(name, device="cuda", context=ctx)
+        torch.cuda.synchronize()
+        n = ops.LAUNCHES["analog_update"] - before
+        launches += n
+        res = check_trace(gc.CONTRACTS[name], tr, aliased, check_hbm=False)
+        st = res.stats
+        k1 = len(tr.kernel_records("analog_update"))
+        print(f"analysis: {name}: {st['ops']} ops, {st['uploads']} uploads "
+              f"({st['upload_bytes']} B), {st['host_transfer_ops']} host "
+              f"reads, {k1} K1 records, {st['restacks']} restacks, "
+              f"{aliased} leaves in place, {analyze_trace(tr).bytes:.0f} B "
+              f"({'sync-free' if name in SYNC_FREE else 'no sync check'}) "
+              f"on {card}")
+        check(res.ok, f"analysis: {name} on the card: {res.violations}")
+        check(n == k1, f"analysis: {name}: {n} K1 launches, {k1} records")
+    for mutant, name, rule in CARD_MUTANTS:
+        before = ops.LAUNCHES["analog_update"]
+        res = gc.run_contract(name, mutant, device="cuda", check_hbm=False)
+        torch.cuda.synchronize()
+        launches += ops.LAUNCHES["analog_update"] - before
+        rules = sorted({v["rule"] for v in res.violations})
+        check(rule in rules, f"analysis: mutant {mutant} on {name}: {rules}")
+        print(f"analysis: mutant {mutant} on {name} caught by {rules}")
+    return launches
+
+
+def serve_capture(card: str) -> None:
+    """A CUDA graph capture of ``serve_step_lanes``: whether it captures and
+    whether one replay equals the eager step bit for bit (a measurement
+    for ROADMAP item 17b, not a gate)."""
+    import torch
+
+    from repro_torch.analysis import graph_contracts as gc
+    from repro_torch.core.paths import leaves
+
+    model, params, ecfg, paged, _ = gc._serve_setup("cuda")
+    last, table, pos, live = gc._lanes_inputs(ecfg, "cuda")
+
+    def step():
+        return model.serve_step_lanes(params, last, paged, table, pos, live)
+
+    toks, _ = step()
+    want = [t.clone() for t in [toks] + leaves(paged)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            g_toks, _ = step()
+    except Exception as e:  # noqa: BLE001 -- the measurement is the outcome
+        print(f"analysis: serve_step_lanes does not capture in a CUDA graph: "
+              f"{type(e).__name__}: {str(e)[:200]} on {card}")
+        torch.cuda.synchronize()
+        return
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b)
+               for a, b in zip([g_toks] + leaves(paged), want))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"analysis: serve_step_lanes captures in a CUDA graph; one replay "
+          f"{'equals' if same else 'differs from'} the eager step bit for "
+          f"bit; {replay_ms:.3f} ms a replay against {eager_ms:.3f} ms eager "
+          f"(smoke config, 4 lanes) on {card}")
+
+
+def dry_vs_card(card: str):
+    """(b): ``dryrun.account_step`` of phase 10a's CLI trainer (Qwen2-0.5B,
+    full width and depth, batch 8, seq 128, one rank) on ``meta``, beside
+    ``max_memory_allocated`` of the same step on the card and its tile
+    bytes. Returns the K1 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import BigramLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("qwen2-0.5b"))
+    trainer = train.make_trainer(model, "erider", False, LM_STEPS)
+    meta = dryrun.rank_tree(trainer.abstract_state(
+        model.abstract_params("meta"), "meta"))
+    mbatch = {k: torch.empty((8, 128), dtype=torch.int32, device="meta")
+              for k in ("tokens", "labels")}
+    acc = dryrun.account_step(trainer, meta, mbatch)
+    del meta
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = ops.LAUNCHES["analog_update"]
+    params = model.init(prng.PRNGKey(0), "cuda")
+    state = trainer.init(prng.PRNGKey(1), params)
+    del params
+    raw = BigramLM(vocab=8192, seed=7).batch(0, 8, 128)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in raw.items()}
+    state, _ = trainer.train_step(state, batch)   # warm: the card's caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tiles = tile_state_bytes(state)
+    launches = ops.LAUNCHES["analog_update"] - before
+    loss = float(metrics["loss"])
+    del state, metrics, batch
+    torch.cuda.empty_cache()
+    gap = acc["peak_bytes"] / peak - 1
+    k1 = len(acc["trace"].kernel_records("analog_update"))
+    print(f"analysis: dry run of phase 10a's step: predicted peak "
+          f"{acc['peak_bytes']} B ({acc['peak_bytes'] / 2 ** 30:.3f} GiB: "
+          f"arguments {acc['argument_bytes']} + step {acc['temp_bytes']}), "
+          f"measured max_memory_allocated {peak} B ({peak / 2 ** 30:.3f} "
+          f"GiB; {resident} B resident before the step): {100 * gap:+.2f} %; "
+          f"tile bytes predicted {acc['tile_state_bytes']}, measured {tiles}; "
+          f"{acc['cost'].ops} ops, {k1} K1 records (card: {launches // 2} "
+          f"launches a step), {acc['cost'].flops:.4e} flops, "
+          f"{acc['cost'].bytes:.4e} B, traced in {acc['trace_s']:.1f} s on "
+          f"the host; loss {loss:.4f} on {card}")
+    check(math.isfinite(loss), "analysis: the 10a step's loss")
+    check(abs(gap) <= DRY_PEAK_RTOL, f"analysis: predicted peak "
+          f"{acc['peak_bytes']} vs measured {peak} ({100 * gap:+.2f} %)")
+    check(acc["tile_state_bytes"] == tiles,
+          f"analysis: tile bytes {acc['tile_state_bytes']} vs {tiles}")
+    check(launches == 2 * k1, f"analysis: {launches} K1 launches in two "
+          f"steps, {k1} records a step predicted")
+    return launches
+
+
+def dry_cells(card: str) -> None:
+    """(c): the two production cells, accounted on the host after the
+    card's phases: the per-rank peak, the bottleneck and the roofline
+    fraction on the H100's constants."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun
+
+    out = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        for arch, multi_pod in DRY_CELLS:
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = dryrun.run_cell(arch, "train_4k", multi_pod=multi_pod,
+                                    out_dir=out)
+            secs = time.time() - t0
+            check(r["status"] == "ok", f"analysis: dry run {arch}: "
+                  f"{r.get('error')}")
+            roof, mem = r["roofline"], r["memory"]
+            check(roof["hlo_flops"] > 0, f"analysis: dry run {arch}: no flops")
+            print(f"analysis: dry run {arch} train_4k on {r['mesh']} (rank 0 "
+                  f"of {roof['chips']}): peak {mem['peak_bytes']} B a rank "
+                  f"({mem['peak_per_device_gb']} GiB; arguments "
+                  f"{mem['argument_bytes']} B, tiles "
+                  f"{mem['tile_state_bytes']} B), {r['ops']} ops, bottleneck "
+                  f"{roof['bottleneck']} (compute {roof['t_compute']:.4f} s, "
+                  f"memory {roof['t_memory']:.4f} s, collective "
+                  f"{roof['t_collective']:.4f} s), roofline fraction "
+                  f"{roof['roofline_fraction']:.5f}, useful "
+                  f"{roof['useful_ratio']:.4f}; {secs:.1f} s on the host "
+                  f"(H100 80GB HBM3 constants)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_analysis(card: str):
+    """Phase 18 (see above). Returns its K1 and K2 launches."""
+    t0 = time.time()
+    k2 = k2_two_streams()
+    k1 = card_contracts(card)
+    k1 += dry_vs_card(card)
+    serve_capture(card)
+    dry_cells(card)
+    print(f"analysis: phase 18 took {time.time() - t0:.1f} s, {k1} K1 and "
+          f"{k2} K2 launches on {card}")
+    return dict(launches=k1, sp_launches=k2)
 
 
 def main() -> int:
@@ -3263,18 +3559,22 @@ def main() -> int:
     for arch, ms in mix["step_ms"].items():
         print(f"tp_mixers[{arch}]: {ms:.2f} ms/step on 2 model ranks on "
               f"{card}")
+    ana = phase_analysis(card)
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
                         + serve["train_launches"] + paper["launches"]
                         + dist["launches"] + tp["launches"]
-                        + mix["launches"])
+                        + mix["launches"] + ana["launches"])
     kern["lm_launches"] = lm["launches"]
     kern["zoo_launches"] = zoo
     kern["paper_launches"] = paper["launches"]
     kern["dist_launches"] = dist["launches"]
     kern["tp_launches"] = tp["launches"]
     kern["tp_mixers_launches"] = mix["launches"]
+    kern["analysis_launches"] = ana["launches"]
+    spf["analysis_launches"] = ana["sp_launches"]
+    spf["launches"] += ana["sp_launches"]
     kern["full_width"] = full
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",

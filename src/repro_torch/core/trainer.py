@@ -11,9 +11,10 @@ which leaves live on which analog tile stacks, ``train_step`` runs
 The grouped engine keeps tiles in a class-keyed ``TileBank``. Its
 ``update_backend="vmap"`` runs the per-tile update in a loop over the
 members of each class, with per-tile keys; ``"fused"`` runs one batched
-update over each whole class stack (one 3-D kernel launch per array). A
-loop over classes takes the place of ``lax.scan``, so ``scan_groups`` has
-no effect on results here. ``engine="looped"`` keeps the per-tile dict
+update over each whole class stack (one 3-D kernel launch per array).
+Either runs on the class flattened to one stack of tiles, which takes the
+place of ``lax.scan`` over its groups, so ``scan_groups`` has no effect
+on results here. ``engine="looped"`` keeps the per-tile dict
 layout. Keys fold a CRC of the tile path or of the group's member paths,
 as in the JAX package, so both packages draw the same bits.
 
@@ -90,7 +91,7 @@ from .digital_opt import (DigitalOptConfig, ScheduleConfig, apply_opt,
                           clip_by_global_norm, init_opt, lr_at)
 from .paths import TensorSpec, flatten_with_path, tree_map, tree_map_with_path
 from .plan import AnalogPlan, TilePolicy, legacy_plan, plan_partition
-from .tile import (TileBank, TileConfig, _class_member, abstract_tile,
+from .tile import (TileBank, TileConfig, abstract_tile,
                    abstract_tile_group, group_policies, group_tiles,
                    init_tile, stack_tiles)
 
@@ -219,24 +220,20 @@ def _per_tile(fn):
     return run
 
 
-def _run_class(vfn, fused: bool, cstate, kr, extras):
-    """``vfn`` over one class stack (C, m, *member) with keys (C, m, 2):
-    the 'fused' backend as one flattened (C*m) stack, else group by group;
-    the output gets the leading (C, m) axes back."""
+def _run_class(vfn, cstate, kr, extras):
+    """``vfn`` over one class stack (C, m, *member) with keys (C, m, 2), as
+    one flattened (C*m) stack: the 'fused' backend's batched update, or
+    the per-tile loop of the others, whose tiles are independent, so the
+    class needs no restack of per-group results; the output gets the
+    leading (C, m) axes back."""
     C = kr.shape[0]
-    if fused:
-        def flat(t):
-            return tree_map(lambda l: l.reshape((-1,) + tuple(l.shape[2:])), t)
 
-        res = vfn(flat(cstate), flat(kr), *(flat(e) for e in extras))
-        return tree_map(lambda l: l.reshape((C, l.shape[0] // C)
-                                            + tuple(l.shape[1:])), res)
-    results = [vfn(_class_member(cstate, ci), kr[ci],
-                   *(_class_member(e, ci) for e in extras))
-               for ci in range(C)]
-    if C == 1:
-        return tree_map(lambda l: l.unsqueeze(0), results[0])
-    return tree_map(lambda *ls: torch.stack(ls), *results)
+    def flat(t):
+        return tree_map(lambda l: l.reshape((-1,) + tuple(l.shape[2:])), t)
+
+    res = vfn(flat(cstate), flat(kr), *(flat(e) for e in extras))
+    return tree_map(lambda l: l.reshape((C, l.shape[0] // C)
+                                        + tuple(l.shape[1:])), res)
 
 
 def _map_result(res, state_fn, metric_fn):
@@ -322,11 +319,10 @@ class AnalogTrainer:
                        members: str = "whole"):
         """Apply one stack-level function per class.
 
-        ``make_vfn(tcfg)`` returns ``vfn(group_state, keys_raw, *extra)``
-        over one (n, *member) group stack. Per-group keys fold a CRC of the
-        group's member paths. Classes under ``update_backend='fused'`` run
-        as one flattened (C*n, *member) stack; other classes run group by
-        group. ``extras``: {class-name: (C, n, ...) whole tensors}. Returns
+        ``make_vfn(tcfg)`` returns ``vfn(stack, keys_raw, *extra)`` over a
+        (m, *member) stack of tiles. Per-group keys fold a CRC of the
+        group's member paths. Each class runs as one flattened
+        (C*n, *member) stack (``_run_class``). ``extras``: {class-name: (C, n, ...) whole tensors}. Returns
         {class-name: vfn output with a leading class axis}: under a mesh,
         state leaves as this rank's blocks and metrics whole.
         ``members="local"`` (a function that draws no noise and reduces
@@ -346,7 +342,7 @@ class AnalogTrainer:
             ex = [e[cname] for e in extras]
             cstate = bank.classes[cname]
             if self.mesh is None:
-                out[cname] = _run_class(vfn, fused, cstate, kr, ex)
+                out[cname] = _run_class(vfn, cstate, kr, ex)
             else:
                 out[cname] = self._run_class_sharded(
                     f"tiles/{cname}", vfn, fused, cstate, kr, ex, members)
@@ -367,7 +363,7 @@ class AnalogTrainer:
             if whole_members:
                 st = tree_map_with_path(lambda p, leaf: shd.gather(
                     leaf, spec(p), mesh, dims=range(2, leaf.ndim)), st)
-            res = _run_class(vfn, fused, st, k, list(ex))
+            res = _run_class(vfn, st, k, list(ex))
             if whole_members:
                 res = _map_result(res, lambda p, leaf: shd.shard(
                     leaf, spec(p), mesh, dims=range(2, leaf.ndim)),
@@ -385,7 +381,7 @@ class AnalogTrainer:
         if members == "local":
             if extras:
                 raise ValueError("members='local' takes no per-tile inputs")
-            return _run_class(vfn, fused, cstate, kr, [])
+            return _run_class(vfn, cstate, kr, [])
         whole = tree_map_with_path(
             lambda p, leaf: shd.gather(leaf, spec(p), mesh), cstate)
         if fused:
@@ -406,7 +402,7 @@ class AnalogTrainer:
                 return _map_result(
                     res, lambda p, leaf: shd.shard(uncut(leaf), spec(p), mesh),
                     uncut)
-        res = _run_class(vfn, fused, whole, kr, extras)
+        res = _run_class(vfn, whole, kr, extras)
         return _map_result(res, lambda p, leaf: shd.shard(leaf, spec(p), mesh),
                            lambda m: m)
 

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from .. import prng
@@ -84,7 +83,11 @@ def zs_estimate_with_trace(key, w0, dp: DeviceParams, cfg: DeviceConfig,
 
 
 def pulses_to_target(g_sq_trace, target: float) -> int:
-    """Smallest N with running-average ||G||^2 <= target (-1 if never)."""
+    """Smallest N with running-average ||G||^2 <= target (-1 if never).
+    Host-side post-processing of a finished trace (its own numpy import
+    says so)."""
+    import numpy as np
+
     if torch.is_tensor(g_sq_trace):
         g_sq_trace = g_sq_trace.detach().cpu().numpy()
     g = np.asarray(g_sq_trace)

@@ -26,13 +26,21 @@ checkpoint use.
   model-group traffic reads apart from its data-group traffic.
 - Only collectives that torch 2.11 and 2.13 both have: ``all_gather`` of a
   list and ``all_reduce`` (a reduce-scatter is an all-reduce then a slice).
+- Abstract mode (``abstract(mesh, rank)``, the dry run): ``mesh.group``
+  gives ``GroupSpec`` descriptors, with no process group, and the
+  collectives on them return empty tensors of the right per-rank shape on
+  their input's device (``meta`` in the dry run), counted in ``STATS``
+  under their labels as a real run counts them. Nothing changes outside
+  the context.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,6 +49,40 @@ TIMEOUT = datetime.timedelta(seconds=60)
 
 _STATE: Dict[str, object] = {"backend": None, "device": None}
 STATS: Dict[str, Dict[str, float]] = {}
+_ABSTRACT: Dict[str, object] = {"mesh": None, "rank": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """A group of ranks in abstract mode: its mesh axes and members (in
+    group-rank order); no process group stands behind it."""
+    axes: Tuple[str, ...]
+    ranks: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+@contextlib.contextmanager
+def abstract(mesh, rank: int = 0):
+    """Run as rank ``rank`` of ``mesh`` with no process group: inside,
+    ``mesh.coords()`` is ``rank``'s, ``mesh.group`` gives ``GroupSpec``s,
+    and ``all_gather``, ``all_reduce`` and ``barrier`` only compute shapes
+    and count (see the module docstring)."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside {mesh}")
+    saved = dict(_ABSTRACT)
+    _ABSTRACT.update(mesh=mesh, rank=rank)
+    try:
+        yield
+    finally:
+        _ABSTRACT.update(saved)
+
+
+def abstract_rank(mesh) -> Optional[int]:
+    """This process's rank of ``mesh`` in abstract mode, else None."""
+    return _ABSTRACT["rank"] if _ABSTRACT["mesh"] is mesh else None
 
 
 def reset_stats() -> None:
@@ -108,16 +150,24 @@ def backend() -> Optional[str]:
 
 
 def rank() -> int:
+    if _ABSTRACT["mesh"] is not None:
+        return _ABSTRACT["rank"]
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def world() -> int:
+    if _ABSTRACT["mesh"] is not None:
+        return _ABSTRACT["mesh"].size
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def world_of(group) -> int:
     """The number of ranks in ``group`` (None: a group of one)."""
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, GroupSpec):
+        return group.size
+    return dist.get_world_size(group)
 
 
 def new_group(ranks: List[int]):
@@ -180,6 +230,11 @@ def all_gather(t: torch.Tensor, group, dim: int = 0,
     group-rank order; ``t`` itself when ``group`` is None."""
     if group is None:
         return t
+    if isinstance(group, GroupSpec):
+        shape = list(t.shape)
+        shape[dim] *= group.size
+        _count(label, t.numel() * t.element_size(), 0.0)
+        return t.new_empty(shape)
     n = dist.get_world_size(group)
 
     def gather(x):
@@ -193,7 +248,9 @@ def all_gather(t: torch.Tensor, group, dim: int = 0,
 def barrier() -> None:
     """Return when every rank of the world has called ``barrier`` (an
     all-reduce of one element, so it takes the route of any collective)."""
-    if dist.is_initialized():
+    if _ABSTRACT["mesh"] is not None:
+        _count("barrier", 4, 0.0)
+    elif dist.is_initialized():
         all_reduce(torch.zeros(1), dist.group.WORLD, label="barrier")
 
 
@@ -205,6 +262,11 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum",
     tensor-parallel operators do, forward and backward."""
     if group is None:
         return t
+    if isinstance(group, GroupSpec):
+        if op not in ("sum", "max"):
+            raise KeyError(op)
+        _count(label, t.numel() * t.element_size(), 0.0)
+        return torch.empty_like(t)
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
     def reduce(x):

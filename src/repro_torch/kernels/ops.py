@@ -1,14 +1,23 @@
 """Dispatching wrappers around the port's kernels.
 
-A wrapper runs its hand-written CUDA kernel on CUDA tensors and its plain
-PyTorch version (``kernels/ref.py``) on CPU tensors, and decides by the
-device of the tensor it is given, and nothing else: on a CUDA tensor a
-wrapper launches its kernel or raises, it never falls back.
+Each kernel is one ``torch.library.custom_op`` in the ``repro_torch``
+namespace (``repro_torch::analog_update``, ``::analog_mvm``,
+``::sp_filter``), so the dispatcher routes a call by the device of its
+tensors, and nothing else: the CUDA implementation launches the
+hand-written kernel or raises, it never falls back; the CPU
+implementation is the plain PyTorch version (``kernels/ref.py``); the
+fake rule (``meta`` tensors, fake tensors) only gives the outputs' shapes
+and dtypes. A stream of dispatched operations (``roofline.op_cost.OpTrace``)
+shows each kernel call as one operation under the kernel's name.
 
-``LAUNCHES`` counts, per kernel, the calls these wrappers made to it, so
-a run can show that its main path went through the kernels. One
+``LAUNCHES`` counts, per kernel, the calls the CUDA implementations made
+to it, so a run can show that its main path went through the kernels. One
 ``analog_mvm`` call is two CUDA launches (the DAC prologue and the
 product) and counts once.
+
+On any device but the CPU a wrapper hands the op the operands the kernel
+takes (contiguous, 2-D or 3-D, ``ubits`` as int32), so a ``meta`` run
+dispatches what the card would.
 
 The CUDA kernels bounds-check ragged shapes, so the Pallas block padding of
 the JAX package's ``ops.py`` has no counterpart here. Noise is always drawn
@@ -16,9 +25,10 @@ at the original shape, so both backends consume identical random bits.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+from torch import Tensor
 
 from .. import prng
 from . import fastrng, ref
@@ -29,8 +39,9 @@ LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_mvm": 0,
 
 def backend(x: torch.Tensor) -> str:
     """The backend a wrapper uses for tensor ``x``: its kernel on a CUDA
-    tensor, the plain version (``kernels/ref.py``) on a CPU tensor."""
-    return "cuda" if x.is_cuda else "ref"
+    tensor, the plain version (``kernels/ref.py``) on a CPU tensor; a
+    ``meta`` tensor takes the kernel's operands and the fake rule."""
+    return "ref" if x.device.type == "cpu" else "cuda"
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +76,35 @@ def make_noise(key, shape, device, rng: str = "threefry"):
     return prng.bits(ku, shape, device), prng.normal(kz, shape, device)
 
 
+@torch.library.custom_op("repro_torch::analog_update", mutates_args=(),
+                         device_types="cpu")
+def _analog_update_op(w: Tensor, dw: Tensor, gamma: Tensor, rho: Tensor,
+                      ubits: Tensor, zeta: Tensor, dw_min: float,
+                      tau_min: float, tau_max: float, sigma_c2c: float,
+                      bl: int) -> Tensor:
+    return ref.analog_update_ref(w, dw, gamma, rho, ubits, zeta,
+                                 dw_min=dw_min, tau_min=tau_min,
+                                 tau_max=tau_max, sigma_c2c=sigma_c2c, bl=bl)
+
+
+@_analog_update_op.register_kernel("cuda")
+def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
+      bl):
+    from .analog_update import analog_update_cuda
+
+    out = analog_update_cuda(w, dw, gamma, rho, ubits, zeta, dw_min=dw_min,
+                             tau_min=tau_min, tau_max=tau_max,
+                             sigma_c2c=sigma_c2c, bl=bl)
+    LAUNCHES["analog_update"] += 1
+    return out
+
+
+@_analog_update_op.register_fake
+def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
+      bl):
+    return torch.empty_like(w)
+
+
 def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
                   tau_max: float, sigma_c2c: float, bl: int = 0,
                   rng: str = "threefry", noise=None):
@@ -73,28 +113,50 @@ def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
     ``noise`` optionally supplies pre-drawn ``(ubits, zeta)`` at
     ``w.shape``; then ``key``/``rng`` are ignored and may be None.
     """
-    kw = dict(dw_min=dw_min, tau_min=tau_min, tau_max=tau_max,
-              sigma_c2c=sigma_c2c, bl=bl)
+    kw = dict(dw_min=float(dw_min), tau_min=float(tau_min),
+              tau_max=float(tau_max), sigma_c2c=float(sigma_c2c),
+              bl=int(bl) if bl and bl > 0 else 0)
     ubits, zeta = (noise if noise is not None
                    else make_noise(key, w.shape, w.device, rng))
     if backend(w) == "ref":
-        return ref.analog_update_ref(w, dw, gamma, rho, ubits, zeta, **kw)
-
-    from .analog_update import analog_update_cuda
-
+        return _analog_update_op(w, dw, gamma, rho, ubits, zeta, **kw)
     if ubits.dtype == torch.int64:
         ubits = ubits.to(torch.int32)  # same low 32 bits: the u32 pattern
     f32 = torch.float32
     operands = [_view2d(t).contiguous() for t in (
         w, dw, gamma.to(f32), rho.to(f32), ubits, zeta.to(f32))]
-    out = analog_update_cuda(*operands, **kw)
-    LAUNCHES["analog_update"] += 1
-    return out.reshape(w.shape)
+    return _analog_update_op(*operands, **kw).reshape(w.shape)
 
 
 # ---------------------------------------------------------------------------
 # analog MVM
 # ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::analog_mvm", mutates_args=(),
+                         device_types="cpu")
+def _analog_mvm_op(x: Tensor, w: Tensor, noise: Tensor, inp_res: float,
+                   inp_bound: float, out_res: float, out_bound: float,
+                   out_noise: float) -> Tensor:
+    return ref.analog_mvm_ref(x, w, noise, inp_res=inp_res,
+                              inp_bound=inp_bound, out_res=out_res,
+                              out_bound=out_bound, out_noise=out_noise)
+
+
+@_analog_mvm_op.register_kernel("cuda")
+def _(x, w, noise, inp_res, inp_bound, out_res, out_bound, out_noise):
+    from .analog_matmul import analog_mvm_cuda
+
+    out = analog_mvm_cuda(x, w, noise, inp_res=inp_res, inp_bound=inp_bound,
+                          out_res=out_res, out_bound=out_bound,
+                          out_noise=out_noise)
+    LAUNCHES["analog_mvm"] += 1
+    return out
+
+
+@_analog_mvm_op.register_fake
+def _(x, w, noise, inp_res, inp_bound, out_res, out_bound, out_noise):
+    return x.new_empty((x.shape[0], w.shape[-1]))
 
 
 def analog_mvm(x, w, key, *, inp_res: float, inp_bound: float,
@@ -107,23 +169,19 @@ def analog_mvm(x, w, key, *, inp_res: float, inp_bound: float,
     output shape, as the JAX package draws it, unless ``noise`` (any shape
     of M * N elements) is given; then ``key`` is ignored and may be None.
     """
-    io = dict(inp_res=inp_res, inp_bound=inp_bound, out_res=out_res,
-              out_bound=out_bound, out_noise=out_noise)
+    io = dict(inp_res=float(inp_res), inp_bound=float(inp_bound),
+              out_res=float(out_res), out_bound=float(out_bound),
+              out_noise=float(out_noise))
     batch_shape = x.shape[:-1]
     n = w.shape[-1]
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
     noise = (prng.normal(key, (m, n), x.device) if noise is None
              else noise.reshape(m, n))
-    if backend(x) == "ref":
-        out = ref.analog_mvm_ref(x2, w, noise, **io)
-    else:
-        from .analog_matmul import analog_mvm_cuda
-
-        out = analog_mvm_cuda(x2.contiguous(), w.contiguous(),
-                              noise.to(torch.float32).contiguous(), **io)
-        LAUNCHES["analog_mvm"] += 1
-    return out.reshape(*batch_shape, n)
+    if backend(x) != "ref":
+        x2, w = x2.contiguous(), w.contiguous()
+        noise = noise.to(torch.float32).contiguous()
+    return _analog_mvm_op(x2, w, noise, **io).reshape(*batch_shape, n)
 
 
 # ---------------------------------------------------------------------------
@@ -131,20 +189,40 @@ def analog_mvm(x, w, key, *, inp_res: float, inp_bound: float,
 # ---------------------------------------------------------------------------
 
 
+@torch.library.custom_op("repro_torch::sp_filter", mutates_args=(),
+                         device_types="cpu")
+def _sp_filter_op(q: Tensor, p: Tensor, gamma: Tensor, rho: Tensor,
+                  eta: float, tau_min: float,
+                  tau_max: float) -> Tuple[Tensor, Tensor]:
+    q_new, gp_sq, err_sq = ref.sp_filter_ref(q, p, gamma, rho, eta=eta,
+                                             tau_min=tau_min, tau_max=tau_max)
+    return q_new, torch.stack([gp_sq, err_sq])
+
+
+@_sp_filter_op.register_kernel("cuda")
+def _(q, p, gamma, rho, eta, tau_min, tau_max):
+    from .sp_filter import sp_filter_cuda
+
+    q_new, sums = sp_filter_cuda(q, p, gamma, rho, eta=eta, tau_min=tau_min,
+                                 tau_max=tau_max)
+    LAUNCHES["sp_filter"] += 1
+    return q_new, sums
+
+
+@_sp_filter_op.register_fake
+def _(q, p, gamma, rho, eta, tau_min, tau_max):
+    return torch.empty_like(q), q.new_empty((2,), dtype=torch.float32)
+
+
 def sp_filter(q, p, gamma, rho, *, eta: float, tau_min: float,
               tau_max: float):
     """EMA tracking update (12) plus telemetry, any rank: returns
     ``(q_new, gp_sq, err_sq)``, the sums as 0-d float32 tensors on ``q``'s
     device (no host sync); see ``ref.sp_filter_ref``."""
-    kw = dict(eta=eta, tau_min=tau_min, tau_max=tau_max)
-    if backend(q) == "ref":
-        return ref.sp_filter_ref(q, p, gamma, rho, **kw)
-
-    from .sp_filter import sp_filter_cuda
-
-    f32 = torch.float32
-    q_new, gp_sq, err_sq = sp_filter_cuda(
-        q.contiguous(), p.contiguous(), gamma.to(f32).contiguous(),
-        rho.to(f32).contiguous(), **kw)
-    LAUNCHES["sp_filter"] += 1
-    return q_new, gp_sq, err_sq
+    kw = dict(eta=float(eta), tau_min=float(tau_min), tau_max=float(tau_max))
+    if backend(q) != "ref":
+        f32 = torch.float32
+        q, p = q.contiguous(), p.contiguous()
+        gamma, rho = gamma.to(f32).contiguous(), rho.to(f32).contiguous()
+    q_new, sums = _sp_filter_op(q, p, gamma, rho, **kw)
+    return q_new, sums[0], sums[1]

@@ -33,8 +33,12 @@ CHUNK = 32              # items: the unit of the blocks' ranges
 MAX_BLOCKS = 132 * 4    # four blocks on each of the H100's 132 SMs
 
 _FN = None
-# One ticket per device (an int32 the kernel leaves at 0), made at first use
-_TICKETS: Dict[int, torch.Tensor] = {}
+# One ticket per (device, stream): an int32 the kernel leaves at 0, a slot
+# of the device's pool of TICKETS, which is made and zeroed at the first
+# call on the device; a stream takes the next free slot at its first call
+TICKETS = 256
+_POOLS: Dict[int, torch.Tensor] = {}
+_SLOTS: Dict[Tuple[int, int], int] = {}
 
 
 def _fn():
@@ -163,38 +167,51 @@ def _check(q, p, gamma, rho):
             raise TypeError(f"{name} must be float32, got {named[name].dtype}")
 
 
-def _ticket(device: torch.device) -> torch.Tensor:
-    """The device's ticket, made and zeroed at its first call, which must
-    not be inside a CUDA graph capture (the graph would own it)."""
-    t = _TICKETS.get(device.index)
-    if t is None:
+def _ticket(device: torch.device, stream) -> torch.Tensor:
+    """The ticket of ``stream`` on ``device``. The device's pool is made
+    at its first call, which must not be inside a CUDA graph capture (the
+    graph would own it); a new stream only takes a slot, which a capture
+    may do."""
+    pool = _POOLS.get(device.index)
+    if pool is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the first sp_filter call on a device must "
                                "run outside a CUDA graph capture")
-        t = torch.zeros(1, dtype=torch.int32, device=device)
+        pool = torch.zeros(TICKETS, dtype=torch.int32, device=device)
         torch.cuda.synchronize(device)  # zeroed before any stream uses it
-        _TICKETS[device.index] = t
-    return t
+        _POOLS[device.index] = pool
+    key = (device.index, stream.cuda_stream)
+    slot = _SLOTS.get(key)
+    if slot is None:
+        slot = sum(1 for d, _ in _SLOTS if d == device.index)
+        if slot >= TICKETS:
+            raise RuntimeError(f"sp_filter has tickets for {TICKETS} streams "
+                               f"a device")
+        _SLOTS[key] = slot
+    return pool[slot:slot + 1]
 
 
 def sp_filter_cuda(q, p, gamma, rho, *, eta: float, tau_min: float,
                    tau_max: float):
-    """One launch on the current stream; returns ``(q_new, gp_sq,
-    err_sq)``, the sums as 0-d float32 tensors on the card (no host sync).
-    Raises if the operands are not what the kernel takes or the launch is
-    refused.
+    """One launch on the current stream; returns ``(q_new, sums)``, the
+    sums ``[gp_sq, err_sq]`` as a (2,) float32 tensor on the card (no host
+    sync). Raises if the operands are not what the kernel takes or the
+    launch is refused.
 
-    The ticket that finds the last block is one per device: two calls
-    running at the same time on two streams of one device would share it
-    and must not overlap. Calls on one stream, and graphs replayed on one
-    stream, are safe: the kernel puts the ticket back to 0 itself."""
+    The ticket that finds the last block is one per (device, stream):
+    calls on one stream run one after another, and calls on two streams
+    at the same time each count on their own. The kernel puts the ticket
+    back to 0 itself, so graphs replayed on the stream they were captured
+    on are safe. A graph replayed on another stream uses its capture
+    stream's ticket and must not overlap a call on that stream."""
     _check(q, p, gamma, rho)
     q_new = torch.empty_like(q)
     plan = launch_plan(q.numel(), vector_aligned(q, p, gamma, rho, q_new))
-    ticket = _ticket(q.device)
+    cur = torch.cuda.current_stream(q.device)
+    ticket = _ticket(q.device, cur)
     work = torch.empty(2 + 2 * plan.blocks, dtype=torch.float32,
                        device=q.device)  # the sums, then the partials
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = cur.cuda_stream
     args = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[p.dtype], q.data_ptr(),
             p.data_ptr(), gamma.data_ptr(), rho.data_ptr(), q_new.data_ptr(),
             work.data_ptr() + 8, work.data_ptr(), ticket.data_ptr(),
@@ -207,4 +224,4 @@ def sp_filter_cuda(q, p, gamma, rho, *, eta: float, tau_min: float,
             err = _fn()(*args)
     if err != 0:
         raise RuntimeError(f"sp_filter kernel launch failed: CUDA error {err}")
-    return q_new, work[0], work[1]
+    return q_new, work[:2]

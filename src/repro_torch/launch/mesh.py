@@ -9,7 +9,8 @@ slowest). A ``Mesh`` needs no process group to exist: the sharding rules
 alone, so the port's specs can be held against the JAX package's on the
 production meshes (16x16 and 2x16x16). ``coords`` and ``group`` need a
 process group whose world size is the mesh's size
-(``distributed.runtime.init``).
+(``distributed.runtime.init``), or ``distributed.runtime.abstract``
+(the dry run), in which they stand for one rank with no process group.
 """
 from __future__ import annotations
 
@@ -45,6 +46,11 @@ class Mesh:
     def _world(self) -> Tuple[int, int]:
         import torch.distributed as dist
 
+        from ..distributed import runtime
+
+        r = runtime.abstract_rank(self)
+        if r is not None:
+            return r, self.size
         if not dist.is_initialized():
             raise RuntimeError(f"{self} needs a process group of world size "
                                f"{self.size}; none is initialized "
@@ -80,13 +86,24 @@ class Mesh:
     def axes_size(self, axes: Axes) -> int:
         return math.prod(self.shape[a] for a in _axes(axes))
 
+    def members(self, axes: Axes, rank: int) -> Tuple[int, ...]:
+        """The ranks that share ``rank``'s coordinates on every axis outside
+        ``axes``, in the order of ``index(axes)``."""
+        mine = self.coords_of(rank)
+        rest = [a for a in self.axis_names if a not in _axes(axes)]
+        return tuple(r for r in range(self.size)
+                     if all(self.coords_of(r)[a] == mine[a] for a in rest))
+
     def group(self, axes: Axes):
         """The process group of the ranks that share this rank's
         coordinates on every axis outside ``axes``; its group ranks follow
         ``index(axes)``. Every group of every axis subset is made at the
         first call, which every rank must therefore reach at the same
         point of its program (``torch.distributed.new_group`` is
-        collective)."""
+        collective). In ``distributed.runtime.abstract`` mode it gives a
+        ``runtime.GroupSpec`` and makes no process group."""
+        from ..distributed import runtime
+
         rank, _ = self._world()
         key = tuple(a for a in self.axis_names if a in _axes(axes))
         if key != _axes(axes):
@@ -94,9 +111,9 @@ class Mesh:
                              f"{self.axis_names}")
         if self.axes_size(key) == 1:
             return None
+        if runtime.abstract_rank(self) is not None:
+            return runtime.GroupSpec(key, self.members(key, rank))
         if self._groups is None:
-            from ..distributed import runtime
-
             groups = {}
             names = self.axis_names
             for k in range(1, len(names) + 1):

@@ -109,7 +109,8 @@ def correct_in_graph(params, sig0: Dict[str, float], chunks: int = GDC_CHUNKS):
     def fix(p, leaf):
         if leaf is None or p not in sigs:
             return leaf
-        alpha = torch.tensor(sig0[p], dtype=torch.float32,
-                             device=leaf.device) / torch.clamp_min(sigs[p], 1e-30)
+        # a fill on the device, not a host tensor copied to it
+        alpha = torch.full((), sig0[p], dtype=torch.float32,
+                           device=leaf.device) / torch.clamp_min(sigs[p], 1e-30)
         return (leaf * alpha.to(leaf.dtype)).to(leaf.dtype)
     return tree_map_with_path(fix, params, keep_none=True)

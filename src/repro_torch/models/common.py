@@ -390,8 +390,9 @@ def take_rows(table, ids):
     row's gradients in a fixed order on either device: on CUDA an indexed
     read (its ``index_put_`` sorts the ids first; ``F.embedding``'s
     backward is not bit-reproducible there), on the CPU ``F.embedding``
-    (an indexed read's ``index_put_`` adds in parallel there)."""
-    if table.is_cuda:
+    (an indexed read's ``index_put_`` adds in parallel there). A ``meta``
+    table takes the card's route."""
+    if table.device.type != "cpu":
         return table[ids]
     return F.embedding(ids, table)
 

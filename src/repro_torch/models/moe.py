@@ -277,7 +277,8 @@ def _ragged_moe(p, xt, gate_vals, gate_idx, cfg: ModelConfig):
     # every token k times (jnp.repeat), then sorted: the copies' gradients
     # add up in expand's backward, a reduction in a fixed order
     xs = _permute(x_flat[:, None].expand(n, k, d).reshape(n * k, d), order)
-    sizes = torch.bincount(e_flat, minlength=E).tolist()      # host sync
+    # host sync: the ragged dispatch cuts the rows by expert on the host
+    sizes = torch.bincount(e_flat, minlength=E).tolist()  # graphlint: allow (no grouped GEMM takes device sizes)
 
     h = _grouped_dot(xs, p["wi"], sizes)
     if cfg.glu:

@@ -23,7 +23,7 @@ normals agree with JAX to a few ULP; bits and uniforms are bit-exact.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -137,7 +137,8 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a*b + c rounded once, as XLA-CPU contracts it inside a
     fusion. The float64 product of two float32 values is exact, and for the
     O(1) operands used here so is the float64 sum, so the one rounding to
-    float32 is the fused result."""
+    float32 is the fused result. Only the inverse-CDF tables and uniforms
+    of a span other than 1 take it, never a step's draw."""
     a64 = a.to(torch.float64)
     b = b.to(torch.float64) if torch.is_tensor(b) else b
     c = c.to(torch.float64) if torch.is_tensor(c) else c
@@ -155,6 +156,11 @@ def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     span = _f32(np.float32(hi) - np.float32(lo))
     fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
+    if span == 1.0:
+        # floats * 1 is exact, so the FMA is one float32 rounding of the
+        # sum: a step's unit-span draws (stochastic rounding, sampling's
+        # gumbel) stay in float32 with no float64 FMA
+        return torch.clamp_min(floats + lo, lo)
     return torch.clamp_min(fma(floats, span, lo), lo)
 
 
@@ -215,12 +221,71 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+# inverse-CDF tables: (lo, hi, device) -> the 2**23 float32 values
+# sqrt(2) * erf_inv(u) over every uniform code
+_ICDF: Dict[Tuple[float, float, str], torch.Tensor] = {}
+
+
+def inverse_cdf_table(lo: float, hi: float, device) -> torch.Tensor:
+    """``sqrt(2) * erf_inv(u)`` for u = ``_to_uniform`` of every one of the
+    2**23 codes ``bits >> 9`` a uniform draw on [lo, hi) can take, computed
+    on ``device`` once and kept. Every normal draw reads its values from
+    the table (one gather, where the polynomial takes dozens of launches), so a draw
+    gives the bits the polynomial would on that device.
+
+    The table is set-up, not a step's work: it is built with the active
+    dispatch modes set aside, so an op trace (``roofline.op_cost.OpTrace``)
+    records the draw's gather and never the build and its float64 FMA. A
+    CUDA graph capture cannot build it (captured work does not run): the
+    first draw on a card must come before any capture that draws."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (lo, hi, str(device))
+    t = _ICDF.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"prng: the inverse-CDF table on [{lo}, {hi}) of {device} "
+                "is first needed inside a CUDA graph capture; draw once "
+                "before capturing")
+        # the CPU builds on one thread in cache-sized pieces: ~1 s, where
+        # a thread team an op stalls for minutes once other processes
+        # share the cores
+        cpu = device.type == "cpu"
+        step = 1 << 18 if cpu else 1 << 23
+        threads = torch.get_num_threads()
+        with _disable_current_modes():
+            if cpu:
+                torch.set_num_threads(1)
+            try:
+                t = torch.empty(1 << 23, dtype=torch.float32, device=device)
+                for s in range(0, 1 << 23, step):
+                    codes = torch.arange(s, s + step, dtype=torch.int64,
+                                         device=device) << 9
+                    t[s:s + step] = _SQRT2_F32 * erf_inv(
+                        _to_uniform(codes, lo, hi))
+            finally:
+                torch.set_num_threads(threads)
+        _ICDF[key] = t
+    return t
+
+
+def _inverse_cdf(key, shape, lo: float, hi: float, device) -> torch.Tensor:
+    """``sqrt(2) * erf_inv(uniform(key, shape, lo, hi))``, read from
+    ``inverse_cdf_table``."""
+    return inverse_cdf_table(lo, hi, device)[bits(key, shape, device) >> 9]
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
 def normal(key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erf_inv(u),
     u ~ U[nextafter(-1, 0), 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device)
-    return _SQRT2_F32 * erf_inv(u)
+    return _inverse_cdf(key, shape, _NORMAL_LO, 1.0, device)
 
 
 def truncated_normal(key, lower: float, upper: float, shape,
@@ -231,6 +296,6 @@ def truncated_normal(key, lower: float, upper: float, shape,
     lo32, hi32 = np.float32(lower), np.float32(upper)
     a = _f32(math.erf(float(lo32 / s2)))
     b = _f32(math.erf(float(hi32 / s2)))
-    out = _SQRT2_F32 * erf_inv(uniform(key, shape, a, b, device))
+    out = _inverse_cdf(key, shape, a, b, device)
     return torch.clamp(out, float(np.nextafter(lo32, np.float32(np.inf))),
                        float(np.nextafter(hi32, np.float32(-np.inf))))

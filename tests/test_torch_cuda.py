@@ -64,6 +64,10 @@ Each wrapper call launches its kernel once.
   bit-equal to the same ranks on the CPU; the smoke LM's, MiniCPM3's
   (MLA) and Mamba2's (SSD) steps on a (1, 2) mesh (compute split over the
   model axis) on the card within rtol 1e-5 of the same ranks on the CPU.
+* Analysis: K2 on two streams at once, each call's sums bit-equal to
+  its launch order (one ticket per stream); the seven graph contracts on
+  CUDA tensors (the serve steps and ``begin_step`` under sync debug mode
+  "error"), one K1 launch per K1 record of the trace.
 """
 import numpy as np
 import pytest
@@ -928,3 +932,74 @@ def test_model_parallel_mixers_on_the_card_match_the_cpu(cuda, tmp_path, arch,
             continue
         off = (got[p].double() - v.double()).abs() > 1e-5
         assert float(off.double().mean()) <= 1e-3, (p, int(off.sum()))
+
+
+# ---------------------------------------------------------------------------
+# K2 on concurrent streams; the graph contracts on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sp_filter_on_two_streams_at_once(cuda):
+    """20 calls on each of two streams at once, at (896, 4864) with
+    different data: each stream counts its blocks on its own ticket, so
+    every call's sums are bit-equal to the kernel's summation order
+    replayed in torch."""
+    from repro_torch.kernels import sp_filter as k
+
+    n = 896 * 4864
+    data = [_sp_operands(n, SP_DTYPES["float32"], s) for s in (21, 22)]
+    want = [k.sums_in_launch_order(*o, plan=k.launch_plan(n, True), **SP_KW)
+            for o in data]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)  # both queues fill, then run
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(ops.sp_filter(*data[i], **SP_KW))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for q_new, gp, err in outs[i]:
+            assert torch.equal(gp, want[i][0]) and torch.equal(err, want[i][1])
+    assert not torch.equal(want[0][0], want[1][0])
+
+
+def _sync_errors():
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "train_step_scanned", "train_step_fused", "begin_step", "prefill_commit",
+    "prefill_commit_batch", "serve_step_lanes", "serve_step_lanes_gdc"])
+def test_graph_contracts_hold_on_the_card(cuda, name):
+    """Each entrypoint traced on CUDA tensors meets its contract (all but
+    the memory ceiling, which is the CPU's measurement); the serve steps
+    and ``begin_step`` make no synchronizing call (sync debug mode
+    "error" raises on one)."""
+    from repro_torch.analysis import graph_contracts as gc
+    from repro_torch.analysis.contracts import check_trace
+
+    ctx = None if name.startswith("train_step") else _sync_errors()
+    before = ops.LAUNCHES["analog_update"]
+    tr, aliased = gc.trace_entrypoint(name, device="cuda", context=ctx)
+    torch.cuda.synchronize()
+    res = check_trace(gc.CONTRACTS[name], tr, aliased, check_hbm=False)
+    assert res.ok, res.violations
+    k1 = len(tr.kernel_records("analog_update"))
+    assert ops.LAUNCHES["analog_update"] - before == k1
+    assert (k1 > 0) == name.startswith("train_step")
