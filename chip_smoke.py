@@ -197,11 +197,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               (b) ``dryrun.account_step`` of phase 10a's step on ``meta``
               against the same step on the card: predicted peak within
               10 % of ``max_memory_allocated``, tile bytes exact; (c)
-              qwen2-0.5b and mamba2-2.7b ``train_4k`` on pod16x16 and
-              pod2x16x16 on the host, after the card's phases: per-rank
-              peak, bottleneck, roofline fraction. Before (c), a CUDA graph
+              qwen2-0.5b ``train_4k`` on pod16x16 and mamba2-2.7b
+              ``decode_32k`` on pod2x16x16 on the host, after the card's
+              phases: per-rank peak, bottleneck, roofline fraction. Before (c), a CUDA graph
               capture of serve_step_lanes (whether it captures, whether a
-              replay equals the eager step: a measurement, not a gate)
+              replay equals the eager step: a measurement, not a gate);
+              (d) Qwen2-0.5B at full width and depth through the fixed
+              ``prefill`` + ``serve_step`` (batch 8, prompt 128, 16 greedy
+              tokens) on two model ranks of a (1, 2) mesh sharing the card
+              (``launch.serve.fixed_generate``; the cache split on
+              head_dim): tokens identical to one process's, model-group
+              calls and bytes a decode step; (e) ``dryrun.account_serve``
+              of that model's ``serve_step`` on ``meta``, one process, at
+              (d)'s batch and cache length: the step's bytes within 10 %
+              of the rise of ``max_memory_allocated`` over the step
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
@@ -3217,9 +3226,15 @@ SYNC_FREE = ("begin_step", "prefill_commit", "prefill_commit_batch",
 CARD_MUTANTS = [("restack", "train_step_fused", "restack"),
                 ("host_transfer", "serve_step_lanes", "host-transfer"),
                 ("f64", "prefill_commit_batch", "dtype")]
-# the production cells accounted on the host (mesh, multi_pod)
-DRY_CELLS = [("qwen2-0.5b", False), ("mamba2-2.7b", True)]
+# the production cells accounted on the host (arch, shape, multi_pod): a
+# train cell and a serve cell whose body state the reference splits over
+# its period axis (mamba2-2.7b's train cell took 35-44 s of the host)
+DRY_CELLS = [("qwen2-0.5b", "train_4k", False),
+             ("mamba2-2.7b", "decode_32k", True)]
 DRY_PEAK_RTOL = 0.10
+# (d)/(e): Qwen2-0.5B's fixed serve path, batch 8, a 128-token prompt and
+# 16 greedy tokens (the cache holds 144 slots)
+SERVE_MP = dict(batch=8, prompt=128, gen=16)
 
 
 def sync_errors():
@@ -3435,10 +3450,123 @@ def dry_vs_card(card: str):
     return launches
 
 
+def serve_mp_inputs():
+    """Qwen2-0.5B at full width and depth from ``LM.init``'s seed on the
+    card, and (d)'s seeded prompts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("qwen2-0.5b"))
+    params = model.init(prng.PRNGKey(0), "cuda")
+    tokens = np.random.default_rng(23).integers(
+        0, 8192, (SERVE_MP["batch"], SERVE_MP["prompt"])).astype(np.int32)
+    return model, params, torch.from_numpy(tokens).cuda()
+
+
+def serve_mp_rank():
+    """(d) on this rank: ``fixed_generate`` on the (1, 2) mesh, each rank
+    from its blocks of the weights and the ``head_dim``-split cache."""
+    import torch
+
+    from repro_torch.distributed import runtime
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import fixed_generate
+
+    model, params, tokens = serve_mp_inputs()
+    runtime.reset_stats()
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = fixed_generate(model, params, tokens, SERVE_MP["gen"],
+                             mesh=make_host_mesh(1, 2), stats=stats)
+    torch.cuda.synchronize()
+    return dict(tokens=toks.cpu(), stats=stats,
+                seconds=time.perf_counter() - t0)
+
+
+def model_group(before: dict, after: dict):
+    """(calls, bytes) of the model-group collectives between two copies of
+    ``runtime.STATS``."""
+    calls = nbytes = 0
+    for k, v in after.items():
+        if k.startswith("model/"):
+            calls += v["calls"] - before.get(k, {}).get("calls", 0)
+            nbytes += v["bytes"] - before.get(k, {}).get("bytes", 0)
+    return calls, nbytes
+
+
+def serve_mp(card: str) -> None:
+    """(d) and (e): Qwen2-0.5B's fixed serve path in one process on the
+    card (tokens, and one ``serve_step``'s ``max_memory_allocated`` beside
+    ``dryrun.account_serve`` of the same step on ``meta``), then on two
+    model ranks of a (1, 2) mesh sharing the card: tokens identical."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import fixed_generate
+
+    B, S, G = SERVE_MP["batch"], SERVE_MP["prompt"], SERVE_MP["gen"]
+    t0 = time.time()
+    model, params, tokens = serve_mp_inputs()
+    want, _ = fixed_generate(model, params, tokens, G)
+    cache = model.init_cache(B, S + G, device="cuda")
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    tok = model.greedy(logits)
+    del logits
+    tok, cache = model.serve_step(params, tok, cache, S)    # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    tok, cache = model.serve_step(params, tok, cache, S + 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, tok
+    torch.cuda.empty_cache()
+    acc = dryrun.account_serve(
+        model, dryrun.rank_tree(model.abstract_params("meta")),
+        dryrun.rank_tree(model.init_cache(B, S + G, abstract=True,
+                                          device="meta")),
+        {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta")},
+        kind="decode", pos=S + 1)
+    grew = peak - resident
+    gap = acc["temp_bytes"] / grew - 1
+    print(f"analysis: (e) dry run of Qwen2-0.5B's serve_step (batch {B}, "
+          f"cache {S + G}): predicted arguments {acc['argument_bytes']} B + "
+          f"step {acc['temp_bytes']} B = peak {acc['peak_bytes']} B; "
+          f"measured {resident} B resident, max_memory_allocated {peak} B, "
+          f"a rise of {grew} B: step {100 * gap:+.2f} %, peak "
+          f"{100 * (acc['peak_bytes'] / peak - 1):+.2f} %; {acc['cost'].ops} "
+          f"ops on {card}")
+    check(abs(gap) <= DRY_PEAK_RTOL, f"analysis: (e) predicted step bytes "
+          f"{acc['temp_bytes']} vs measured {grew} ({100 * gap:+.2f} %)")
+    t1 = time.time()
+    ranks = dist_spawn(2, serve_mp_rank, timeout=600)
+    for r, res in enumerate(ranks):
+        same = torch.equal(res["tokens"], want.cpu())
+        check(same, f"analysis: (d) rank {r}'s tokens differ from one "
+              f"process's at {(res['tokens'] != want.cpu()).nonzero()[:4]}")
+    pre, post = ranks[0]["stats"]
+    p_calls, p_bytes = model_group({}, pre)
+    d_calls, d_bytes = model_group(pre, post)
+    steps = G - 1
+    print(f"analysis: (d) Qwen2-0.5B fixed serve (batch {B}, prompt {S}, "
+          f"{G} greedy tokens) on two model ranks of a (1, 2) mesh sharing "
+          f"the card: {B * G} tokens identical to one process's; model "
+          f"group a rank: prefill {p_calls} calls {p_bytes} B, decode "
+          f"{d_calls / steps:.0f} calls {d_bytes / steps:.0f} B a step "
+          f"({d_bytes / steps / B:.0f} B a token); {ranks[0]['seconds']:.1f} "
+          f"s a rank for the run, (d)+(e) {time.time() - t0:.1f} s "
+          f"({time.time() - t1:.1f} s spawned) on {card}")
+
+
 def dry_cells(card: str) -> None:
     """(c): the two production cells, accounted on the host after the
     card's phases: the per-rank peak, the bottleneck and the roofline
-    fraction on the H100's constants."""
+    fraction on the H100's constants, the cache rows moved."""
     import contextlib
     import io
 
@@ -3447,21 +3575,24 @@ def dry_cells(card: str) -> None:
     out = os.path.join(ROOT, "build", "dryrun")
     shutil.rmtree(out, ignore_errors=True)
     try:
-        for arch, multi_pod in DRY_CELLS:
+        for arch, shape, multi_pod in DRY_CELLS:
             t0 = time.time()
             with contextlib.redirect_stdout(io.StringIO()):
-                r = dryrun.run_cell(arch, "train_4k", multi_pod=multi_pod,
+                r = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
                                     out_dir=out)
             secs = time.time() - t0
-            check(r["status"] == "ok", f"analysis: dry run {arch}: "
+            check(r["status"] == "ok", f"analysis: dry run {arch} {shape}: "
                   f"{r.get('error')}")
             roof, mem = r["roofline"], r["memory"]
             check(roof["hlo_flops"] > 0, f"analysis: dry run {arch}: no flops")
-            print(f"analysis: dry run {arch} train_4k on {r['mesh']} (rank 0 "
+            tiles = (f", tiles {mem['tile_state_bytes']} B"
+                     if "tile_state_bytes" in mem else "")
+            moved = r["collectives"].get("cache/reshard", 0)
+            print(f"analysis: dry run {arch} {shape} on {r['mesh']} (rank 0 "
                   f"of {roof['chips']}): peak {mem['peak_bytes']} B a rank "
                   f"({mem['peak_per_device_gb']} GiB; arguments "
-                  f"{mem['argument_bytes']} B, tiles "
-                  f"{mem['tile_state_bytes']} B), {r['ops']} ops, bottleneck "
+                  f"{mem['argument_bytes']} B{tiles}), {r['ops']} ops, "
+                  f"cache/reshard {moved} B, bottleneck "
                   f"{roof['bottleneck']} (compute {roof['t_compute']:.4f} s, "
                   f"memory {roof['t_memory']:.4f} s, collective "
                   f"{roof['t_collective']:.4f} s), roofline fraction "
@@ -3478,6 +3609,7 @@ def phase_analysis(card: str):
     k2 = k2_two_streams()
     k1 = card_contracts(card)
     k1 += dry_vs_card(card)
+    serve_mp(card)
     serve_capture(card)
     dry_cells(card)
     print(f"analysis: phase 18 took {time.time() - t0:.1f} s, {k1} K1 and "

@@ -8,6 +8,9 @@ first prints the card's name and power limit, with TF32 off in matmuls and
 cuDNN (``common.cuda_numerics``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--full] [--only fig1,table12]
+
+``roofline`` tabulates the dry run's JSONs under ``results/dryrun``
+(``python -m repro_torch.launch.dryrun --all``); it needs no card.
 """
 from __future__ import annotations
 
@@ -17,9 +20,9 @@ import time
 
 import torch
 
-BENCHES = ("fig1", "fig2", "table12", "fig4", "ablations")
-# the reference's other two rows, not ported yet
-LATER = {"roofline": "ROADMAP item 17", "tile_engine": "ROADMAP item 16b"}
+BENCHES = ("fig1", "fig2", "table12", "fig4", "ablations", "roofline")
+# the reference's other row, not ported yet
+LATER = {"tile_engine": "ROADMAP item 16b"}
 
 
 def main(argv=None) -> int:
@@ -67,6 +70,10 @@ def main(argv=None) -> int:
     if "ablations" in only:
         from . import fig5_table9_10_ablations
         emit(fig5_table9_10_ablations.run(quick, device))
+    if "roofline" in only:
+        # the dry run's cells (``launch.dryrun`` writes results/dryrun)
+        from . import roofline_report
+        emit(roofline_report.run(quick))
 
     print(f"total,{(time.time() - t_start) * 1e6:.0f},benchmarks_done", flush=True)
     return 0

@@ -25,7 +25,10 @@ checkpoint use.
   start with ``model/all_reduce/`` or ``model/all_gather/``, so a step's
   model-group traffic reads apart from its data-group traffic.
 - Only collectives that torch 2.11 and 2.13 both have: ``all_gather`` of a
-  list and ``all_reduce`` (a reduce-scatter is an all-reduce then a slice).
+  list and ``all_reduce`` (a reduce-scatter is an all-reduce then a slice),
+  and ``scatter`` / ``gather`` from and to one rank of a group (a serve
+  step moves a cache block that one data rank holds into the rows each
+  rank computes, and back).
 - Abstract mode (``abstract(mesh, rank)``, the dry run): ``mesh.group``
   gives ``GroupSpec`` descriptors, with no process group, and the
   collectives on them return empty tensors of the right per-rank shape on
@@ -38,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import math
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -275,3 +279,72 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum",
         return x
 
     return _run(label, t, reduce)
+
+
+def _group_rank(group) -> int:
+    if isinstance(group, GroupSpec):
+        return group.ranks.index(_ABSTRACT["rank"])
+    return dist.get_rank(group)
+
+
+def _global_rank(group, group_rank: int) -> int:
+    if isinstance(group, GroupSpec):
+        return group.ranks[group_rank]
+    return dist.get_global_rank(group, group_rank)
+
+
+def scatter(t: torch.Tensor, group, src: int,
+            label: str = "scatter") -> torch.Tensor:
+    """Group rank ``src``'s ``t`` cut into equal chunks along dim 0, chunk
+    ``i`` to group rank ``i``: every rank returns its chunk. Every rank
+    passes a ``t`` of the same shape and dtype; only ``src``'s is read.
+    Counted under ``label`` with the chunk's bytes (what each rank
+    receives); ``t`` itself when ``group`` is None."""
+    if group is None:
+        return t
+    n = world_of(group)
+    shape = (t.shape[0] // n,) + tuple(t.shape[1:])
+    nbytes = math.prod(shape) * t.element_size()
+    if isinstance(group, GroupSpec):
+        _count(label, nbytes, 0.0)
+        return t.new_empty(shape)
+    t0 = time.perf_counter()
+    where = {"host": "cpu", "device": device()}.get(route(t))
+    x = _bits(t)
+    x = x.to(where) if where is not None else x
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    parts = list(x.chunk(n)) if _group_rank(group) == src else None
+    dist.scatter(out, parts, src=_global_rank(group, src), group=group)
+    out = out.to(t.device).view(t.dtype)
+    _count(label, nbytes, time.perf_counter() - t0)
+    if where is not None:
+        _count("staged", 2 * nbytes, 0.0)
+    return out
+
+
+def gather(t: torch.Tensor, group, dst: int,
+           label: str = "gather") -> Optional[torch.Tensor]:
+    """The group's tensors (equal shapes) concatenated along dim 0 in
+    group-rank order, on group rank ``dst``; None on the other ranks.
+    Counted under ``label`` with ``t``'s bytes (what each rank sends);
+    ``t`` itself when ``group`` is None."""
+    if group is None:
+        return t
+    n = world_of(group)
+    nbytes = t.numel() * t.element_size()
+    mine = _group_rank(group) == dst
+    if isinstance(group, GroupSpec):
+        _count(label, nbytes, 0.0)
+        return t.new_empty((n * t.shape[0],) + tuple(t.shape[1:])) \
+            if mine else None
+    t0 = time.perf_counter()
+    where = {"host": "cpu", "device": device()}.get(route(t))
+    x = _bits(t)
+    x = x.to(where) if where is not None else x
+    parts = [torch.empty_like(x) for _ in range(n)] if mine else None
+    dist.gather(x, parts, dst=_global_rank(group, dst), group=group)
+    out = torch.cat(parts).to(t.device).view(t.dtype) if mine else None
+    _count(label, nbytes, time.perf_counter() - t0)
+    if where is not None:
+        _count("staged", 2 * nbytes, 0.0)
+    return out

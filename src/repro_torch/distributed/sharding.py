@@ -393,6 +393,206 @@ def cache_shardings(cache_tree, mesh):
         lambda p, leaf: NamedSharding(mesh, spec_of(p, leaf)), cache_tree)
 
 
+# the cache leaves with a sequence dim, and the cross-attention's, which a
+# decode step reads and never writes
+SEQ_LEAVES = ("k", "v", "ckv", "kpe")
+CROSS_LEAVES = ("ck", "cv")
+
+
+def cache_block(shape, spec, mesh) -> Tuple[Tuple[int, int], ...]:
+    """The block of a ``shape`` leaf that ``spec`` (a cache leaf's
+    ``cache_shardings`` entry, or any spec) gives this rank: (first index,
+    length) per dim."""
+    out = []
+    for s, e in zip(shape, _entries(spec, len(shape))):
+        if e is None or mesh.axes_size(e) == 1:
+            out.append((0, s))
+        else:
+            n = s // mesh.axes_size(e)
+            out.append((mesh.index(e) * n, n))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """Where ``cache_shardings`` puts one cache leaf's split: ``data`` is
+    "batch" (its batch rows), "period" (a body leaf's period axis, which
+    the reference's ``"/body/" in path`` test takes for the batch, as
+    ``path_str`` gives no leading slash), "sequence" (the long-context
+    split of a cache that one row fills) or None (whole on every data
+    rank); ``model_dim`` the dim (from the end) the model axis cuts, or
+    None."""
+    data: Optional[str]
+    model_dim: Optional[int]
+
+
+def _leaf_layout(path: str, spec, mesh) -> LeafLayout:
+    data_axes, _, model_ax, _ = mesh_axis_sizes(mesh)
+    body = path.startswith("body/")
+    data = model = None
+    for d, e in enumerate(spec):
+        if e is not None and model_ax in _axes(e):
+            model = d - len(spec)
+        elif e is not None and set(_axes(e)) & set(data_axes):
+            data = ("period" if body and d == 0 else
+                    "batch" if d == int(body) else "sequence")
+    return LeafLayout(data, model)
+
+
+def cache_layout(cache_tree, mesh):
+    """{path: LeafLayout} of a cache tree (TensorSpec or tensor leaves,
+    global shapes) under ``cache_shardings``."""
+    return {p: _leaf_layout(p, sh.spec, mesh) for p, sh in
+            flatten_with_path(cache_shardings(cache_tree, mesh))}
+
+
+class CacheShards:
+    """A rank's blocks of a fixed serve cache (``cache_shardings``) met as
+    the rows its serve step computes with (the batch split over the data
+    axes when it divides, as ``batch_shardings`` splits the tokens).
+
+    ``models.blocks.apply_stack`` asks ``view`` for each layer's cache and
+    hands the result back to ``commit`` after the layer wrote it. A leaf
+    split on its batch, or whole where the step computes every row, is its
+    own view. The two layouts of ``LeafLayout`` that the reference's body
+    test gives (``period``; ``None`` for a state whose period axis does not
+    divide) are moved, and counted in ``runtime.STATS`` under
+    ``cache/reshard``:
+
+    * ``period``: the data rank that holds the layer's period scatters its
+      rows to the ranks that compute them (a decode step reads them;
+      prefill reads nothing, so its view is a buffer), and gathers back
+      what the layer wrote: one slot of a sequence leaf in decode, the
+      prompt's slots of one in prefill, the whole of a state;
+    * ``None`` with split rows: the view is this rank's rows of its copy;
+      what the layer wrote is all-gathered over the data axes, so every
+      copy stays whole and equal.
+
+    A sequence split (the ``long_500k`` cells) raises."""
+
+    def __init__(self, shardings, batch: int):
+        self.mesh = shardings_mesh(shardings)
+        self.specs = _spec_map(shardings)
+        self.layout = {p: _leaf_layout(p, spec, self.mesh)
+                       for p, spec in self.specs.items()}
+        data_axes, dsize, _, _ = mesh_axis_sizes(self.mesh)
+        self.batch = batch
+        self.rows = dsize > 1 and batch % dsize == 0
+        self.dsize = dsize
+        self.data_axes = data_axes
+
+    @property
+    def group(self):
+        """The data axes' group (resolved at the step: in the dry run it is
+        a ``runtime.GroupSpec`` of the rank it accounts for)."""
+        return self.mesh.group(self.data_axes) if self.dsize > 1 else None
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(self.data_axes) if self.dsize > 1 else 0
+
+    def _direct(self, path: str) -> bool:
+        lay = self.layout[path]
+        if lay.data == "sequence":
+            raise NotImplementedError(
+                f"{path}: a cache split on its sequence over the data axes "
+                f"(ROADMAP item 17b.2)")
+        if path.rsplit("/", 1)[-1] == "pos" or lay.data == "batch":
+            return True
+        if not self.rows:
+            if lay.data is None:
+                return True
+            raise NotImplementedError(
+                f"{path}: a period-split cache under a batch that does not "
+                f"divide over {self.dsize} data ranks")
+        return False
+
+    def view(self, part: str, i, tree, read: bool):
+        """Layer ``i``'s cache (``i`` None: an unstacked prefix or tail
+        layer) under ``part`` ("body/p0", "tail/l1", ...), as the rows
+        this rank computes; ``read``: the layer reads the cache (decode)."""
+        def one(sub, leaf):
+            path = f"{part}/{sub}"
+            if self._direct(path):
+                return leaf if i is None else leaf[i]
+            if self.layout[path].data is None:
+                mine = leaf if i is None else leaf[i]
+                n = mine.shape[0] // self.dsize
+                return mine.narrow(0, self.index * n, n)
+            owner, k = divmod(i, leaf.shape[0])
+            if read:
+                return runtime.scatter(leaf[k], self.group, owner,
+                                       label="cache/reshard")
+            return leaf.new_empty((leaf.shape[1] // self.dsize,)
+                                  + tuple(leaf.shape[2:]))
+
+        return tree_map_with_path(one, tree)
+
+    def commit(self, part: str, i, tree, views, decode: bool, pos=None,
+               length: int = 0):
+        """Put back what layer ``i`` wrote into ``views`` (``decode``: the
+        slot of ``pos``; else prefill's first ``length`` slots of a
+        sequence leaf and the whole of every other leaf)."""
+        flat = dict(flatten_with_path(views))
+
+        def one(sub, leaf):
+            path = f"{part}/{sub}"
+            if self._direct(path):
+                return leaf
+            v = flat[sub]
+            name = sub.rsplit("/", 1)[-1]
+            if name in CROSS_LEAVES and decode:
+                return leaf
+            region = None                 # the whole leaf
+            if name in SEQ_LEAVES:
+                region = ((int(pos) % v.shape[1], 1) if decode else
+                          (0, min(int(length), v.shape[1])))
+            if region is not None:
+                v = v.narrow(1, *region)
+            if self.layout[path].data is None:
+                whole = runtime.all_gather(v, self.group, dim=0,
+                                           label="cache/reshard")
+                dest = leaf if i is None else leaf[i]
+            else:
+                owner, k = divmod(i, leaf.shape[0])
+                whole = runtime.gather(v, self.group, owner,
+                                       label="cache/reshard")
+                dest = leaf[k]
+            if whole is not None:
+                (dest if region is None else dest.narrow(1, *region)).copy_(
+                    whole)
+            return leaf
+
+        tree_map_with_path(one, tree)
+
+
+def compute_params(params, shardings, layout=None):
+    """The weights a rank's serve step computes with, from its
+    ``params_shardings`` blocks: a weight ``layout`` (a ``tp_layout``)
+    splits keeps its block where the stored spec cuts the same dim, else
+    it is gathered and cut (``model/all_gather/weights``); a weight it
+    computes whole is gathered over the model axis where it is stored
+    split (``model/all_gather/whole``), as the train step gathers its
+    tiles. Collective."""
+    specs, mesh = _spec_map(shardings), shardings_mesh(shardings)
+    _, _, model_ax, msize = mesh_axis_sizes(mesh)
+
+    def view(path, t):
+        dim = None if layout is None else layout.dim(path)
+        spec = _entries(specs[path], t.ndim)
+        keep = next((d for d, e in enumerate(spec) if e == model_ax
+                     and d - t.ndim == dim), None)
+        rest = P(*[None if d == keep else e for d, e in enumerate(spec)])
+        t = gather(t, rest, mesh,
+                   tag="weights" if dim is not None else "whole")
+        if dim is not None and keep is None:
+            n = t.shape[dim] // msize
+            t = t.narrow(dim, mesh.index(model_ax) * n, n)
+        return t
+
+    return tree_map_with_path(view, params)
+
+
 def replicated(tree, mesh):
     return tree_map(lambda _: NamedSharding(mesh, P()), tree)
 
@@ -654,14 +854,10 @@ def shard(t, spec, mesh, dims=None):
     """This rank's block of the full tensor ``t`` under ``spec`` (on
     ``dims`` only, when given): a copy, so the full tensor can be freed."""
     out = t
-    for d, e in enumerate(_entries(spec, t.ndim)):
-        if e is None or (dims is not None and d not in dims):
+    for d, (first, n) in enumerate(cache_block(tuple(t.shape), spec, mesh)):
+        if n == t.shape[d] or (dims is not None and d not in dims):
             continue
-        n = mesh.axes_size(e)
-        if n == 1:
-            continue
-        size = t.shape[d] // n
-        out = out.narrow(d, mesh.index(e) * size, size)
+        out = out.narrow(d, first, n)
     return out.clone() if out is not t else t
 
 

@@ -20,9 +20,17 @@ rank and has no compiler, so it accounts for one rank of the mesh (rank 0;
   and collective bytes, and the ``Roofline`` on the H100's constants
   (``status "ok"``). ``account_step`` is that accounting alone, for any
   trainer and state;
-* a **prefill** or **decode** cell reports the per-rank argument bytes of
-  its parameter and cache shards (``status "args_only"``): the port's
-  serve paths are not cut over the model axis yet (ROADMAP item 17b).
+* a **prefill** or **decode** cell builds that rank's blocks of the
+  parameters (``params_shardings``) and of the fixed cache
+  (``cache_shardings``) and its rows of the inputs, and runs
+  ``LM.prefill`` or ``LM.serve_step`` (at the cache's last position) the
+  same way, with the gathers of ``sharding.compute_params`` in the step:
+  the weights cut where ``tp_layout`` cuts them, the cache met through
+  ``sharding.CacheShards`` and written in place (the reference donates
+  it). ``account_serve`` is that accounting alone. A cell whose batch
+  does not split over the data axes (``long_500k``: one row, its attention
+  caches split on their sequence) reports its argument bytes only
+  (``status "args_only"``, ROADMAP item 17b.2).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
@@ -55,6 +63,7 @@ from ..models.lm import LM
 from ..roofline import analysis
 from ..roofline.op_cost import OpTrace, analyze_trace
 from .mesh import make_production_mesh
+from .serve import mesh_axes
 
 # the caching allocator's block: every allocation on the card rounds up
 ALLOC_ROUND = 512
@@ -216,6 +225,40 @@ def account_step(trainer: AnalogTrainer, state, batch, mesh=None,
                 cost=analyze_trace(tr), trace=tr, trace_s=seconds)
 
 
+def account_serve(model: LM, params, cache, inputs, *, kind: str, pos: int = 0,
+                  mesh=None, rank: int = 0, shardings=None, layout=None,
+                  shards=None, round_bytes: int = ALLOC_ROUND) -> Dict:
+    """Run one ``model.prefill(params, inputs, cache)`` (``kind``
+    "prefill") or ``model.serve_step(params, inputs["tokens"], cache,
+    pos)`` under ``OpTrace`` and account for it as ``account_step`` does.
+    On a mesh of more than one rank, as rank ``rank`` inside
+    ``runtime.abstract``: ``params`` are its ``shardings``
+    (``params_shardings``) blocks, made the weights it computes with by
+    ``sharding.compute_params`` under ``layout`` (a ``tp_layout``) inside
+    the trace, and ``cache`` its blocks, met through ``shards`` (a
+    ``sharding.CacheShards``). The cache is written in place, so the
+    step's own bytes are its transients."""
+    args = _storage_bytes((params, cache, inputs), round_bytes)
+    split = mesh is not None and mesh.size > 1
+    ctx = runtime.abstract(mesh, rank) if split else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with ctx, OpTrace(round_bytes=round_bytes) as tr:
+        with mesh_axes(mesh if split else None,
+                       shards.batch if split else 0):
+            w = (sharding.compute_params(params, shardings, layout)
+                 if split else params)
+            if kind == "prefill":
+                out = model.prefill(w, inputs, cache, shards)
+            else:
+                out = model.serve_step(w, inputs["tokens"], cache, pos,
+                                       shards)
+            del w, out
+    seconds = time.perf_counter() - t0
+    return dict(argument_bytes=args, temp_bytes=tr.peak_bytes,
+                peak_bytes=args + tr.peak_bytes, cost=analyze_trace(tr),
+                trace=tr, trace_s=seconds)
+
+
 # --------------------------------------------------------------------------
 # cells
 # --------------------------------------------------------------------------
@@ -229,13 +272,17 @@ class Cell:
     trainer: Optional[AnalogTrainer] = None
     state: object = None
     batch: object = None
+    serve: Optional[Dict] = None   # account_serve's arguments
+    args_only: str = ""            # why a serve cell is not traced
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, algorithm: str = "erider",
                opts=None, build_state: bool = True) -> Cell:
     """One cell on ``mesh`` for one rank: the trainer, that rank's state
-    (``meta``) and the global batch for a train cell; the argument bytes
-    of every cell. ``build_state=False`` stops at the bytes."""
+    (``meta``) and the global batch for a train cell; that rank's blocks
+    of the parameters, the cache and the inputs for a serve cell; the
+    argument bytes of every cell. ``build_state=False`` stops at the
+    bytes."""
     o = dict(DEFAULT_OPTS, **(opts or {}))
     cfg = get_config(arch)
     over = {k: o[k] for k in ("moe_impl", "remat", "attn_chunk", "moe_group",
@@ -245,7 +292,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, algorithm: str = "erider",
     spec = SHAPES[shape_name]
     model = LM(cfg)
     aparams = model.abstract_params("meta")
-    _, dsize, _, _ = sharding.mesh_axis_sizes(mesh)
+    _, dsize, _, msize = sharding.mesh_axis_sizes(mesh)
     batch_specs = input_specs(cfg, shape_name, device="meta")
     mflops = analysis.model_flops_for(cfg, spec)
     b_sh = sharding.batch_shardings(batch_specs, mesh)
@@ -288,7 +335,25 @@ def build_cell(arch: str, shape_name: str, mesh, *, algorithm: str = "erider",
         in_sh["pos"] = sharding.NamedSharding(mesh, sharding.P())
     nbytes = (leaf_bytes(aparams, p_sh, mesh) + leaf_bytes(acache, c_sh, mesh)
               + leaf_bytes(inputs, in_sh, mesh))
-    return Cell(spec.kind, mflops, None, nbytes)
+    cell = Cell(spec.kind, mflops, None, nbytes)
+    if spec.global_batch % dsize:
+        # one row: the attention caches split their sequence over the data
+        # axes, and every rank would compute the same row
+        cell.args_only = (f"a batch of {spec.global_batch} over {dsize} data "
+                          f"ranks: the long-context decode (ROADMAP item "
+                          f"17b.2)")
+    elif build_state:
+        feed = ({"tokens": inputs["t"]} if spec.kind == "decode"
+                else dict(inputs))
+        f_sh = sharding.batch_shardings(feed, mesh)
+        cell.serve = dict(
+            model=model, params=rank_tree(aparams, p_sh, mesh),
+            cache=rank_tree(acache, c_sh, mesh),
+            inputs=rank_tree(feed, f_sh, mesh), kind=spec.kind,
+            pos=spec.seq_len - 1, shardings=p_sh,
+            layout=sharding.tp_layout(cfg, mesh) if msize > 1 else None,
+            shards=sharding.CacheShards(c_sh, spec.global_batch))
+    return cell
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
@@ -322,36 +387,40 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         if cell.plan_line:
             result["plan"] = cell.plan_line
             print(f"[dryrun] {cell_id}: {cell.plan_line}", flush=True)
-        if cell.kind != "train":
+        if cell.args_only:
             result.update(
                 status="args_only", build_s=round(t_build, 1),
                 memory=dict(argument_bytes=cell.argument_bytes,
                             peak_per_device_gb=None),
-                reason="the serve paths are not cut over the model axis "
-                       "(ROADMAP item 17b)")
+                reason=cell.args_only)
             print(f"[dryrun] {cell_id}: ARGS_ONLY args/dev="
                   f"{cell.argument_bytes / 2 ** 30:.3f}GB", flush=True)
         else:
-            acc = account_step(cell.trainer, cell.state, cell.batch,
-                               cell.trainer.mesh, rank)
+            if cell.kind == "train":
+                acc = account_step(cell.trainer, cell.state, cell.batch,
+                                   cell.trainer.mesh, rank)
+            else:
+                acc = account_serve(**cell.serve, mesh=mesh, rank=rank)
             roof = analysis.analyze(
                 arch=arch, shape=shape_name, mesh_name=mesh_name,
                 chips=chips, cost=acc["cost"], model_flops=cell.model_flops,
                 peak_bytes=acc["peak_bytes"],
                 args_bytes=cell.argument_bytes)
             tr = acc["trace"]
+            memory = dict(
+                argument_bytes=cell.argument_bytes,
+                argument_storage_bytes=acc["argument_bytes"],
+                temp_bytes=acc["temp_bytes"],
+                peak_bytes=acc["peak_bytes"],
+                peak_per_device_gb=round(acc["peak_bytes"] / 2 ** 30, 3))
+            if "tile_state_bytes" in acc:
+                memory["tile_state_bytes"] = acc["tile_state_bytes"]
             result.update(
                 status="ok", build_s=round(t_build, 1),
                 trace_s=round(acc["trace_s"], 1), ops=len(tr.records),
                 k1_records=len(tr.kernel_records("analog_update")),
-                memory=dict(
-                    argument_bytes=cell.argument_bytes,
-                    argument_storage_bytes=acc["argument_bytes"],
-                    temp_bytes=acc["temp_bytes"],
-                    peak_bytes=acc["peak_bytes"],
-                    tile_state_bytes=acc["tile_state_bytes"],
-                    peak_per_device_gb=round(acc["peak_bytes"] / 2 ** 30, 3),
-                ),
+                memory=memory,
+                collectives={k: int(v) for k, v in tr.collectives.items()},
                 roofline=roof.to_json(),
             )
             print(f"[dryrun] {cell_id}: OK trace={acc['trace_s']:.0f}s "

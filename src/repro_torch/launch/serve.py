@@ -19,6 +19,11 @@ Two engines over the same workload:
       ``--batch`` requests prefill together and decode in lockstep for the
       longest generation in the batch.
 
+``fixed_generate`` is the fixed driver's prefill and greedy steps on one
+batch, in one process or as one rank of a mesh (each rank from its blocks
+of the weights and of the cache, ``distributed.sharding``), inside
+``mesh_axes``.
+
 With ``--ckpt-dir`` the CLI restores an analog training state written
 by ``repro_torch.launch.train`` (or the JAX package's CLI: the layout is
 shared; ``--algorithm`` must name the same plan) and serves the effective
@@ -34,6 +39,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import time
@@ -46,6 +52,8 @@ from .. import prng
 from ..configs import ARCHS, get_config
 from ..configs.serving import serve_defaults
 from ..data import BigramLM
+from ..distributed import sharding
+from ..models.common import data_parallel, model_parallel
 from ..models.lm import LM
 from ..serving import (EngineConfig, FeedBuilder, ServeEngine, ServeRequest,
                        Telemetry, load_effective_params, sample_greedy)
@@ -148,6 +156,77 @@ def run_fixed(model: LM, params, workload: List[ServeRequest], batch: int,
             results[r.request_id] = seq[lane, :r.max_new_tokens].astype(np.int32)
             telemetry.request_finished(r.request_id, lane, start // batch)
     return results
+
+
+@contextlib.contextmanager
+def mesh_axes(mesh, batch: int):
+    """A serve step as one rank of ``mesh`` (None: one process): its model
+    axis under ``common.model_parallel``, and its data axes under
+    ``common.data_parallel`` when the ``batch`` rows split over them (as
+    ``sharding.batch_shardings`` splits the tokens)."""
+    if mesh is None:
+        yield
+        return
+    data_axes, dsize, model_ax, msize = sharding.mesh_axis_sizes(mesh)
+    rows = dsize > 1 and batch % dsize == 0
+    with data_parallel(mesh.group(data_axes) if rows else None,
+                       dsize if rows else 1), \
+            model_parallel(*((mesh.group(model_ax), msize,
+                              mesh.index(model_ax)) if msize > 1
+                             else (None, 1, 0))):
+        yield
+
+
+def fixed_generate(model: LM, params, tokens, gen: int, mesh=None,
+                   frames=None, stats=None):
+    """``gen`` greedy tokens a row after ``tokens`` (B, S): the fixed
+    driver's prefill, then ``gen - 1`` ``serve_step``s on a cache of
+    ``S + gen`` slots. With ``mesh``, as one rank of it: ``params``,
+    ``tokens`` and ``frames`` are whole; the rank keeps its blocks
+    (``params_shardings``, ``cache_shardings``, ``batch_shardings``),
+    computes on ``compute_params``' weights and its rows, and the tokens
+    and the cache are gathered whole at the end. ``stats`` (a list)
+    receives a copy of ``runtime.STATS`` after the prefill and after the
+    last step. Returns (tokens (B, gen) int32, the cache)."""
+    from ..distributed import runtime
+
+    def snap():
+        if stats is not None:
+            stats.append({k: dict(v) for k, v in runtime.STATS.items()})
+
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + gen, device=tokens.device,
+                             enc_len=0 if frames is None else frames.shape[1])
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    shards = None
+    if mesh is not None:
+        b_sh = sharding.batch_shardings(batch, mesh)
+        c_sh = sharding.cache_shardings(cache, mesh)
+        p_sh = sharding.params_shardings(params, mesh)
+        batch = sharding.shard_tree(batch, b_sh)
+        cache = sharding.shard_tree(cache, c_sh)
+        params = sharding.shard_tree(params, p_sh)
+        shards = sharding.CacheShards(c_sh, B)
+        layout = (sharding.tp_layout(model.cfg, mesh)
+                  if sharding.mesh_axis_sizes(mesh)[3] > 1 else None)
+    with mesh_axes(mesh, B):
+        if mesh is not None:
+            params = sharding.compute_params(params, p_sh, layout)
+        logits, cache = model.prefill(params, batch, cache, shards)
+        tok = model.greedy(logits)
+        out = [tok]
+        snap()
+        for i in range(gen - 1):
+            tok, cache = model.serve_step(params, tok, cache, S + i, shards)
+            out.append(tok)
+        snap()
+    out = torch.cat(out, dim=1)
+    if mesh is not None:
+        out = sharding.gather(out, b_sh["tokens"].spec, mesh)
+        cache = sharding.gather_tree(cache, c_sh)
+    return out, cache
 
 
 def main(argv=None):

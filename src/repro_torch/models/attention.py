@@ -16,8 +16,15 @@ training forwards run on this rank's block of the query heads: GQA and
 cross-attention with the KV heads those read, MLA with its latents
 (``ql``, ``ckv``, ``k_pe``) computed whole on every rank and entering the
 rank's heads through ``copy_to_model``; ``wo``'s rows are summed over the
-model group. The serving paths run whole, as the reference serves under
-no mesh.
+model group. The fixed driver's serve paths (``attn_prefill``,
+``attn_decode``, ``mla_prefill``, ``mla_decode``, ``cross_prefill``,
+``cross_decode``) take the same cut and write every KV head's slice of
+the cache block a rank holds (``distributed.sharding.cache_shardings``
+cuts ``head_dim``, MLA's latent and rope dims, not heads): a decode
+gathers every head's queries, sums each rank's partial scores over its
+slice across the model group (``common.sum_partials``; a K/V all-gather
+would move each rank's whole cache block every step) and gathers the
+output's slices. The engine's paged paths run in one process.
 
 This is plain PyTorch in the reference's order of operations: ``q`` scaled
 by ``Dk ** -0.5`` in its storage dtype, scores and accumulators in
@@ -54,8 +61,9 @@ from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec
 from .common import (apply_mrope, apply_rope, copy_to_model, dense_init, dot,
-                     einsum, model_index, reduce_from_model, rms_norm,
-                     split_width, zeros)
+                     einsum, gather_from_model, model_index, model_slice,
+                     reduce_from_model, rms_norm, split_width, sum_partials,
+                     zeros)
 
 NEG_INF = -2.0e38
 
@@ -266,33 +274,92 @@ def _kv_heads(p, cfg: ModelConfig, H: int):
     names = [n for n in ("wk", "wv", "bk", "bv") if n in p]
     if split_width(p["wk"].shape[-1], KV * D, "attn/wk"):
         return {n: p[n] for n in names}, p["wk"].shape[-1] // D
-    G = cfg.n_heads // KV
+    lo, hi = _kv_range(cfg, H)
+    return ({n: copy_to_model(p[n]).narrow(-1, lo * D, (hi - lo) * D)
+             for n in names}, hi - lo)
+
+
+def _kv_range(cfg: ModelConfig, H: int):
+    """[lo, hi): the KV heads this rank's block of ``H`` query heads reads
+    (GQA's ``h -> h // (n_heads / n_kv)``). Raises when those heads do not
+    form equal groups over contiguous KV heads."""
+    G = cfg.n_heads // cfg.n_kv
     first = model_index() * H
     lo, hi = first // G, (first + H - 1) // G + 1
     if not (G % H == 0 or (H % G == 0 and first % G == 0)):
         raise ValueError(f"query heads {first}..{first + H - 1} read KV heads "
                          f"{lo}..{hi - 1} unevenly (groups of {G})")
-    return ({n: copy_to_model(p[n]).narrow(-1, lo * D, (hi - lo) * D)
-             for n in names}, hi - lo)
+    return lo, hi
 
 
 def _qkv_heads(p, x, cfg: ModelConfig, H: int, KV: int):
-    B, S, d = x.shape
-    D = cfg.head_dim
+    q = _q_proj(p, x, cfg, H)
+    return (q,) + _kv_proj(p, x, cfg, KV)
+
+
+def _q_proj(p, x, cfg: ModelConfig, H: int):
+    B, S, _ = x.shape
     q = dot(x, p["wq"])
-    k = dot(x, p["wk"])
-    v = dot(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(B, S, H, D)
-    k = k.reshape(B, S, KV, D)
-    v = v.reshape(B, S, KV, D)
+    q = q.reshape(B, S, H, cfg.head_dim)
     if "qn" in p:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
+    return q
+
+
+def _kv_proj(p, x, cfg: ModelConfig, KV: int):
+    B, S, _ = x.shape
+    D = cfg.head_dim
+    k = dot(x, p["wk"])
+    v = dot(x, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    k = k.reshape(B, S, KV, D)
+    v = v.reshape(B, S, KV, D)
+    if "kn" in p:
         k = rms_norm(k, p["kn"], cfg.norm_eps)
-    return q, k, v
+    return k, v
+
+
+def _all_kv(p, x, cfg: ModelConfig):
+    """(k, v) of every KV head, as a serve step writes them into its cache:
+    under ``common.model_parallel`` with ``wk``/``wv``'s blocks, this
+    rank's KV heads gathered over the model group."""
+    KV = p["wk"].shape[-1] // cfg.head_dim
+    k, v = _kv_proj(p, x, cfg, KV)
+    if split_width(p["wk"].shape[-1], cfg.n_kv * cfg.head_dim, "attn/wk"):
+        k, v = gather_from_model(k, 2, "kv"), gather_from_model(v, 2, "kv")
+    return k, v
+
+
+def _serve_qkv(p, x, cfg: ModelConfig, positions):
+    """(q of this rank's query heads, k and v of every KV head), rotated:
+    a serve step reads its heads' queries and writes every KV head's slice
+    of the cache (``distributed.sharding.cache_shardings`` cuts the cache
+    on ``head_dim``, not on heads)."""
+    q = _q_proj(p, x, cfg, p["wq"].shape[-1] // cfg.head_dim)
+    k, v = _all_kv(p, x, cfg)
+    return _rope_qk(q, k, positions, cfg) + (v,)
+
+
+def _read_heads(k, v, cfg: ModelConfig, H: int):
+    """The KV heads that this rank's ``H`` query heads read
+    (``_kv_range``), of every KV head's ``k``/``v``."""
+    if H == cfg.n_heads:
+        return k, v
+    lo, hi = _kv_range(cfg, H)
+    return k.narrow(2, lo, hi - lo), v.narrow(2, lo, hi - lo)
+
+
+def _heads_out(wo, out, width: int, what: str):
+    """``out @ wo``, where ``wo`` may be the row block of this rank's heads
+    (``out`` then those heads' columns, or every head's, cut here): their
+    share, summed over the model group."""
+    if split_width(wo.shape[0], width, what):
+        return reduce_from_model(dot(model_slice(out, wo.shape[0]), wo))
+    return dot(out, wo)
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
@@ -314,13 +381,11 @@ def attn_forward(p, x, cfg: ModelConfig, *, kind: str, positions, causal=True):
     window = cfg.window if kind == "attn_local" else 0
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk)
-    out = out.reshape(x.shape[0], x.shape[1], -1)
-    if split_width(p["wo"].shape[0], cfg.n_heads * cfg.head_dim, "attn/wo"):
-        # a row split: this rank's heads' share of the output, summed in the
-        # activation's dtype (where the reference's hint at
-        # attention.py:350 puts the model axis back on the residual)
-        return reduce_from_model(dot(out, p["wo"]))
-    return dot(out, p["wo"])
+    # a row split: this rank's heads' share of the output, summed in the
+    # activation's dtype (where the reference's hint at attention.py:350
+    # puts the model axis back on the residual)
+    return _heads_out(p["wo"], out.reshape(x.shape[0], x.shape[1], -1),
+                      cfg.n_heads * cfg.head_dim, "attn/wo")
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +404,27 @@ def _softmax(s):
 def _decode_core(q, k, v, valid):
     """One query per row over a cache: q (B,1,H,Dk); k/v (B,Sc,KV,D*);
     ``valid`` (B or 1, Sc) bool. Float32 scores, ``q`` scaled by
-    ``Dk ** -0.5`` in float32, as the reference's decode attention."""
+    ``Dk ** -0.5`` in float32, as the reference's decode attention.
+
+    Under ``common.model_parallel`` ``k``/``v`` may be this rank's slice
+    of ``head_dim`` (``cache_shardings``) and ``q`` every head's: each
+    rank's partial scores over its slice are summed over the model group
+    (``sum_partials``), and the output's slices gathered."""
     B, _, H, Dk = q.shape
     KV, Dv = k.shape[2], v.shape[-1]
     G = H // KV
-    qg = (q.to(torch.float32) * (Dk ** -0.5)).reshape(B, KV, G, Dk)
+    split = k.shape[-1] != Dk
+    qg = (model_slice(q, k.shape[-1]).to(torch.float32)
+          * (Dk ** -0.5)).reshape(B, KV, G, -1)
     s = _f32_einsum("bkgd,bckd->bkgc", qg, k)
+    if split:
+        s = sum_partials(s, "scores")
     s = torch.where(valid[:, None, None, :], s,
                     torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
     out = _f32_einsum("bkgc,bckd->bkgd", _softmax(s), v)
+    if split:
+        out = gather_from_model(out, -1, "attn_out")
+        Dv = out.shape[-1]
     return out.reshape(B, 1, H, Dv).to(q.dtype)
 
 
@@ -374,16 +451,21 @@ def decode_attention_lanes(q, k, v, *, k_pos, pos, window: int = 0):
 def attn_prefill(p, x, cfg: ModelConfig, *, kind: str, positions, cache):
     """Full-sequence forward that also fills the dense KV cache (in place).
     A sliding-window cache shorter than the prompt keeps the last ``Sc``
-    positions in ring order (slot = pos % Sc)."""
-    q, k, v = _qkv(p, x, cfg)
-    q, k = _rope_qk(q, k, positions, cfg)
+    positions in ring order (slot = pos % Sc). Under
+    ``common.model_parallel`` on this rank's query heads, writing every
+    KV head's slice of ``head_dim`` that its cache block holds."""
+    q, k, v = _serve_qkv(p, x, cfg, positions)
+    kh, vh = _read_heads(k, v, cfg, q.shape[2])
     window = cfg.window if kind == "attn_local" else 0
-    out = chunked_attention(q, k, v, causal=True, window=window,
+    out = chunked_attention(q, kh, vh, causal=True, window=window,
                             chunk=cfg.attn_chunk)
-    out = dot(out.reshape(x.shape[0], x.shape[1], -1), p["wo"])
+    out = _heads_out(p["wo"], out.reshape(x.shape[0], x.shape[1], -1),
+                     cfg.n_heads * cfg.head_dim, "attn/wo")
     S = x.shape[1]
     Sc = cache["k"].shape[1]
     dt = cache["k"].dtype
+    k = model_slice(k, cache["k"].shape[-1])
+    v = model_slice(v, cache["v"].shape[-1])
     if Sc >= S:
         cache["k"][:, :S] = k.to(dt)
         cache["v"][:, :S] = v.to(dt)
@@ -401,20 +483,26 @@ def attn_prefill(p, x, cfg: ModelConfig, *, kind: str, positions, cache):
 def attn_decode(p, x, cfg: ModelConfig, *, kind: str, pos, cache):
     """One-token decode at position ``pos`` (an int: every row of the
     batch writes the same slot). cache: {'k','v': (B,Sc,KV,D), 'pos':
-    (Sc,)}, written in place."""
+    (Sc,)}, written in place. Under ``common.model_parallel`` the cache
+    is this rank's ``head_dim`` slice: the queries of every head meet it
+    in ``_decode_core``."""
     B = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
     posb = torch.full((B, 1), int(pos), dtype=torch.int64, device=x.device)
-    q, k = _rope_qk(q, k, posb, cfg)
+    q, k, v = _serve_qkv(p, x, cfg, posb)
+    if split_width(p["wq"].shape[-1], cfg.n_heads * cfg.head_dim, "attn/wq"):
+        q = gather_from_model(q, 2, "q")
     Sc = cache["k"].shape[1]
     slot = int(pos) % Sc  # ring when local; Sc >= S_max when global
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["k"][:, slot] = model_slice(k[:, 0], cache["k"].shape[-1]).to(
+        cache["k"].dtype)
+    cache["v"][:, slot] = model_slice(v[:, 0], cache["v"].shape[-1]).to(
+        cache["v"].dtype)
     cache["pos"][slot] = int(pos)
     window = cfg.window if kind == "attn_local" else 0
     out = decode_attention(q, cache["k"], cache["v"], k_pos=cache["pos"],
                            pos=int(pos), window=window)
-    return dot(out.reshape(B, 1, -1), p["wo"]), cache
+    return _heads_out(p["wo"], out.reshape(B, 1, -1),
+                      cfg.n_heads * cfg.head_dim, "attn/wo"), cache
 
 
 def _cache_leaves(shapes, abstract: bool, device):
@@ -722,12 +810,16 @@ def mla_prefill(p, x, cfg: ModelConfig, *, positions, cache):
     """Full-sequence MLA that also fills the dense latent cache in place.
     The reference's ``dynamic_update_slice`` clamps its start; the fixed
     driver sizes the cache for the prompt and the generation, so the
-    prompt's slots [0, S) always fit and a slice assignment is exact."""
+    prompt's slots [0, S) always fit and a slice assignment is exact.
+    Under ``common.model_parallel`` on this rank's heads; the latents,
+    whole on every rank, are written at the slices its cache block holds."""
     out = mla_forward(p, x, cfg, positions=positions)
     ckv, k_pe = _mla_kv_latent(p, x, cfg, positions)
     S = x.shape[1]
-    cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-    cache["kpe"][:, :S] = k_pe.to(cache["kpe"].dtype)
+    cache["ckv"][:, :S] = model_slice(ckv, cache["ckv"].shape[-1]).to(
+        cache["ckv"].dtype)
+    cache["kpe"][:, :S] = model_slice(k_pe, cache["kpe"].shape[-1]).to(
+        cache["kpe"].dtype)
     cache["pos"][:S] = torch.arange(S, dtype=torch.int32,
                                     device=cache["pos"].device)
     return out, cache
@@ -737,23 +829,45 @@ def _mla_latent_decode(p, x, cfg: ModelConfig, q_nope, q_pe, ckv, kpe,
                        valid):
     """Weight-absorbed one-token attention on the latent cache: q_nope
     (B,1,H,nope), q_pe (B,1,H,rope), ckv (B,S,kvl), kpe (B,S,rope), valid
-    (B or 1, S). Float32 throughout, as the reference's decode."""
+    (B or 1, S). Float32 throughout, as the reference's decode.
+
+    Under ``common.model_parallel`` the queries are this rank's heads
+    (``_mla_split``) and ``ckv``/``kpe`` may be its slices of the latent
+    and rope dims (``cache_shardings``): the absorbed queries of every
+    head are gathered, each rank's partial scores over its slices summed
+    over the model group (``sum_partials``), the latent output's slices
+    gathered and this rank's heads taken through ``wuv`` and ``wo``."""
     B = x.shape[0]
-    H, nope, v_dim, kvl = cfg.n_heads, cfg.qk_nope, cfg.v_head_dim, cfg.kv_lora
-    f32 = torch.float32
-    wuk = p["wuk"].reshape(kvl, H, nope)
+    H, nope, v_dim, kvl = (q_nope.shape[2], cfg.qk_nope, cfg.v_head_dim,
+                           cfg.kv_lora)
     # absorb W_uk into the query: (B,1,H,kvl)
-    q_lat = _f32_einsum("bqhn,khn->bqhk", q_nope, wuk)
+    q_lat = _f32_einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvl, H,
+                                                                  nope))
+    if _mla_split(p, cfg):
+        q_lat = gather_from_model(q_lat, 2, "q")
+        q_pe = gather_from_model(q_pe, 2, "q")
+    split = ckv.shape[-1] != kvl
+    if split != (kpe.shape[-1] != cfg.qk_rope):
+        raise ValueError("the MLA cache's latent and rope dims must both be "
+                         "split over the model axis, or neither")
     scale = (nope + cfg.qk_rope) ** -0.5
-    s = (_f32_einsum("bqhk,bsk->bhqs", q_lat, ckv)
-         + _f32_einsum("bqhr,bsr->bhqs", q_pe, kpe))
+    s = (_f32_einsum("bqhk,bsk->bhqs", model_slice(q_lat, ckv.shape[-1]), ckv)
+         + _f32_einsum("bqhr,bsr->bhqs", model_slice(q_pe, kpe.shape[-1]),
+                       kpe))
+    if split:
+        s = sum_partials(s, "scores")
     s = s * scale
     s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), NEG_INF, dtype=f32, device=s.device))
+                    torch.full((), NEG_INF, dtype=torch.float32,
+                               device=s.device))
     o_lat = _f32_einsum("bhqs,bsk->bqhk", _softmax(s), ckv)        # (B,1,H,kvl)
-    wuv = p["wuv"].reshape(kvl, H, v_dim)
-    out = _f32_einsum("bqhk,khv->bqhv", o_lat, wuv)
-    return dot(out.reshape(B, 1, H * v_dim).to(x.dtype), p["wo"])
+    if split:
+        o_lat = gather_from_model(o_lat, -1, "attn_out")
+    o_lat = model_slice(o_lat, H, dim=2)
+    out = _f32_einsum("bqhk,khv->bqhv", o_lat,
+                      p["wuv"].reshape(kvl, H, v_dim))
+    return _heads_out(p["wo"], out.reshape(B, 1, H * v_dim).to(x.dtype),
+                      cfg.n_heads * v_dim, "attn/wo")
 
 
 def mla_decode(p, x, cfg: ModelConfig, *, pos, cache):
@@ -764,8 +878,10 @@ def mla_decode(p, x, cfg: ModelConfig, *, pos, cache):
     posb = torch.full((B, 1), int(pos), dtype=torch.int64, device=x.device)
     q_nope, q_pe = _mla_q(p, x, cfg, posb)            # (B,1,H,nope),(B,1,H,rope)
     ckv_t, kpe_t = _mla_kv_latent(p, x, cfg, posb)    # (B,1,kvl),(B,1,rope)
-    cache["ckv"][:, int(pos)] = ckv_t[:, 0].to(cache["ckv"].dtype)
-    cache["kpe"][:, int(pos)] = kpe_t[:, 0].to(cache["kpe"].dtype)
+    cache["ckv"][:, int(pos)] = model_slice(
+        ckv_t[:, 0], cache["ckv"].shape[-1]).to(cache["ckv"].dtype)
+    cache["kpe"][:, int(pos)] = model_slice(
+        kpe_t[:, 0], cache["kpe"].shape[-1]).to(cache["kpe"].dtype)
     cache["pos"][int(pos)] = int(pos)
     kpos = cache["pos"]
     valid = (kpos >= 0) & (kpos <= int(pos))
@@ -940,3 +1056,29 @@ def cross_forward(p, x, enc_out, cfg: ModelConfig):
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     y = dot(out.reshape(B, S, H * D), p["wo"])
     return reduce_from_model(y) if split else y
+
+
+def cross_prefill(p, x, enc_out, cfg: ModelConfig, cache):
+    """``cross_forward`` that also caches the encoder's K/V for decode (in
+    place): every KV head's, at the ``head_dim`` slice this rank's block
+    holds under ``common.model_parallel``."""
+    k, v = _all_kv(p, enc_out, cfg)
+    cache["ck"].copy_(model_slice(k, cache["ck"].shape[-1]))
+    cache["cv"].copy_(model_slice(v, cache["cv"].shape[-1]))
+    return cross_forward(p, x, enc_out, cfg)
+
+
+def cross_decode(p, x, cfg: ModelConfig, cache):
+    """One decoder token's queries over the cached encoder K/V (``ck``,
+    ``cv``; under ``common.model_parallel`` every head's queries over this
+    rank's ``head_dim`` slice, as ``attn_decode``)."""
+    B = x.shape[0]
+    D = cfg.head_dim
+    q = dot(x, p["wq"]).reshape(B, 1, -1, D)
+    if split_width(p["wq"].shape[-1], cfg.n_heads * D, "cross/wq"):
+        q = gather_from_model(q, 2, "q")
+    Se = cache["ck"].shape[1]
+    kpos = torch.arange(Se, dtype=torch.int32, device=x.device)
+    out = decode_attention(q, cache["ck"], cache["cv"], k_pos=kpos, pos=Se)
+    return _heads_out(p["wo"], out.reshape(B, 1, -1), cfg.n_heads * D,
+                      "cross/wo")

@@ -26,7 +26,11 @@ is passed) run for every layer kind: shared K/V page pools for
 recurrent state for ``rec`` / ``ssm``, and the cross-attention K/V of an
 encoder-decoder's decoder (fixed driver only). Caches are written in
 place: a period's cache is the ``leaf[i]`` view of the stacked cache
-leaves, as its parameters are.
+leaves, as its parameters are. As a rank of a mesh (``prefill`` and dense
+``decode`` with ``shards``, a ``distributed.sharding.CacheShards``) the
+caches are the rank's blocks, each layer's met as the rows the rank
+computes and put back after the layer wrote it; a state is written in its
+block's cut over the model axis (``common.to_model_block``).
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from ..core.paths import TensorSpec, tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
-from .common import dot, model_size, parallel_context, rms_norm, zeros
+from .common import (model_size, parallel_context, rms_norm, to_model_block,
+                     zeros)
 
 SERVING_MODES = ("prefill", "chunk", "decode")
 
@@ -112,8 +117,10 @@ def make_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 
 def _write(old, new):
-    """Write a new state tree into the cache's leaves, in place."""
-    tree_map(lambda o, n: o.copy_(n), old, new)
+    """Write a new state tree into the cache's leaves, in place (under
+    ``common.model_parallel`` the compute's cut of each state put in its
+    block's, ``common.to_model_block``)."""
+    tree_map(lambda o, n: o.copy_(to_model_block(n, o.shape)), old, new)
 
 
 def _write_rows(old, new, rows):
@@ -233,20 +240,9 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
             cx = attn.cross_forward(p["cross"], hx, enc_out, cfg)
         elif mode == "prefill":
             # the cross K/V are cached at prefill; decode reuses them
-            B, Se, _ = enc_out.shape
-            KV, D = cfg.n_kv, cfg.head_dim
-            cache["ck"].copy_(dot(enc_out, p["cross"]["wk"]).reshape(B, Se, KV, D))
-            cache["cv"].copy_(dot(enc_out, p["cross"]["wv"]).reshape(B, Se, KV, D))
-            cx = attn.cross_forward(p["cross"], hx, enc_out, cfg)
+            cx = attn.cross_prefill(p["cross"], hx, enc_out, cfg, cache)
         else:
-            B = hx.shape[0]
-            H, D = cfg.n_heads, cfg.head_dim
-            q = dot(hx, p["cross"]["wq"]).reshape(B, 1, H, D)
-            Se = cache["ck"].shape[1]
-            kpos = torch.arange(Se, dtype=torch.int32, device=x.device)
-            out = attn.decode_attention(q, cache["ck"], cache["cv"],
-                                        k_pos=kpos, pos=Se)
-            cx = dot(out.reshape(B, 1, H * D), p["cross"]["wo"])
+            cx = attn.cross_decode(p["cross"], hx, cfg, cache)
         x = x + rs * cx
 
     if kind != "ssm":
@@ -430,12 +426,21 @@ def commit_stack_prefill(cfg: ModelConfig, paged: Dict, dense: Dict, idx,
 def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
                 positions=None, caches: Optional[Dict] = None, pos=None,
                 enc_out=None, causal: bool = True, table=None, lengths=None,
-                lane_idx=None, fresh=None, live=None):
+                lane_idx=None, fresh=None, live=None, shards=None):
     """Returns (x, aux_total, caches): ``caches`` (written in place, the
-    same dict) when given, else None."""
+    same dict) when given, else None. ``shards`` (a
+    ``distributed.sharding.CacheShards``; modes ``prefill`` and dense
+    ``decode``): ``caches`` are a rank's blocks, each layer's met as the
+    rows the rank computes and put back after the layer wrote it."""
     check_ported(mode)
+    if shards is not None and (mode not in ("prefill", "decode")
+                               or table is not None):
+        raise ValueError("cache blocks serve the fixed driver's prefill and "
+                         "decode only")
     prefix, period, tail, n_periods = stack_structure(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    decode = mode == "decode"
+    length = x.shape[1]
 
     def run_layer(p, x, kind, cache):
         return apply_layer(p, x, cfg, kind, mode, positions=positions,
@@ -443,12 +448,23 @@ def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
                            causal=causal, table=table, lengths=lengths,
                            lane_idx=lane_idx, fresh=fresh, live=live)
 
+    def layer(name, p, x, kind, tree, i=None):
+        """Layer ``i`` (None: unstacked) of the cache part ``name``."""
+        if tree is None or shards is None:
+            c = tree if (tree is None or i is None) else tree_map(
+                lambda leaf: leaf[i], tree)
+            return run_layer(p, x, kind, c)
+        c = shards.view(name, i, tree, read=decode)
+        out = run_layer(p, x, kind, c)
+        shards.commit(name, i, tree, c, decode, pos=pos, length=length)
+        return out
+
     def part(name, key):
         return caches[name][key] if caches is not None else None
 
     for i, kind in enumerate(prefix):
-        x, aux, _ = run_layer(params["prefix"][f"l{i}"], x, kind,
-                              part("prefix", f"l{i}"))
+        x, aux, _ = layer(f"prefix/l{i}", params["prefix"][f"l{i}"], x, kind,
+                          part("prefix", f"l{i}"))
         aux_total = aux_total + aux
 
     if n_periods > 0:
@@ -457,9 +473,9 @@ def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
 
         def period_fn(h, aux_acc, i):
             for j, kind in enumerate(period):
-                c = tree_map(lambda l: l[i], body_c[j])
-                h, aux, _ = run_layer(tree_map(lambda l: l[i], body[j]), h,
-                                      kind, c)
+                h, aux, _ = layer(f"body/p{j}",
+                                  tree_map(lambda l: l[i], body[j]), h, kind,
+                                  body_c[j], i)
                 aux_acc = aux_acc + aux
             return h, aux_acc
 
@@ -481,7 +497,7 @@ def apply_stack(params: Dict, x, cfg: ModelConfig, mode: str, *,
                     x, aux_total = period_fn(x, aux_total, i)
 
     for i, kind in enumerate(tail):
-        x, aux, _ = run_layer(params["tail"][f"l{i}"], x, kind,
-                              part("tail", f"l{i}"))
+        x, aux, _ = layer(f"tail/l{i}", params["tail"][f"l{i}"], x, kind,
+                          part("tail", f"l{i}"))
         aux_total = aux_total + aux
     return x, aux_total, caches

@@ -26,8 +26,14 @@ norm over split channels (SSD's gated norm, ``rms_norm_over_model``)
 sums its sum of squares over the group both ways (``sum_over_model``);
 the vocabulary's embedding read (``vocab_rows``) and cross-entropy
 (``softmax_cross_entropy(..., vocab=)``) take their rank's block of the
-vocabulary. Outside ``model_parallel`` every one of them is the identity
-and a module whose weights are whole runs as one process does.
+vocabulary. A serve step as a rank of a mesh also meets caches that
+``distributed.sharding.cache_shardings`` cuts on another dim than the
+compute: ``sum_partials`` (partial scores or state products over a slice
+of their contraction dim), ``gather_from_model`` (this rank's heads'
+activations made every head's), ``model_slice`` and ``to_model_block``
+(a value in a cache block's cut), and ``vocab_greedy`` (the argmax over
+a split vocabulary). Outside ``model_parallel`` every one of them is the
+identity and a module whose weights are whole runs as one process does.
 ``data_parallel`` tells a forward on one rank's rows of a global batch how
 many ranks share it, so a statistic over the batch (``data_mean``) is the
 global batch's, as the reference's one program computes it.
@@ -322,6 +328,79 @@ def rms_norm_over_model(x, w, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# serving over the model axis (no autograd: a serve step runs under no_grad)
+# ---------------------------------------------------------------------------
+
+
+def sum_partials(x, what: str):
+    """The sum over the model group of each rank's partial ``x``: scores or
+    state products summed over a slice of their contraction dim, which a
+    serve cache stores split over the model axis (``runtime.STATS`` label
+    ``model/all_reduce/partial/<what>``). ``x`` itself outside
+    ``model_parallel``."""
+    return reduce_from_model(x, f"model/all_reduce/partial/{what}")
+
+
+def gather_from_model(x, dim: int, what: str):
+    """Every rank's ``x`` concatenated along ``dim`` in model-rank order
+    (``model/all_gather/serve/<what>``): a serve step's activation of this
+    rank's heads made every head's. ``x`` itself outside
+    ``model_parallel``."""
+    mp = _MODEL_GROUP.get()
+    if mp is None:
+        return x
+    from ..distributed import runtime
+
+    return runtime.all_gather(x, mp[0], dim=dim % x.ndim,
+                              label=f"model/all_gather/serve/{what}")
+
+
+def model_slice(t, n: int, dim: int = -1):
+    """This rank's block of ``n`` along ``dim`` of ``t`` (``t`` itself when
+    it has ``n`` there): what a rank stores of a whole value."""
+    if t.shape[dim] == n:
+        return t
+    return t.narrow(dim, model_index() * n, n)
+
+
+def to_model_block(t, shape, what: str = "state"):
+    """``t`` in the shape ``shape`` of another cut over the model axis: a
+    dim where ``t`` is a 1/size block of ``shape`` is gathered
+    (``model/all_gather/<what>``), then a dim where ``shape`` is a block of
+    ``t`` is cut to this rank's block. The dims are the same value's, so
+    the result is the block ``shape`` names bit for bit."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    m = model_size()
+    for d in range(t.ndim):
+        if t.shape[d] * m == shape[d]:
+            from ..distributed import runtime
+
+            t = runtime.all_gather(t, _MODEL_GROUP.get()[0], dim=d,
+                                   label=f"model/all_gather/{what}")
+    for d in range(t.ndim):
+        if shape[d] * m == t.shape[d]:
+            t = model_slice(t, shape[d], d)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {tuple(t.shape)} is no cut of {shape} "
+                         f"over {m} model rank(s)")
+    return t
+
+
+def vocab_greedy(logits, vocab: int):
+    """The greedy token (B, 1) int32 of (B, S, V) logits at the last
+    position, where the logits may be this rank's block of the ``vocab``
+    (``LM._logits`` under a split head): the smallest global id that holds
+    the global max, as one process's ``argmax`` takes it."""
+    block = _vocab_block(logits.shape[-1], vocab, "logits")
+    if block is None:
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    _, pred = _vocab_argmax(logits[:, -1].to(torch.float32), block[0], vocab)
+    return pred.to(torch.int32)[:, None]
+
+
 def _vocab_block(n_local: int, vocab: int, what: str):
     """(first id of this rank's block, block size) of a vocabulary split
     over the model axis, or None when the table is whole."""
@@ -513,6 +592,21 @@ def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
     return loss, {"ce": torch.sum(ce * mask) / denom, "accuracy": acc}
 
 
+def _vocab_argmax(lf, lo: int, vocab: int):
+    """(global max, argmax id) over the whole vocabulary of ``lf``, this
+    rank's float32 logits of the ids from ``lo``: a MAX all-reduce of the
+    maxima, then the smallest global id that holds it (torch's first-index
+    rule), one more MAX all-reduce of the negated ids."""
+    group = _MODEL_GROUP.get()[0]
+    lmax = torch.amax(lf, dim=-1)
+    gmax = _model_reduce(lmax, group, "model/all_reduce/max", op="max")
+    first = torch.argmax((lf == gmax[..., None]).to(torch.uint8), -1)
+    cand = torch.where(lmax == gmax, first + lo,
+                       torch.full_like(first, vocab))
+    return gmax, -_model_reduce(-cand, group, "model/all_reduce/max",
+                                op="max")
+
+
 def _vocab_parallel_ce(lf, labels, block, vocab: int):
     """(logsumexp, label logit, argmax) over the whole vocabulary from
     ``lf``, this rank's float32 logits of the ids ``block`` (first id,
@@ -522,16 +616,9 @@ def _vocab_parallel_ce(lf, labels, block, vocab: int):
     elsewhere) in one sum all-reduce; the argmax is the smallest global id
     that holds the global max (torch's first-index rule), one more MAX
     all-reduce of the negated ids."""
-    group = _MODEL_GROUP.get()[0]
     lo, n = block
     with torch.no_grad():
-        lmax = torch.amax(lf, dim=-1)
-        gmax = _model_reduce(lmax, group, "model/all_reduce/max", op="max")
-        first = torch.argmax((lf == gmax[..., None]).to(torch.uint8), -1)
-        cand = torch.where(lmax == gmax, first + lo,
-                           torch.full_like(first, vocab))
-        pred = -_model_reduce(-cand, group, "model/all_reduce/max",
-                               op="max")
+        gmax, pred = _vocab_argmax(lf, lo, vocab)
     local = labels - lo
     inside = (local >= 0) & (local < n)
     ll = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])[..., 0]

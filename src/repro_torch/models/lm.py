@@ -34,6 +34,15 @@ The serve half, for every arch:
 
 Every serve entry point runs without autograd and writes the cache it is
 given in place, returning the same dict.
+
+The fixed driver's entry points (``prefill``, ``decode_step``,
+``serve_step``) also run as one rank of a mesh: under
+``common.model_parallel`` and ``common.data_parallel``, on the weights
+``distributed.sharding.compute_params`` gives the rank and its rows of the
+batch, with ``shards`` (a ``distributed.sharding.CacheShards``) naming how
+its cache blocks lie (``distributed.sharding.cache_shardings``). The
+logits are then the rank's block of the vocabulary, and ``serve_step``'s
+greedy token the whole vocabulary's (``common.vocab_greedy``).
 """
 from __future__ import annotations
 
@@ -48,7 +57,8 @@ from ..core.paths import TensorSpec, tree_map
 from .blocks import (apply_stack, commit_stack_prefill, init_paged_stack_cache,
                      init_stack, init_stack_cache)
 from .common import (copy_to_model, dot, embed_init, rms_norm,
-                     softmax_cross_entropy, split_width, vocab_rows, zeros)
+                     softmax_cross_entropy, split_width, vocab_greedy,
+                     vocab_rows, zeros)
 
 
 class LM:
@@ -150,7 +160,7 @@ class LM:
                                 device=device)
 
     @torch.no_grad()
-    def prefill(self, params, batch: Dict, cache: Dict):
+    def prefill(self, params, batch: Dict, cache: Dict, shards=None):
         """(logits (B,1,V) at the last position, cache filled in place)."""
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -161,23 +171,27 @@ class LM:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, _, cache = apply_stack(params["stack"], x, cfg, "prefill",
                                   positions=positions, caches=cache,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, shards=shards)
         return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
-    def decode_step(self, params, token, cache: Dict, pos: int):
+    def decode_step(self, params, token, cache: Dict, pos: int, shards=None):
         """token: (B,1) int32; pos: the position being written (an int)."""
         x = self._embed(params, token)
         x, _, cache = apply_stack(params["stack"], x, self.cfg, "decode",
-                                  caches=cache, pos=pos)
+                                  caches=cache, pos=pos, shards=shards)
         return self._logits(params, x), cache
 
-    def serve_step(self, params, token, cache: Dict, pos: int):
+    def serve_step(self, params, token, cache: Dict, pos: int, shards=None):
         """Greedy one-token serving step."""
-        from ..serving.sampling import sample_greedy
+        logits, cache = self.decode_step(params, token, cache, pos, shards)
+        return self.greedy(logits), cache
 
-        logits, cache = self.decode_step(params, token, cache, pos)
-        return sample_greedy(logits), cache
+    def greedy(self, logits):
+        """The greedy token (B, 1) int32 of ``prefill``'s or
+        ``decode_step``'s logits (a block of the vocabulary under a split
+        head: the whole vocabulary's argmax)."""
+        return vocab_greedy(logits, self.cfg.vocab)
 
     # ------------------------------------------------------- paged serving
     def init_paged_cache(self, lanes: int, num_pages: int, page_size: int,

@@ -11,7 +11,10 @@ product per expert over its contiguous rows (the reference's
 dense branch. Under ``common.model_parallel`` the dense FFN, the routed
 experts and the shared experts each run on this rank's block of their
 hidden units (``distributed.sharding.tp_layout``) and sum their output
-over the model group; the router runs whole on every rank.
+over the model group; the router runs whole on every rank. The serve
+steps run the same way on a rank's rows: the group size, the capacity and
+the choice of the per-token gather path follow the global token count
+(``common.data_parallel``).
 
 Integer routing matches the reference bit for bit: top-k is a stable
 descending sort (``jax.lax.top_k`` returns the lower index first on ties;
@@ -184,7 +187,12 @@ def moe_forward(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     n_tok = B * S
     n_global = n_tok * data_size()
     g = group_size(n_global, cfg.moe_group)
-    if n_tok % g:
+    if n_tok % g and n_global <= 256:
+        # the per-token gather path (a decode step's few rows a rank): its
+        # groups only shape the router's load statistics, which are the
+        # global batch's means in either grouping
+        g = n_tok
+    elif n_tok % g:
         raise ValueError(
             f"MoE groups of {g} tokens (of {n_global} over {data_size()} "
             f"ranks) span two ranks' {n_tok} tokens")

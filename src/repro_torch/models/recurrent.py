@@ -26,7 +26,14 @@ its own), SSD's heads with their ``A``, ``dt_bias`` and ``d_skip``, and
 read whole, their gradients summed). Both sum ``wout``'s row split over the
 model group; SSD's gated norm, over all of ``d_inner``, sums its sum of
 squares over the group (``common.rms_norm_over_model``). The serving paths
-run whole, as the reference serves under no mesh.
+take the same cut. A state they are given may be cut otherwise over the
+model axis (``distributed.sharding.cache_shardings`` cuts its last dim:
+the RG-LRU's channels, SSD's state dim N): a decode meets it in the
+compute's cut (``common.to_model_block``), except SSD's N-split state,
+which each rank advances on its slice of N for every head, its partial
+products ``h . C`` summed over the model group. The states returned are
+the compute's cut; the caller writes them into its blocks with
+``to_model_block``.
 """
 from __future__ import annotations
 
@@ -38,9 +45,10 @@ import torch.nn.functional as F
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec
-from .common import (copy_to_model, dense_init, dot, einsum, model_index,
+from .common import (copy_to_model, dense_init, dot, einsum,
+                     gather_from_model, model_index, model_slice,
                      reduce_from_model, rms_norm_over_model, split_width,
-                     zeros)
+                     sum_partials, to_model_block, zeros)
 
 
 # ---------------------------------------------------------------------------
@@ -221,13 +229,20 @@ def rglru_forward_with_state(p, x, cfg: ModelConfig):
 
 
 def rglru_decode(p, x, state: Dict, cfg: ModelConfig):
-    """x: (B, 1, d); state: {'h': (B, dr) f32, 'conv': (B, k-1, dr)}."""
-    gate = F.gelu(dot(x, p["wy"]).to(torch.float32), approximate="tanh")
-    u, conv_state = causal_conv(dot(x, p["wx"]), p["conv"], state["conv"])
+    """x: (B, 1, d); state: {'h': (B, dr) f32, 'conv': (B, k-1, dr)}.
+    Under ``common.model_parallel`` on this rank's channels, as
+    ``_rglru_core``."""
+    split = split_width(p["wx"].shape[-1], cfg.rnn_width, "mix/wx")
+    xin = copy_to_model(x) if split else x
+    width = p["wx"].shape[-1]
+    st = {n: to_model_block(t, tuple(t.shape[:-1]) + (width,))
+          for n, t in state.items()}
+    gate = F.gelu(dot(xin, p["wy"]).to(torch.float32), approximate="tanh")
+    u, conv_state = causal_conv(dot(xin, p["wx"]), p["conv"], st["conv"])
     a, b = _rglru_gates(p, u, cfg)
-    h = a[:, 0] * state["h"] + b[:, 0]
+    h = a[:, 0] * st["h"] + b[:, 0]
     y = dot((gate[:, 0] * h)[:, None].to(x.dtype), p["wout"])
-    return y, {"h": h, "conv": conv_state}
+    return (reduce_from_model(y) if split else y), {"h": h, "conv": conv_state}
 
 
 def _state_leaves(shapes, abstract: bool, device):
@@ -443,17 +458,38 @@ def ssm_forward_with_state(p, x, cfg: ModelConfig, state=None, lengths=None):
 
 def ssm_decode(p, x, state: Dict, cfg: ModelConfig):
     """x: (B, 1, d); state: {'h': (B, H, P, N) f32, 'conv': {'x', 'b',
-    'c': (B, k-1, ...)}}."""
-    z, xs, B_, C_, dt, new_conv = _ssm_split(p, x, cfg, state["conv"])
+    'c': (B, k-1, ...)}}. Under ``common.model_parallel`` on this rank's
+    heads; an ``h`` split on N (``cache_shardings``) is advanced on that
+    slice for every head (their ``dA``, ``x dt`` and ``B``/``C`` gathered
+    over the model group), and ``y``'s partial sums over N are summed over
+    the group (``sum_partials``); the returned ``h`` is then that slice."""
+    widths = {"x": p["wx"].shape[-1], "b": p["wb"].shape[-1],
+              "c": p["wc"].shape[-1]}
+    conv = {n: to_model_block(t, tuple(t.shape[:-1]) + (widths[n],))
+            for n, t in state["conv"].items()}
+    z, xs, B_, C_, dt, new_conv = _ssm_split(p, x, cfg, conv)
     f32 = torch.float32
     A = -torch.exp(p["a_log"])
     dA = torch.exp(dt[:, 0] * A)                                    # (B,H)
     xdt = xs[:, 0].to(f32) * dt[:, 0][..., None]                    # (B,H,P)
-    h = dA[..., None, None] * state["h"] + torch.einsum(
-        "bhp,bhn->bhpn", xdt, B_[:, 0].to(f32))
-    y = torch.einsum("bhpn,bhn->bhp", h, C_[:, 0].to(f32))
+    Bt, Ct = B_[:, 0].to(f32), C_[:, 0].to(f32)                     # (B,H,N)
+    H = dA.shape[1]
+    n = state["h"].shape[-1]
+    if n != cfg.d_state:
+        if H != cfg.ssm_heads:
+            dA, xdt, Bt, Ct = (gather_from_model(t, 1, "ssd")
+                               for t in (dA, xdt, Bt, Ct))
+        h = dA[..., None, None] * state["h"] + torch.einsum(
+            "bhp,bhn->bhpn", xdt, model_slice(Bt, n))
+        y = sum_partials(torch.einsum("bhpn,bhn->bhp", h,
+                                      model_slice(Ct, n)), "ssd")
+        y = model_slice(y, H, dim=1)
+    else:
+        h0 = to_model_block(state["h"], tuple(xdt.shape) + (n,))
+        h = dA[..., None, None] * h0 + torch.einsum("bhp,bhn->bhpn", xdt, Bt)
+        y = torch.einsum("bhpn,bhn->bhp", h, Ct)
     y = y + p["d_skip"][None, :, None] * xs[:, 0].to(f32)
-    y = y.reshape(x.shape[0], 1, cfg.d_inner)
+    y = y.reshape(x.shape[0], 1, -1)
     return _ssm_out(p, y, z[:, :1], x, cfg), {"h": h, "conv": new_conv}
 
 

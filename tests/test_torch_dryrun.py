@@ -3,9 +3,9 @@ JAX package's: MODEL_FLOPS for every arch x shape, the per-rank argument
 bytes of train and decode cells on the mini meshes against the sum of
 JAX's ``NamedSharding.shard_shape`` bytes (``jax.eval_shape`` in one
 subprocess on 8 fake XLA devices, nothing compiled), the replay of
-``test_mini_dryrun_subprocess`` (the train cells traced: status "ok",
-flops > 0; the decode cells "args_only"), and the tile-state bytes the
-card measured."""
+``test_mini_dryrun_subprocess`` (the train, prefill and decode cells
+traced: status "ok", flops > 0; the long-context cell "args_only"), and
+the tile-state bytes the card measured."""
 import json
 import os
 import subprocess
@@ -100,7 +100,7 @@ MINI_DRYRUN = textwrap.dedent("""
                             tag="pytest")
         out[f"{arch}/{shape}"] = {k: r.get(k) for k in
                                   ("status", "roofline", "memory", "error",
-                                   "k1_records", "ops")}
+                                   "k1_records", "ops", "reason")}
     print("DRYRUN " + json.dumps(out))
 """)
 
@@ -108,6 +108,7 @@ MINI_DRYRUN = textwrap.dedent("""
 # and the train cells, each train cell in a process of its own
 MINI_RUNS = [[["qwen2-0.5b", "train_4k", True],
               ["qwen2-0.5b", "decode_32k", True],
+              ["qwen2-0.5b", "prefill_32k", False],
               ["mamba2-2.7b", "long_500k", False]],
              [["mamba2-2.7b", "train_4k", False]]]
 
@@ -180,17 +181,20 @@ def test_argument_bytes_match_jax_shards(runs, mesh_name):
 def test_mini_dryrun_cells(runs):
     """The replay of the reference's ``test_mini_dryrun_subprocess``."""
     _, mini = runs
-    for key in ("qwen2-0.5b/train_4k", "mamba2-2.7b/train_4k"):
+    for key in ("qwen2-0.5b/train_4k", "mamba2-2.7b/train_4k",
+                "qwen2-0.5b/decode_32k", "qwen2-0.5b/prefill_32k"):
         r = mini[key]
         assert r["status"] == "ok", r
         assert r["roofline"]["hlo_flops"] > 0
         assert r["roofline"]["model_flops"] > 0
         assert r["memory"]["peak_bytes"] > r["memory"]["argument_bytes"] > 0
-        assert r["k1_records"] > 0 and r["ops"] > 0
-    for key in ("qwen2-0.5b/decode_32k", "mamba2-2.7b/long_500k"):
-        r = mini[key]
-        assert r["status"] == "args_only", r
-        assert r["memory"]["argument_bytes"] > 0
+        assert r["ops"] > 0
+        # serving launches no K1; training does
+        assert (r["k1_records"] > 0) == key.endswith("train_4k")
+    r = mini["mamba2-2.7b/long_500k"]
+    assert r["status"] == "args_only", r
+    assert r["memory"]["argument_bytes"] > 0
+    assert "17b.2" in r["reason"]
 
 
 @pytest.mark.parametrize("arch, layers, mesh, want", [

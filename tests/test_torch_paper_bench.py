@@ -254,7 +254,6 @@ def test_fig2_mirror_devices_are_not_the_tiles_devices():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--only", "roofline"], "ROADMAP item 17"),
     (["--only", "fig1,tile_engine"], "ROADMAP item 16b"),
     (["--only", "fig9"], "unknown benchmark"),
 ])
@@ -264,6 +263,27 @@ def test_run_refuses_what_it_does_not_run(argv, msg):
     with pytest.raises(SystemExit) as e:
         run.main(argv + ["--device", "cpu"])
     assert msg in str(e.value)
+
+
+def test_run_prints_the_roofline_report(tmp_path, monkeypatch, capsys):
+    """``--only roofline`` tabulates the dry run's cells under
+    ``results/dryrun`` (here one skipped cell and one args-only cell, as
+    ``launch.dryrun.run_cell`` writes them)."""
+    from repro_torch.benchmarks import run
+    from repro_torch.launch import dryrun
+
+    monkeypatch.chdir(tmp_path)
+    for arch in ("qwen3-14b", "mamba2-2.7b"):
+        dryrun.run_cell(arch, "long_500k", multi_pod=False,
+                        out_dir="results/dryrun")
+    capsys.readouterr()
+    assert run.main(["--only", "roofline", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[:3] == ["# device: cpu", "name,us_per_call,derived",
+                       "roofline_cells,0,ok=0;args_only=1;skipped=1;errors=0"]
+    assert out[3].startswith("roofline_mamba2-2.7b_long_500k_pod16x16,0,"
+                             "status=args_only;args_gb=")
+    assert out[4].startswith("total,")
 
 
 def test_entry_points_refuse_to_fall_back_without_a_card():

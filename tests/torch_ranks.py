@@ -670,6 +670,53 @@ def tp_all(mesh, device, argvs, archs, batch, seq, steps):
                    for a in archs}}
 
 
+def serve_inputs(arch: str, batch: int, prompt: int, device="cpu"):
+    """The smoke ``arch``'s weights, prompt tokens (and an encoder's
+    frames) of the fixed serve cases, made from seeds."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config(arch, smoke=True))
+    params = model.init(prng.PRNGKey(5), device)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, (batch, prompt)).astype(np.int32)).to(device)
+    frames = None
+    if model.cfg.is_encdec:
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, prompt - 3, model.cfg.d_model)).astype(np.float32)).to(
+                device)
+    return model, params, tokens, frames
+
+
+def serve_fixed(mesh, device, archs, batch, prompt, gen):
+    """The fixed driver (``launch.serve.fixed_generate``) of each smoke
+    arch as this rank of ``mesh``: the gathered tokens and cache, the
+    cache's layouts (``sharding.cache_layout``) and the collectives
+    counted."""
+    from repro_torch.distributed import runtime, sharding
+    from repro_torch.launch.serve import fixed_generate
+
+    out = {}
+    for arch in archs:
+        model, params, tokens, frames = serve_inputs(arch, batch, prompt,
+                                                     device)
+        runtime.reset_stats()
+        toks, cache = fixed_generate(model, params, tokens, gen, mesh=mesh,
+                                     frames=frames)
+        acache = model.init_cache(batch, prompt + gen, device="meta",
+                                  enc_len=0 if frames is None
+                                  else frames.shape[1])
+        out[arch] = {"tokens": toks.cpu(), "cache": _to(cache, "cpu"),
+                     "layout": {p: (lay.data, lay.model_dim) for p, lay in
+                                sharding.cache_layout(acache, mesh).items()},
+                     "stats": {k: dict(v) for k, v in runtime.STATS.items()}}
+    return out
+
+
 def _to(tree, device):
     from repro_torch.core.paths import tree_map_with_path
 
@@ -681,7 +728,8 @@ def _to(tree, device):
 PROGRAMS = {"compress": compress, "bank": bank, "elastic": elastic,
             "cli": cli, "lm_micro": lm_micro, "cli_runs": cli_runs,
             "lm_steps": lm_steps, "tp_modules": tp_modules, "tp_all": tp_all,
-            "tp_mixers": tp_mixers, "tp_mixers_all": tp_mixers_all}
+            "tp_mixers": tp_mixers, "tp_mixers_all": tp_mixers_all,
+            "serve_fixed": serve_fixed}
 
 
 def main(argv):
