@@ -13,7 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               bf16 tile shapes up to (24, 896, 4864) with float32 dw and
               hash noise (bit-equal), and the kernel's time beside the
               plain version's and its memory bound, at the FCN's fc1 tile
-              and at (896, 4864), past the 50 MB L2
+              and at (896, 4864), past the 50 MB L2; K1's in-place mode
+              (``repro_torch::analog_update_``, the donated step's) through
+              the wrapper bit-equal to the out-of-place kernel and timed
+              beside its plain version at (784, 256), (896, 4864), the LM
+              stack (24, 896, 4864) and the 4-D MoE stack
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -36,21 +40,26 @@ Phases, each printing its own lines; any failure exits non-zero:
               kernel launches per step, and the card's run agrees with the
               port's CPU run (the plain path) on the same seeds
   7. fcn      the paper's FCN 784-256-128-10 at full width, batch 64,
-              E-RIDER with the benchmark hyper-parameters, 30 steps under
-              update_backend="vmap" and 30 under "fused": finite, falling
-              loss, six kernel launches per step (the main path); the first
-              3 steps agree with the port's CPU run on the same seeds
+              E-RIDER with the benchmark hyper-parameters, 30 donated steps
+              (``trainer.jit_step()``) under update_backend="vmap" and 30
+              under "fused": finite, falling loss, six kernel launches per
+              step, all in place, every leaf on its own storage (the main
+              path); bit-equal on every leaf and loss to 30 out-of-place
+              steps from a copy of the same state; the first 3 steps agree
+              with the port's CPU run on the same seeds
   8. ckpt     the FCN on the pcm_gst preset (update_backend="fused"), fed by
-              ``Prefetcher(device="cuda")``: run A takes 10 steps with an
-              asynchronous save at step 5 carrying the GDC t0 signatures;
-              run B restores step 5 into ``abstract_state(device="cuda")``
-              and takes steps 6-10: bit-equal to run A on every leaf, six
-              kernel launches per resumed step; a CPU-template restore holds
+              ``Prefetcher(device="cuda")``: run A takes 10 donated steps
+              with an asynchronous save at step 5 carrying the GDC t0
+              signatures; run B restores step 5 into
+              ``abstract_state(device="cuda")``, keeps a copy of it, and
+              takes donated steps 6-10: bit-equal to run A on every leaf,
+              six in-place kernel launches per resumed step; a CPU-template restore holds
               the saved arrays bit for bit; ``verify=True``. Then eight
               (896, 4864) E-RIDER tiles (Qwen2-0.5B's mlp/wi, about 1.1 GB
               of tile state) after one fused step: a sync save in >= 2
               chunks and a verified restore, bit-equal, with their MB/s
-  9. lifetime on the FCN's effective weights restored in phase 8: age 0 is
+  9. lifetime on the FCN's effective weights restored in phase 8 (the
+              copy of the restore): age 0 is
               bit-exact, GDC against the manifest's signatures gives alpha
               == 1.0 and bit-equal weights (the same signatures checked
               on the CPU: within 1e-6 of 1); at one year every matrix has
@@ -60,10 +69,11 @@ Phases, each printing its own lines; any failure exits non-zero:
  10. lm       the training CLI in process (``repro_torch.launch.train.main``):
               (a) Qwen2-0.5B at full width and depth, batch 8, seq 128,
               E-RIDER, the non-smoke tile config (bf16 state, hash noise),
-              the bigram stream over 8192 token ids, 8 steps: finite loss
-              and sp_err at every step, the loss falling, 2 kernel
-              launches per analog path per step; prints the median step
-              time, the peak allocated memory and the tile state's bytes;
+              the bigram stream over 8192 token ids, 8 steps of the CLI's
+              donated step: finite loss and sp_err at every step, the loss
+              falling, 2 kernel launches per analog path per step, all in
+              place; prints the median step time, the peak allocated
+              memory and the tile state's bytes;
               (b) the smoke config's first 3 steps on the
               card against the port's CPU run, with the smoke tile config
               (f32, threefry) and with the non-smoke one (bf16, hash); (c) a
@@ -192,11 +202,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               graph contracts on CUDA tensors, traced, every rule but the
               CPU memory ceiling, the serve entrypoints and begin_step under
               ``torch.cuda.set_sync_debug_mode("error")``: ops, uploads,
-              host reads, K1 records and bytes each; the restack,
-              host_transfer and f64 mutants caught on one entrypoint each;
-              (b) ``dryrun.account_step`` of phase 10a's step on ``meta``
-              against the same step on the card: predicted peak within
-              10 % of ``max_memory_allocated``, tile bytes exact; (c)
+              host reads, K1 records and bytes each, the train contracts
+              with their state kept in place (donation) and every K1 launch
+              in place; the restack, no_donate, host_transfer and f64
+              mutants caught on one entrypoint each;
+              (b) ``dryrun.account_step`` of phase 10a's donated step on
+              ``meta`` (and of the out-of-place one, printed) against the
+              donated step on the card: predicted peak within 10 % of
+              ``max_memory_allocated``, tile bytes exact; two donated LM
+              steps bit-equal to two out-of-place steps from the same init
+              on every leaf and loss; (c)
               qwen2-0.5b ``train_4k`` on pod16x16 and mamba2-2.7b
               ``decode_32k`` on pod2x16x16 on the host, after the card's
               phases: per-rank peak, bottleneck, roofline fraction. Before (c), a CUDA graph
@@ -383,7 +398,11 @@ def phase_kernels(device):
 
     def timed(shape, dtype=torch.float32, reps=20, rounds=15):
         """The kernel alone (its binding, int32 bits) and the plain version,
-        ``w`` in ``dtype`` and float32 ``dw``, as on the trainer's path."""
+        ``w`` in ``dtype`` and float32 ``dw``, as on the trainer's path;
+        then the in-place mode (``repro_torch::analog_update_``, which the
+        donated step launches): through the wrapper bit-equal to the
+        out-of-place kernel on the same operands, and timed beside its
+        plain version (the plain update written into ``w``)."""
         w, dw, gamma, rho = update_operands(shape, dtype, 9, device,
                                             torch.float32)
         ku, kz = prng.split(prng.PRNGKey(9))
@@ -396,7 +415,8 @@ def phase_kernels(device):
                             reps, rounds)
         n = math.prod(shape)
         # w read and written, dw, gamma, rho, ubits and zeta read (28 B per
-        # float32 element, 24 with bf16 w); ~30 flops per element
+        # float32 element, 24 with bf16 w); ~30 flops per element. The
+        # in-place mode moves the same bytes.
         wb = torch.finfo(dtype).bits // 8
         bound = max((2 * wb + 20) * n / H100_BYTES_PER_S,
                     30 * n / H100_F32_FLOPS) * 1e3
@@ -405,23 +425,53 @@ def phase_kernels(device):
               f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: "
               f"device {p * 1e3:.2f} us, per call {p_call * 1e3:.2f} us; "
               f"memory bound {bound * 1e3:.2f} us)")
-        return k, p, bound
+        want = analog_update_cuda(*ops_, bl=10, **kw)
+        w2 = w.clone()
+        before = ops.LAUNCHES["analog_update_"]
+        got = ops.analog_update(w2, *ops_[1:4], None, noise=ops_[4:], bl=10,
+                                out=w2, **kw)
+        torch.cuda.synchronize()
+        check(got is w2 and ops.LAUNCHES["analog_update_"] == before + 1,
+              f"the wrapper did not launch K1's in-place mode at {shape}")
+        same = torch.equal(w2, want)
+        err = (w2.float() - want.float()).abs().max().item()
+        check(same, f"K1 in place differs from out of place at {shape}: "
+                    f"{err}")
+        ip_ops = (w2,) + ops_[1:]
+        ki, ki_call = time_ms(
+            lambda: analog_update_cuda(*ip_ops, bl=10, out=w2, **kw),
+            reps, rounds)
+        pi, _ = time_ms(lambda: w2.copy_(ref.analog_update_ref(
+            *ip_ops, bl=10, **kw)), reps, rounds)
+        print(f"kernels: analog_update_ (in place) {shape} "
+              f"{str(dtype).replace('torch.', '')}: bit-equal to the "
+              f"out-of-place kernel={same}; median device {ki * 1e3:.2f} us, "
+              f"per call {ki_call * 1e3:.2f} us (plain, written back: device "
+              f"{pi * 1e3:.2f} us; memory bound {bound * 1e3:.2f} us)")
+        del want, w2, got
+        return k, p, bound, dict(ms=ki, plain_ms=pi, bound_ms=bound,
+                                 max_abs_err=err, shape=list(shape),
+                                 dtype=str(dtype).replace("torch.", ""))
 
     timed((512, 1024))
     # the main path's largest tile: the FCN's fc1, 784x256
-    k, p, bound = timed((784, 256))
+    k, p, bound, ip = timed((784, 256))
     # past the L2: Qwen2-0.5B's MLP tile streams 122 MB from HBM a call
-    k_lm, p_lm, bound_lm = timed((896, 4864))
+    k_lm, p_lm, bound_lm, ip_lm = timed((896, 4864))
     # the LM path's largest launch: the stacked mlp/wi of all 24 layers
-    k_st, p_st, bound_st = timed(LM_PATH_SHAPES[2], torch.bfloat16, 3, 5)
-    moe = k1_moe_stack(device, kw)
+    k_st, p_st, bound_st, ip_st = timed(LM_PATH_SHAPES[2], torch.bfloat16,
+                                        3, 5)
+    moe, ip_moe = k1_moe_stack(device, kw)
+    inplace = dict(ip, beyond_l2=ip_lm, lm_stack=ip_st, moe_stack=ip_moe)
+    inplace["max_abs_err"] = max(
+        d["max_abs_err"] for d in (ip, ip_lm, ip_st, ip_moe))
     return dict(max_abs_err=max_err_f32, ms=k, plain_ms=p, bound_ms=bound,
                 shape=[784, 256],
                 beyond_l2=dict(ms=k_lm, plain_ms=p_lm, bound_ms=bound_lm,
                                shape=[896, 4864]),
                 lm_stack=dict(ms=k_st, plain_ms=p_st, bound_ms=bound_st,
                               shape=list(LM_PATH_SHAPES[2]), dtype="bfloat16"),
-                moe_stack=moe)
+                moe_stack=moe), inplace
 
 
 # Mixtral-8x7B's expert up-projection at depth 1
@@ -481,11 +531,34 @@ def k1_moe_stack(device, kw):
           f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: device "
           f"{p * 1e3:.2f} us; memory bound {bound * 1e3:.2f} us, "
           f"{bound / k:.0%} of it reached)")
+    # the in-place mode on the same stack: through the wrapper, bit-equal to
+    # the out-of-place kernel, then timed on the wrapper's views
+    want = analog_update_cuda(*views, **kw).reshape(MOE_STACK)
+    before = ops.LAUNCHES["analog_update_"]
+    ops.analog_update(w, dw, gamma, rho, None, noise=operands[4:], out=w,
+                      **kw)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["analog_update_"] == before + 1,
+          "the wrapper did not launch K1's in-place mode on the 4-D stack")
+    same = torch.equal(w, want)
+    err = (w.float() - want.float()).abs().max().item()
+    del want
+    check(same, f"K1 in place differs from out of place on {MOE_STACK}")
+    ki, ki_call = time_ms(
+        lambda: analog_update_cuda(*views, out=views[0], **kw), 3, 5)
+    print(f"kernels: analog_update_ (in place) {MOE_STACK} bfloat16: "
+          f"bit-equal to the out-of-place kernel={same}; median device "
+          f"{ki * 1e3:.2f} us, per call {ki_call * 1e3:.2f} us (memory bound "
+          f"{bound * 1e3:.2f} us, {bound / ki:.0%} of it reached)")
+    pi, _ = time_ms(lambda: w.copy_(ref.analog_update_ref(*operands, **kw)),
+                    2, 3)
     del operands, views, w, dw, gamma, rho
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(ms=k, plain_ms=p, bound_ms=bound, shape=list(MOE_STACK),
-                dtype="bfloat16")
+    return (dict(ms=k, plain_ms=p, bound_ms=bound, shape=list(MOE_STACK),
+                 dtype="bfloat16"),
+            dict(ms=ki, plain_ms=pi, bound_ms=bound, max_abs_err=err,
+                 shape=list(MOE_STACK), dtype="bfloat16"))
 
 
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
@@ -840,25 +913,51 @@ def fcn_snapshot(state, metrics):
 
 
 def phase_fcn(device, backend: str, steps: int = 30):
+    """The donated step (``trainer.jit_step()``, the main path) for
+    ``steps`` steps, every K1 launch in place; then the same steps out of
+    place from a copy of the initial state: every leaf and every step's
+    loss bit-equal. Returns (K1 launches, median ms/step)."""
     import torch
 
     from repro_torch.benchmarks.common import fcn_run
+    from repro_torch.core.paths import flatten_with_path, tree_map
     from repro_torch.kernels import ops
 
     trainer, state, batches = fcn_run(backend, device, steps)
+    pure = tree_map(torch.clone, state)
+    ptrs = {p: t.untyped_storage().data_ptr()
+            for p, t in flatten_with_path(state)}
+    step = trainer.jit_step()
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
     losses, step_ms, card = [], [], []
     for b in batches:
         t0 = time.perf_counter()
-        state, m = trainer.train_step(state, b)
+        state, m = step(state, b)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         if len(card) < FCN_CHECK_STEPS:
             card.append(fcn_snapshot(state, m))
     launches = ops.LAUNCHES["analog_update"]
+    in_place = ops.LAUNCHES["analog_update_"]
+    check(in_place == launches, f"fcn[{backend}]: {in_place} of {launches} "
+          f"K1 launches in place")
+    moved = [p for p, t in flatten_with_path(state)
+             if t.untyped_storage().data_ptr() != ptrs[p]]
+    check(not moved, f"fcn[{backend}]: leaves not kept in place: {moved}")
+    pure_losses = []
+    for b in batches:
+        pure, m = trainer.train_step(pure, b)
+        pure_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    n = leaves_equal(state, pure, f"fcn[{backend}] donated against pure")
+    check(losses == pure_losses, f"fcn[{backend}]: donated losses differ")
+    print(f"fcn[{backend}]: {steps} donated steps (every K1 launch in place, "
+          f"every leaf on its storage) bit-equal to {steps} out-of-place "
+          f"steps on all {n} leaves and every loss")
+    del pure
     w = state["tiles"].classes["g784x256_float32_nM"]["W"]
     check(tuple(w.shape) == (1, 1, 784, 256), f"fc1 stack shape {w.shape}")
     check(all(math.isfinite(x) for x in losses), "non-finite FCN loss")
@@ -940,8 +1039,10 @@ def spec_tree(params, device):
 
 def phase_ckpt(device, root: str):
     """Train, save, restore from an abstract template, resume bit-exactly
-    (the FCN); then the save and restore rates of a tile state at LM scale.
-    Returns the state restored at step 5 and the manifest's signatures."""
+    (the FCN, through the donated step: the asynchronous save's host copy
+    must not see the steps after it); then the save and restore rates of a
+    tile state at LM scale. Returns a copy of the state restored at step 5
+    (run B writes the restore in place) and the manifest's signatures."""
     from repro_torch import prng
     from repro_torch.benchmarks.common import fcn_trainer
     from repro_torch.checkpoint import ckpt
@@ -963,8 +1064,9 @@ def phase_ckpt(device, root: str):
                                    device)
     state = trainer.init(prng.PRNGKey(1), params)
     feed = Prefetcher(producer, 0, depth=2, device=device)
+    step_a = trainer.jit_step()
     for step in range(CKPT_STEPS):
-        state, m = trainer.train_step(state, next(feed))
+        state, m = step_a(state, next(feed))
         if step + 1 == CKPT_AT:
             extra = train.ckpt_extra(trainer, state)
             t0 = time.perf_counter()
@@ -986,12 +1088,18 @@ def phase_ckpt(device, root: str):
     print(f"ckpt: restore of step {CKPT_AT} into abstract_state(device="
           f"{device!r}) with verify=True: {n} leaves bit-equal to the saved "
           f"state")
+    # run B's donated steps write the restore in place; phase 9 reads the
+    # state at step 5, so it gets a copy
+    kept = tree_map(lambda t: t.clone(), restored)
     resumed = restored
     feed = Prefetcher(producer, CKPT_AT, depth=2, device=device)
     ops.reset_launch_counts()
+    step_b = trainer_b.jit_step()
     for _ in range(CKPT_AT, CKPT_STEPS):
-        resumed, _ = trainer_b.train_step(resumed, next(feed))
+        resumed, _ = step_b(resumed, next(feed))
     launches = ops.LAUNCHES["analog_update"]
+    check(ops.LAUNCHES["analog_update_"] == launches,
+          "ckpt: run B's K1 launches not all in place")
     feed.close()
     per_step = launches / (CKPT_STEPS - CKPT_AT)
     check(launches == 6 * (CKPT_STEPS - CKPT_AT),
@@ -1011,12 +1119,11 @@ def phase_ckpt(device, root: str):
           f"bit-equal to the card's saved arrays")
     sig0 = ckpt.read_manifest(fcn_dir, CKPT_AT)["gdc_signatures"]
     check(sig0 == extra["gdc_signatures"], "manifest signatures changed")
-    # phase 9 reads the restore that run B started from: the step writes
-    # out of place, which this holds (ROADMAP item 17 plans in-place updates)
-    leaves_equal(restored, saved, "restore of step 5 after run B")
+    # the copy phase 9 reads is still the step-5 state
+    leaves_equal(kept, saved, "copy of the step-5 restore after run B")
 
     lm_ckpt(device, os.path.join(root, "lm"))
-    return trainer_b, restored, sig0
+    return trainer_b, kept, sig0
 
 
 def lm_ckpt(device, directory: str):
@@ -1209,6 +1316,7 @@ def phase_lm(device, card: str):
     state, hist, _ = run_cli(LM_ARGV + ["--steps", str(LM_STEPS),
                                         "--device", device])
     launches = ops.LAUNCHES["analog_update"]
+    in_place = ops.LAUNCHES["analog_update_"]
     peak = torch.cuda.max_memory_allocated()
     resident = torch.cuda.memory_allocated()   # the final state, held
     bank = state["tiles"]
@@ -1232,12 +1340,16 @@ def phase_lm(device, card: str):
     print(f"lm: median {med:.2f} ms/step (host clock, synchronized, first "
           f"step dropped), peak allocated {peak / 2 ** 30:.3f} GiB "
           f"({before / 2 ** 30:.3f} GiB before, {resident / 2 ** 30:.3f} GiB "
-          f"held by the final state), tile state {tbytes} bytes, on {card}")
+          f"held by the final state), tile state {tbytes} bytes, the CLI's "
+          f"donated step ({in_place} of {launches} K1 launches in place; "
+          f"phase 18 (b) holds one step's peak to the dry run's), on {card}")
     check(launches == 2 * n_paths * LM_STEPS,
           f"lm launches {launches} != {2 * n_paths * LM_STEPS}")
+    check(in_place == launches, f"lm: {in_place} of {launches} K1 launches "
+          f"in place")
     check(tail < losses[0], "lm loss did not fall")
-    return dict(launches=launches, step_ms=med, peak_bytes=peak,
-                tile_bytes=tbytes, losses=losses)
+    return dict(launches=launches, in_place=in_place, step_ms=med,
+                peak_bytes=peak, tile_bytes=tbytes, losses=losses)
 
 
 def bf16_ulp(x):
@@ -3224,6 +3336,7 @@ SYNC_FREE = ("begin_step", "prefill_commit", "prefill_commit_batch",
              "serve_step_lanes", "serve_step_lanes_gdc")
 # a mutant on one entrypoint each, and the rule that must catch it
 CARD_MUTANTS = [("restack", "train_step_fused", "restack"),
+                ("no_donate", "train_step_scanned", "donation"),
                 ("host_transfer", "serve_step_lanes", "host-transfer"),
                 ("f64", "prefill_commit_batch", "dtype")]
 # the production cells accounted on the host (arch, shape, multi_pod): a
@@ -3304,10 +3417,13 @@ def card_contracts(card: str):
     launches = 0
     for name in sorted(gc.CONTRACTS):
         before = ops.LAUNCHES["analog_update"]
+        before_ip = ops.LAUNCHES["analog_update_"]
         ctx = sync_errors() if name in SYNC_FREE else None
         tr, aliased = gc.trace_entrypoint(name, device="cuda", context=ctx)
         torch.cuda.synchronize()
         n = ops.LAUNCHES["analog_update"] - before
+        check(ops.LAUNCHES["analog_update_"] - before_ip == n,
+              f"analysis: {name}: K1 launches not all in place")
         launches += n
         res = check_trace(gc.CONTRACTS[name], tr, aliased, check_hbm=False)
         st = res.stats
@@ -3383,16 +3499,20 @@ def serve_capture(card: str) -> None:
           f"(smoke config, 4 lanes) on {card}")
 
 
-def dry_vs_card(card: str):
+def dry_vs_card(card: str, cli_peak=None):
     """(b): ``dryrun.account_step`` of phase 10a's CLI trainer (Qwen2-0.5B,
-    full width and depth, batch 8, seq 128, one rank) on ``meta``, beside
-    ``max_memory_allocated`` of the same step on the card and its tile
-    bytes. Returns the K1 launches."""
+    full width and depth, batch 8, seq 128, one rank) on ``meta``, the
+    donated step the CLI runs and the out-of-place one, beside
+    ``max_memory_allocated`` of the donated step on the card (and the
+    CLI's whole run in phase 10a, ``cli_peak``) and its tile bytes; then
+    the same two steps out of place from the same init, every leaf and the
+    loss bit-equal to the donated ones. Returns the K1 launches."""
     import numpy as np
     import torch
 
     from repro_torch import prng
     from repro_torch.configs import get_config
+    from repro_torch.core.paths import flatten_with_path
     from repro_torch.data import BigramLM
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, train
@@ -3405,48 +3525,80 @@ def dry_vs_card(card: str):
     mbatch = {k: torch.empty((8, 128), dtype=torch.int32, device="meta")
               for k in ("tokens", "labels")}
     acc = dryrun.account_step(trainer, meta, mbatch)
+    meta = dryrun.rank_tree(trainer.abstract_state(
+        model.abstract_params("meta"), "meta"))
+    pure_acc = dryrun.account_step(trainer, meta, mbatch, donate=False)
     del meta
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = ops.LAUNCHES["analog_update"]
+    before_ip = ops.LAUNCHES["analog_update_"]
     params = model.init(prng.PRNGKey(0), "cuda")
     state = trainer.init(prng.PRNGKey(1), params)
     del params
     raw = BigramLM(vocab=8192, seed=7).batch(0, 8, 128)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
              for k, v in raw.items()}
-    state, _ = trainer.train_step(state, batch)   # warm: the card's caches
+    step = trainer.jit_step()
+    state, m0 = step(state, batch)   # warm: the card's caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    state, metrics = trainer.train_step(state, batch)
+    state, metrics = step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     tiles = tile_state_bytes(state)
     launches = ops.LAUNCHES["analog_update"] - before
-    loss = float(metrics["loss"])
-    del state, metrics, batch
+    in_place = ops.LAUNCHES["analog_update_"] - before_ip
+    losses = [float(m0["loss"]), float(metrics["loss"])]
+    del metrics, m0
+    # the same two steps out of place, from the same init
+    params = model.init(prng.PRNGKey(0), "cuda")
+    pure = trainer.init(prng.PRNGKey(1), params)
+    del params
+    pure_losses = []
+    for _ in range(2):
+        pure, m = trainer.train_step(pure, batch)
+        pure_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["analog_update"] - before
+    fa, fb = flatten_with_path(state), flatten_with_path(pure)
+    same = ([p for p, _ in fa] == [p for p, _ in fb]
+            and all(a.dtype == b.dtype and torch.equal(a, b)
+                    for (_, a), (_, b) in zip(fa, fb)))
+    del state, pure, m, batch, fa, fb
     torch.cuda.empty_cache()
+    loss = losses[1]
     gap = acc["peak_bytes"] / peak - 1
     k1 = len(acc["trace"].kernel_records("analog_update"))
-    print(f"analysis: dry run of phase 10a's step: predicted peak "
+    cli = ("" if cli_peak is None else
+           f"; phase 10a's whole CLI run {cli_peak} B "
+           f"({cli_peak / 2 ** 30:.3f} GiB)")
+    print(f"analysis: dry run of phase 10a's donated step: predicted peak "
           f"{acc['peak_bytes']} B ({acc['peak_bytes'] / 2 ** 30:.3f} GiB: "
-          f"arguments {acc['argument_bytes']} + step {acc['temp_bytes']}), "
-          f"measured max_memory_allocated {peak} B ({peak / 2 ** 30:.3f} "
-          f"GiB; {resident} B resident before the step): {100 * gap:+.2f} %; "
+          f"arguments {acc['argument_bytes']} + step {acc['temp_bytes']}; "
+          f"out of place {pure_acc['peak_bytes']} B, "
+          f"{pure_acc['peak_bytes'] / 2 ** 30:.3f} GiB), measured "
+          f"max_memory_allocated {peak} B ({peak / 2 ** 30:.3f} GiB; "
+          f"{resident} B resident before the step){cli}: {100 * gap:+.2f} %; "
           f"tile bytes predicted {acc['tile_state_bytes']}, measured {tiles}; "
-          f"{acc['cost'].ops} ops, {k1} K1 records (card: {launches // 2} "
-          f"launches a step), {acc['cost'].flops:.4e} flops, "
+          f"{acc['cost'].ops} ops, {k1} K1 records (card: {in_place // 2} "
+          f"in-place launches a step), {acc['cost'].flops:.4e} flops, "
           f"{acc['cost'].bytes:.4e} B, traced in {acc['trace_s']:.1f} s on "
           f"the host; loss {loss:.4f} on {card}")
+    print(f"analysis: phase 10a's step: two donated steps bit-equal to two "
+          f"out-of-place steps from the same init on every leaf: {same}; "
+          f"losses {losses} vs {pure_losses}")
     check(math.isfinite(loss), "analysis: the 10a step's loss")
     check(abs(gap) <= DRY_PEAK_RTOL, f"analysis: predicted peak "
           f"{acc['peak_bytes']} vs measured {peak} ({100 * gap:+.2f} %)")
     check(acc["tile_state_bytes"] == tiles,
           f"analysis: tile bytes {acc['tile_state_bytes']} vs {tiles}")
-    check(launches == 2 * k1, f"analysis: {launches} K1 launches in two "
-          f"steps, {k1} records a step predicted")
+    check(in_place == 2 * k1, f"analysis: {in_place} in-place K1 launches in "
+          f"two donated steps, {k1} records a step predicted")
+    check(same and losses == pure_losses,
+          "analysis: donated LM steps differ from out-of-place ones")
     return launches
 
 
@@ -3603,12 +3755,13 @@ def dry_cells(card: str) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
-def phase_analysis(card: str):
-    """Phase 18 (see above). Returns its K1 and K2 launches."""
+def phase_analysis(card: str, cli_peak=None):
+    """Phase 18 (see above); ``cli_peak``: phase 10a's peak, printed beside
+    (b). Returns its K1 and K2 launches."""
     t0 = time.time()
     k2 = k2_two_streams()
     k1 = card_contracts(card)
-    k1 += dry_vs_card(card)
+    k1 += dry_vs_card(card, cli_peak)
     serve_mp(card)
     serve_capture(card)
     dry_cells(card)
@@ -3641,7 +3794,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
-    kern = phase_kernels(device)
+    kern, kern_ip = phase_kernels(device)
     mvm = phase_mvm(device)
     spf = phase_sp_filter(device)
     phase_quickstart(device)
@@ -3691,7 +3844,7 @@ def main() -> int:
     for arch, ms in mix["step_ms"].items():
         print(f"tp_mixers[{arch}]: {ms:.2f} ms/step on 2 model ranks on "
               f"{card}")
-    ana = phase_analysis(card)
+    ana = phase_analysis(card, lm["peak_bytes"])
 
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
@@ -3713,6 +3866,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/analog_update.cu",
              replaces="src/repro/kernels/analog_update.py:72",
              bound_by="bytes", library_ms=None, **kern),
+        dict(name="analog_update_", route="cuda",
+             source="src/repro_torch/kernels/csrc/analog_update.cu",
+             replaces="src/repro/kernels/analog_update.py:72",
+             bound_by="bytes", library_ms=None,
+             launches=launches + lm["in_place"], fcn_launches=launches,
+             lm_launches=lm["in_place"], **kern_ip),
         dict(name="analog_mvm", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_mvm.cu",
              replaces="src/repro/kernels/analog_matmul.py:59",

@@ -21,15 +21,15 @@ Builders accept a ``mutant`` hook used by the mutation tests (and by
   device-to-host read);
 * ``"f64"``           -- routes the loss (train) or the pools (serve)
   through a float64 round trip;
-* ``"no_donate"``     -- clones the state before the call: the serve pools
-  are then written in a copy, not in place, and the train state is copied
-  whole (caught by the copy ceiling).
+* ``"no_donate"``     -- clones the state before the call: the state (the
+  serve pools, the train state) is then written in a copy, not in place
+  (caught by the donation rule, and by the copy ceiling).
 
-The train entrypoints write their state out of place (``AnalogTrainer``'s
-step returns new tensors), so their contracts set
-``require_donation=False``; ROADMAP item 18 is the in-place step. The
-serve entrypoints write their pools in place (``index_copy_``) and keep
-``require_donation=True``.
+Every entrypoint writes its state in place and sets
+``require_donation=True``: the train entrypoints run the donated step
+(``AnalogTrainer.jit_step()``, ``begin_tiles(donate=True)``), which writes
+each device state leaf into its own storage (K1's in-place mode for P and
+W); the serve entrypoints write their pools with ``index_copy_``.
 """
 from __future__ import annotations
 
@@ -175,7 +175,7 @@ def _wrap_step(step, mutant: Optional[str]):
 
 def _train_step(backend: str, mutant, device):
     tr, state = _train_setup(backend, device)
-    step = _wrap_step(tr.train_step, mutant)
+    step = _wrap_step(tr.jit_step(), mutant)
     batch = torch.zeros((), device=device)
     return (lambda: step(state, batch)[0]), state
 
@@ -189,7 +189,8 @@ def build_train_step_fused(mutant: Optional[str] = None, device="cpu"):
 
 
 def build_begin_step(mutant: Optional[str] = None, device="cpu"):
-    """Phase 1 alone (chopper draw / Q-tilde sync) over the bank."""
+    """Phase 1 alone (chopper draw / Q-tilde sync) over the bank, donated:
+    written into the bank's stacks."""
     from .. import prng
     from ..core.tile import TileBank
 
@@ -201,7 +202,7 @@ def build_begin_step(mutant: Optional[str] = None, device="cpu"):
         b = TileBank.from_classes(_clone(bank.classes), bank.index,
                                   bank.class_index, bank.policies) \
             if mutant == "no_donate" else bank
-        out = tr.begin_tiles(b, key)
+        out = tr.begin_tiles(b, key, donate=True)
         classes = out.classes
         if mutant == "restack":
             classes = {c: _mutate_restack(a) for c, a in classes.items()}
@@ -376,9 +377,14 @@ def trace_entrypoint(name: str, mutant: Optional[str] = None, device="meta",
 _TRAIN_DTYPES = ("bool", "float32", "int32", "int64")
 _SERVE_DTYPES = ("bool", "float32", "int32", "int64")
 
-# The train entrypoints return a new state (out of place), so they keep
-# no state leaf in place: require_donation=False until the in-place step
-# (ROADMAP item 18). serving max_restacks=4 is the RoPE rotate-half cats
+# The train entrypoints run the donated step. min_aliased is the count
+# measured: the two classes' W, P, Qd, t and prog, the c and Q~ of the
+# class whose chopper flips, and the host key and step (12 device leaves
+# and 2 host leaves; the begin_step fixture: both classes' prog, and c and
+# Q~ of the class that flips). Their one copy of a state buffer is
+# E-RIDER's Q~ <- Q on a chopper flip (Alg. 3 line 5), a real copy of one
+# member tile: max_copy_bytes is the largest member's, the odd 4x24
+# float32 tile (384 B). serving max_restacks=4 is the RoPE rotate-half cats
 # of q and k in each of the smoke model's two layers (rank 4); a pool
 # restack adds more and trips. Serve copy ceilings: the largest copy is
 # the lanes' K/V read out of the pages, well under one pool.
@@ -389,9 +395,9 @@ CONTRACTS: Dict[str, GraphContract] = {
                     "class: zero restacks of class stacks, no host read, "
                     "no float64",
         allowed_dtypes=_TRAIN_DTYPES,
-        require_donation=False,  # out-of-place step, ROADMAP item 18
-        max_copy_bytes=256,      # measured 0
-        max_hbm_bytes=1.0e7,     # measured 6.85M
+        min_aliased=14,          # measured 14 (12 on the device)
+        max_copy_bytes=384,      # measured 256: Q~ <- Q of one 8x8 member
+        max_hbm_bytes=1.0e7,     # measured 6.79M
     ),
     "train_step_fused": GraphContract(
         name="train_step_fused",
@@ -399,10 +405,10 @@ CONTRACTS: Dict[str, GraphContract] = {
                     "per class array, hash RNG, the same zero-restack "
                     "guarantee",
         allowed_dtypes=_TRAIN_DTYPES,
-        require_donation=False,  # out-of-place step, ROADMAP item 18
-        max_copy_bytes=256,      # measured 96
+        min_aliased=14,          # measured 14 (12 on the device)
+        max_copy_bytes=384,      # measured 256: Q~ <- Q of one 8x8 member
         max_uploads=8,           # measured 8: the classes' tile seeds
-        max_hbm_bytes=3.7e6,     # measured 2.49M
+        max_hbm_bytes=3.7e6,     # measured 2.46M
     ),
     "begin_step": GraphContract(
         name="begin_step",
@@ -410,9 +416,9 @@ CONTRACTS: Dict[str, GraphContract] = {
                     "chopper drawn on the host from host keys, no device "
                     "read",
         allowed_dtypes=_TRAIN_DTYPES,
-        require_donation=False,  # out-of-place step, ROADMAP item 18
-        max_copy_bytes=256,      # measured 0
-        max_hbm_bytes=1.3e5,     # measured 87.8k
+        min_aliased=4,           # measured 4
+        max_copy_bytes=384,      # measured 256: Q~ <- Q of one 8x8 member
+        max_hbm_bytes=1.3e5,     # measured 57.6k
     ),
     "prefill_commit": GraphContract(
         name="prefill_commit",

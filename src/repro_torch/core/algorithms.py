@@ -8,7 +8,10 @@ Port of the JAX package's ``core/algorithms.py``. Every algorithm has
 
 plus ``update_batched``, the same update over a whole ``(n, *member)`` stack
 in one program (the grouped engine's 'fused' backend: one 3-D kernel launch
-per array). Algorithms: sgd, ttv1, ttv2, agad, residual, rider (Alg. 2),
+per array). ``inplace=True`` (the donated train step) writes every changed
+leaf into its own storage (the pulse updates through K1's in-place mode,
+the rest through ``out=`` or in-place ops) and returns a state on the
+given tensors, bit-equal to the state returned without it. Algorithms: sgd, ttv1, ttv2, agad, residual, rider (Alg. 2),
 erider (Alg. 3); see the JAX module for the paper references.
 
 Keys live on the host (``prng``), so the chopper draw is a host boolean and
@@ -37,9 +40,9 @@ Metrics = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def _au(x, dx, dev, dcfg, key, cfg: TileConfig):
+def _au(x, dx, dev, dcfg, key, cfg: TileConfig, inplace: bool = False):
     return analog_update(x, dx, dev, dcfg, key, bl=cfg.bl, mode=cfg.pulse_mode,
-                         rng=cfg.rng)
+                         rng=cfg.rng, out=x if inplace else None)
 
 
 def _dev(st: TileState, which: str, cfg: TileConfig, shape):
@@ -93,8 +96,24 @@ def _bc(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x.reshape(tuple(x.shape) + (1,) * (ndim - x.ndim))
 
 
-def _ema(q, p_new, eta: float):
-    return ((1.0 - eta) * q.to(torch.float32) + eta * p_new).to(q.dtype)
+def _ema(q, p_new, eta: float, inplace: bool = False):
+    """(12): (1 - eta) q + eta p_new in float32, rounded once to q's dtype
+    (in place: at the store into q, as ``.to`` rounds; no fused lerp or
+    multiply-add, which would round otherwise)."""
+    mixed = (1.0 - eta) * q.to(torch.float32)
+    if inplace:
+        return torch.add(mixed, eta * p_new, out=q)
+    return (mixed + eta * p_new).to(q.dtype)
+
+
+def _drain(h, dw, st: TileState, inplace: bool):
+    """The transfer buffer less what was transferred: ``h - dw``, written
+    into ``st["H"]`` in place."""
+    return torch.sub(h, dw, out=st["H"] if inplace else None)
+
+
+def _tick(t, inplace: bool, n=1):
+    return t.add_(n) if inplace else t + n
 
 
 # ---------------------------------------------------------------------------
@@ -102,19 +121,22 @@ def _ema(q, p_new, eta: float):
 # ---------------------------------------------------------------------------
 
 
-def begin_step(st: TileState, key, cfg: TileConfig) -> TileState:
+def begin_step(st: TileState, key, cfg: TileConfig,
+               inplace: bool = False) -> TileState:
     """Pre-forward phase: draw chopper c_k (17); E-RIDER reprograms Q~ from
-    the digital Q on a flip (Alg. 3 lines 4-6)."""
+    the digital Q on a flip (Alg. 3 lines 4-6). In place, Q~ takes Q's
+    values by a copy: the two leaves must stay two buffers, as the later
+    in-place EMA writes Q alone."""
     if cfg.algorithm not in ("agad", "erider"):
         return st
     st = TileState(st)
     flip = bool(prng.bernoulli(key, cfg.chopper_p))
     if flip:
-        st["c"] = -st["c"]
+        st["c"] = st["c"].neg_() if inplace else -st["c"]
         if cfg.algorithm == "erider":
-            st["Qt"] = st["Qd"]
+            st["Qt"] = st["Qt"].copy_(st["Qd"]) if inplace else st["Qd"]
     if cfg.algorithm == "erider":
-        st["prog"] = st["prog"] + int(flip)
+        st["prog"] = _tick(st["prog"], inplace, int(flip))
     return st
 
 
@@ -153,7 +175,8 @@ def effective_weight(st: TileState, cfg: TileConfig):
 # ---------------------------------------------------------------------------
 
 
-def update(st: TileState, grad, key, cfg: TileConfig, lr) -> Tuple[TileState, Metrics]:
+def update(st: TileState, grad, key, cfg: TileConfig, lr,
+           inplace: bool = False) -> Tuple[TileState, Metrics]:
     a = cfg.algorithm
     st = TileState(st)
     dev = st["W"].device
@@ -167,35 +190,37 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr) -> Tuple[TileState, Me
 
     if a == "sgd":
         dw = -beta * g
-        st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg)
+        st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg, inplace)
         metrics = _base_metrics(cfg, st, dw_w=dw)
 
     elif a in ("ttv1", "ttv2", "agad"):
         c = st["c"] if a == "agad" else torch.ones((), device=dev)
         dp = -alpha * c * g
-        st["P"] = _au(st["P"], dp, dev_p, cfg.device_p, kp, cfg)
+        st["P"] = _au(st["P"], dp, dev_p, cfg.device_p, kp, cfg, inplace)
         do_transfer = (st["t"] % cfg.transfer_every) == 0
         read = st["P"].to(torch.float32)  # analog readout of the fast array
         if a == "ttv1":
             dw = torch.where(do_transfer, beta * read, 0.0)
-            st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg)
+            st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg,
+                          inplace)
         else:
             if a == "agad":
                 # dynamic reference: low-pass of the readout (Rasch et al.)
-                st["Qd"] = _ema(st["Qd"], read, cfg.eta)
+                st["Qd"] = _ema(st["Qd"], read, cfg.eta, inplace)
                 read = read - st["Qd"].to(torch.float32)
             thr = cfg.threshold * cfg.device_w.dw_min
             h = st["H"] + torch.where(do_transfer, beta * c * read, 0.0)
             dw = torch.trunc(kref.div(h, thr)) * thr
-            st["H"] = h - dw
-            st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg)
+            st["H"] = _drain(h, dw, st, inplace)
+            st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg,
+                          inplace)
         metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw)
 
     elif a in ("residual", "rider", "erider"):
         c = st["c"] if a == "erider" else torch.ones((), device=dev)
         # (11a)/(18a): P <- P - alpha c grad
         dp = -alpha * c * g
-        st["P"] = _au(st["P"], dp, dev_p, cfg.device_p, kp, cfg)
+        st["P"] = _au(st["P"], dp, dev_p, cfg.device_p, kp, cfg, inplace)
         p_new = st["P"].to(torch.float32)
         # (11b)/(18b): W <- W + beta c (P_{k+1} - Q_k)
         q_ref = st["Qt"] if a == "erider" else st["Qd"]
@@ -204,11 +229,11 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr) -> Tuple[TileState, Me
             thr = cfg.threshold * cfg.device_w.dw_min
             h = st["H"] + dw
             dw = torch.trunc(kref.div(h, thr)) * thr
-            st["H"] = h - dw
-        st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg)
+            st["H"] = _drain(h, dw, st, inplace)
+        st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg, inplace)
         # (12): digital EMA tracking (rider/erider only)
         if a in ("rider", "erider"):
-            st["Qd"] = _ema(st["Qd"], p_new, cfg.eta)
+            st["Qd"] = _ema(st["Qd"], p_new, cfg.eta, inplace)
         metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw)
         if a == "erider" and cfg.metrics != "none":
             metrics["prog_events"] = st["prog"].to(torch.float32)
@@ -216,7 +241,7 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr) -> Tuple[TileState, Me
     else:
         raise ValueError(a)
 
-    st["t"] = st["t"] + 1
+    st["t"] = _tick(st["t"], inplace)
     return st, metrics
 
 
@@ -233,7 +258,7 @@ def _hash_noise_batched(seeds, shape, device):
 
 
 def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
-                   lr) -> Tuple[TileState, Metrics]:
+                   lr, inplace: bool = False) -> Tuple[TileState, Metrics]:
     """``update`` over a whole (n, *member) stack in one program: noise from
     per-tile hash streams, one pulse-update launch per array over the whole
     stack. Bit-identical to the per-member loop with rng='hash': same key
@@ -260,7 +285,8 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
     def au(x, dx, dev, dcfg, kraw):
         noise = _hash_noise_batched(kraw, member, device)
         return analog_update(x, dx, dev, dcfg, None, bl=cfg.bl,
-                             mode=cfg.pulse_mode, noise=noise)
+                             mode=cfg.pulse_mode, noise=noise,
+                             out=x if inplace else None)
 
     def pulses_of(dw, dw_min):
         n = kref.div(torch.abs(dw.to(torch.float32)), dw_min)
@@ -320,12 +346,12 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
             st["W"] = au(st["W"], dw, dev_w, cfg.device_w, kw)
         else:
             if a == "agad":
-                st["Qd"] = _ema(st["Qd"], read, cfg.eta)
+                st["Qd"] = _ema(st["Qd"], read, cfg.eta, inplace)
                 read = read - st["Qd"].to(torch.float32)
             thr = cfg.threshold * cfg.device_w.dw_min
             h = st["H"] + torch.where(do_transfer, beta * c * read, 0.0)
             dw = torch.trunc(kref.div(h, thr)) * thr
-            st["H"] = h - dw
+            st["H"] = _drain(h, dw, st, inplace)
             st["W"] = au(st["W"], dw, dev_w, cfg.device_w, kw)
         metrics = base_metrics(dw_p=dp, dw_w=dw)
 
@@ -340,10 +366,10 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
             thr = cfg.threshold * cfg.device_w.dw_min
             h = st["H"] + dw
             dw = torch.trunc(kref.div(h, thr)) * thr
-            st["H"] = h - dw
+            st["H"] = _drain(h, dw, st, inplace)
         st["W"] = au(st["W"], dw, dev_w, cfg.device_w, kw)
         if a in ("rider", "erider"):
-            st["Qd"] = _ema(st["Qd"], p_new, cfg.eta)
+            st["Qd"] = _ema(st["Qd"], p_new, cfg.eta, inplace)
         metrics = base_metrics(dw_p=dp, dw_w=dw)
         if a == "erider" and cfg.metrics != "none":
             metrics["prog_events"] = st["prog"].to(torch.float32)
@@ -351,5 +377,5 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
     else:
         raise ValueError(a)
 
-    st["t"] = st["t"] + 1
+    st["t"] = _tick(st["t"], inplace)
     return st, metrics

@@ -82,31 +82,46 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
-def apply_opt(params, grads, opt, step, lr, cfg: DigitalOptConfig):
-    """Update the digital branch; returns (params, opt, grad_norm)."""
+def apply_opt(params, grads, opt, step, lr, cfg: DigitalOptConfig,
+              inplace: bool = False):
+    """Update the digital branch; returns (params, opt, grad_norm).
+    ``inplace=True`` writes the parameters and moments into their own
+    storage (``out=``: each result rounds once, at the store into the
+    leaf's dtype, as ``.to(p.dtype)`` rounds it) and returns the given
+    trees."""
     f32 = torch.float32
     lr = lr * cfg.lr_scale
     gnorm = torch.zeros((), dtype=f32)
     if cfg.clip_norm > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
 
+    def sub_into(p, delta):
+        """p - delta in float32, in p's dtype (into p in place)."""
+        if inplace:
+            return torch.sub(p.to(f32), delta, out=p)
+        return (p.to(f32) - delta).to(p.dtype)
+
+    def add_into(dst, a, b):
+        return torch.add(a, b, out=dst) if inplace else a + b
+
     if cfg.kind == "sgd":
-        new_params = tree_map(
-            lambda p, g: (p.to(f32) - lr * g).to(p.dtype), params, grads)
+        new_params = tree_map(lambda p, g: sub_into(p, lr * g), params, grads)
         return new_params, opt, gnorm
     if cfg.kind == "sgdm":
-        new_mu = tree_map(lambda p, g, m: cfg.momentum * m + g.to(f32),
-                          params, grads, opt["mu"])
-        new_params = tree_map(lambda p, m: (p.to(f32) - lr * m).to(p.dtype),
-                              params, new_mu)
+        new_mu = tree_map(
+            lambda p, g, m: add_into(m, cfg.momentum * m, g.to(f32)),
+            params, grads, opt["mu"])
+        new_params = tree_map(lambda p, m: sub_into(p, lr * m), params, new_mu)
         return new_params, {"mu": new_mu}, gnorm
     if cfg.kind in ("adam", "adamw"):
         t = torch.as_tensor(step).to(f32) + 1.0
         new_mu = tree_map(
-            lambda p, g, m: cfg.beta1 * m + (1 - cfg.beta1) * g.to(f32),
+            lambda p, g, m: add_into(m, cfg.beta1 * m,
+                                     (1 - cfg.beta1) * g.to(f32)),
             params, grads, opt["mu"])
         new_nu = tree_map(
-            lambda p, g, v: cfg.beta2 * v + (1 - cfg.beta2) * torch.square(g.to(f32)),
+            lambda p, g, v: add_into(v, cfg.beta2 * v,
+                                     (1 - cfg.beta2) * torch.square(g.to(f32))),
             params, grads, opt["nu"])
         bc1 = 1 - torch.pow(torch.tensor(cfg.beta1, dtype=f32), t)
         bc2 = 1 - torch.pow(torch.tensor(cfg.beta2, dtype=f32), t)
@@ -115,7 +130,7 @@ def apply_opt(params, grads, opt, step, lr, cfg: DigitalOptConfig):
             delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             if cfg.kind == "adamw" and cfg.weight_decay > 0:
                 delta = delta + cfg.weight_decay * p.to(f32)
-            return (p.to(f32) - lr * delta).to(p.dtype)
+            return sub_into(p, lr * delta)
 
         new_params = tree_map(adam_step, params, new_mu, new_nu)
         return new_params, {"mu": new_mu, "nu": new_nu}, gnorm

@@ -20,22 +20,37 @@ from .device import DeviceConfig, DeviceParams, fg, responses
 
 def analog_update(w, dw, dp: DeviceParams, cfg: DeviceConfig, key, *,
                   bl: int = 0, mode: str = "fused", rng: str = "threefry",
-                  noise=None):
+                  noise=None, out=None):
     """Apply the desired increment ``dw`` to analog array ``w`` by pulses.
 
     ``noise`` optionally carries pre-drawn ``(ubits, zeta)``; the grouped
     engine's fused backend passes one batched stream for a whole stack.
+    ``out`` (``w`` itself for the in-place update) receives the clipped
+    result, bit-equal to the new tensor returned without it.
     """
     if cfg.kind in ("softbounds", "linear") and mode == "fused":
         return kops.analog_update(
             w, dw, dp["gamma"], dp["rho"], key,
             dw_min=cfg.dw_min, tau_min=cfg.tau_min, tau_max=cfg.tau_max,
-            sigma_c2c=cfg.sigma_c2c, bl=bl, rng=rng, noise=noise)
+            sigma_c2c=cfg.sigma_c2c, bl=bl, rng=rng, noise=noise, out=out)
     if mode == "fused":
-        return _fused_generic(w, dw, dp, cfg, key, bl=bl, noise=noise)
+        return _fused_generic(w, dw, dp, cfg, key, bl=bl, noise=noise,
+                              out=out)
     if mode == "train":
-        return _pulse_train(w, dw, dp, cfg, key, bl=max(bl, 1))
+        return _pulse_train(w, dw, dp, cfg, key, bl=max(bl, 1), out=out)
     raise ValueError(f"unknown pulse mode {mode}")
+
+
+def _clip_into(x, cfg: DeviceConfig, dtype, out):
+    """``clamp(x, -tau_min, tau_max)`` of float32 ``x`` in ``dtype``, written
+    into ``out`` when given (``clamp`` writes no other dtype than its
+    input's, so a bfloat16 ``out`` takes the float32 result by a copy,
+    which rounds as ``.to(dtype)`` does)."""
+    if out is None:
+        return torch.clamp(x, -cfg.tau_min, cfg.tau_max).to(dtype)
+    if out.dtype == x.dtype:
+        return torch.clamp(x, -cfg.tau_min, cfg.tau_max, out=out)
+    return out.copy_(torch.clamp(x, -cfg.tau_min, cfg.tau_max))
 
 
 def _stochastic_round(x, key):
@@ -44,7 +59,7 @@ def _stochastic_round(x, key):
     return fl + (u < x - fl).to(torch.float32)
 
 
-def _fused_generic(w, dw, dp, cfg, key, *, bl, noise=None):
+def _fused_generic(w, dw, dp, cfg, key, *, bl, noise=None, out=None):
     """Fused update for any response family (the kernels' generic oracle).
     With pre-drawn ``noise=(ubits, zeta)`` the rounding uniform is
     ``ubits * 2**-32``, the expression the kernel and ``ref`` use."""
@@ -67,11 +82,11 @@ def _fused_generic(w, dw, dp, cfg, key, *, bl, noise=None):
     qp, qm = responses(wf, dp, cfg)
     q_dir = torch.where(delta >= 0, qp, qm)
     amp = cfg.dw_min * cfg.sigma_c2c * torch.sqrt(torch.abs(n_q)) * q_dir
-    out = wf + delta * f - torch.abs(delta) * g + amp * zeta
-    return torch.clamp(out, -cfg.tau_min, cfg.tau_max).to(w.dtype)
+    new = wf + delta * f - torch.abs(delta) * g + amp * zeta
+    return _clip_into(new, cfg, w.dtype, out)
 
 
-def _pulse_train(w, dw, dp, cfg, key, *, bl):
+def _pulse_train(w, dw, dp, cfg, key, *, bl, out=None):
     """Explicit sequential pulse train (response re-evaluated per pulse)."""
     ku, kz = prng.split(key)
     n_q = _stochastic_round(kref.div(dw.to(torch.float32), cfg.dw_min), ku)
@@ -89,8 +104,9 @@ def _pulse_train(w, dw, dp, cfg, key, *, bl):
         g = (qm - qp) * 0.5
         c2c = 1.0 + cfg.sigma_c2c * prng.normal(kn, wf.shape, wf.device)
         step = (eps * f - torch.abs(eps) * g) * c2c
+        if i == bl - 1:
+            return _clip_into(wf + step, cfg, w.dtype, out)
         wf = torch.clamp(wf + step, -cfg.tau_min, cfg.tau_max)
-    return wf.to(w.dtype)
 
 
 def zs_step(w, eps, dp: DeviceParams, cfg: DeviceConfig, key=None):

@@ -133,8 +133,9 @@ def init_tile(key, w0: torch.Tensor, cfg: TileConfig,
                 else prng.key_data(kp).clone()),
     )
     if need["Qd"]:
+        # a copy: the donated step writes Q in place, never the caller's
         q0 = (torch.zeros(shape, dtype=dt, device=dev) if sp_estimate is None
-              else sp_estimate.to(dt))
+              else sp_estimate.to(dt, copy=True))
         st["Qd"] = q0
         if need["Qt"]:
             st["Qt"] = q0.clone()

@@ -18,9 +18,19 @@ on results here. ``engine="looped"`` keeps the per-tile dict
 layout. Keys fold a CRC of the tile path or of the group's member paths,
 as in the JAX package, so both packages draw the same bits.
 
-PyTorch runs eagerly: ``jit_step()`` returns ``train_step`` itself. The
-state's step counter and key stay on the host; tile state lives on the
-parameters' device.
+PyTorch runs eagerly, so there is nothing to compile: ``jit_step()``
+returns the donated step ``train_step_``, as the reference's ``jit_step``
+donates its state (``donate_argnums=(0,)``). It writes every state leaf
+into that leaf's own storage: the pulse updates of P and W through K1's
+in-place mode (``repro_torch::analog_update_``), H, Q and the per-tile
+counters through ``out=`` and in-place ops, each member of the per-tile
+loop into its slot of the class stack (nothing is restacked), the digital
+parameters and moments through ``apply_opt(inplace=True)``, and the host
+key and step counter. It returns the state it was given, bit-equal to what
+``train_step`` (pure: it leaves its input as it was) returns; a caller that
+needs the state from before a donated step keeps a copy.
+``jit_step(donate=False)`` returns ``train_step``. The state's step counter
+and key stay on the host; tile state lives on the parameters' device.
 
 ``mesh=`` (a ``launch.mesh.Mesh`` of more than one rank, one process per
 rank over ``distributed.runtime``) does what the JAX package's sharded
@@ -69,6 +79,9 @@ leaves (key, step, seeds) whole and equal on every rank. In the step:
      noise do not depend on a tile's position in a stack, so given equal
      gradients every rank's rows are bit-equal to the one-process update.
      Per-tile metrics are gathered in stack order before the mean or sum.
+     The donated step then writes the rank's cut of each updated leaf into
+     its stored block, one copy a leaf where the update ran on a gathered
+     or cut copy (``_write_back``).
 A row split sums two partial products and SSD's gated norm two partial
 sums of squares, so with ``tensor_parallel`` the gradients differ from
 one process's in float sum order only.
@@ -207,17 +220,50 @@ def _value_and_grad(loss_fn, params, batch, rng):
     return loss.detach(), aux, grads
 
 
-def _per_tile(fn):
+def _per_tile(fn, inplace: bool = False):
     """Lift a per-tile ``fn(tile_state, key, *extras)`` to one group stack:
     a loop over the members, each with its own raw (2,) key, results
-    restacked along a new leading axis."""
+    restacked along a new leading axis. ``inplace``: ``fn`` writes each
+    member into its slot view ``leaf[i]`` of the stack, which is returned
+    as it is; only the per-tile metrics are stacked."""
     def run(gstate, keys_raw, *extras):
         n = keys_raw.shape[0]
         outs = [fn(tree_map(lambda l, i=i: l[i], gstate), keys_raw[i],
                    *(tree_map(lambda l, i=i: l[i], e) for e in extras))
                 for i in range(n)]
-        return tree_map(lambda *ls: torch.stack(ls), *outs)
+        if not inplace:
+            return tree_map(lambda *ls: torch.stack(ls), *outs)
+        if isinstance(outs[0], tuple):
+            return gstate, tree_map(lambda *ls: torch.stack(ls),
+                                    *(m for _, m in outs))
+        return gstate
     return run
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same elements (storage identity, as
+    ``analysis.graph_contracts`` tells it, on ``meta`` too)."""
+    def steps(t):  # a stride over a dim of size 1 is never taken
+        return [st for n, st in zip(t.shape, t.stride()) if n > 1]
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and steps(a) == steps(b))
+
+
+def _write_back(stored, res):
+    """Write each leaf of ``res`` into the leaf of ``stored`` at its path
+    that it does not already view (one copy each); returns ``stored``."""
+    def put(dst, src):
+        src = src.reshape(dst.shape)
+        if not _same_memory(dst, src):
+            dst.copy_(src)
+        return dst
+    tree_map(put, stored, res)
+    return stored
+
+
+def _state_part(res):
+    return res[0] if isinstance(res, tuple) else res
 
 
 def _run_class(vfn, cstate, kr, extras):
@@ -225,7 +271,9 @@ def _run_class(vfn, cstate, kr, extras):
     one flattened (C*m) stack: the 'fused' backend's batched update, or
     the per-tile loop of the others, whose tiles are independent, so the
     class needs no restack of per-group results; the output gets the
-    leading (C, m) axes back."""
+    leading (C, m) axes back. The flattened stack is a view of
+    ``cstate``, so a ``vfn`` that writes the stack it is given writes
+    ``cstate``."""
     C = kr.shape[0]
 
     def flat(t):
@@ -316,7 +364,7 @@ class AnalogTrainer:
                 f"algorithms {algos_s}, {n_dig} digital leaves")
 
     def _grouped_apply(self, bank: TileBank, make_vfn, key, extras=(),
-                       members: str = "whole"):
+                       members: str = "whole", inplace: bool = False):
         """Apply one stack-level function per class.
 
         ``make_vfn(tcfg)`` returns ``vfn(stack, keys_raw, *extra)`` over a
@@ -327,6 +375,9 @@ class AnalogTrainer:
         state leaves as this rank's blocks and metrics whole.
         ``members="local"`` (a function that draws no noise and reduces
         nothing over a tile) lets it run on the blocks as stored.
+        ``inplace`` (``vfn`` writes the stack it is given): each class's
+        state is its stored stack, written in place; what ran on a copy (a
+        gathered or cut one under a mesh) is written back into it.
         """
         index = dict(bank.index)
 
@@ -342,10 +393,14 @@ class AnalogTrainer:
             ex = [e[cname] for e in extras]
             cstate = bank.classes[cname]
             if self.mesh is None:
-                out[cname] = _run_class(vfn, cstate, kr, ex)
+                res = _run_class(vfn, cstate, kr, ex)
             else:
-                out[cname] = self._run_class_sharded(
+                res = self._run_class_sharded(
                     f"tiles/{cname}", vfn, fused, cstate, kr, ex, members)
+            if inplace:
+                _write_back(cstate, _state_part(res))
+                res = (cstate, res[1]) if isinstance(res, tuple) else cstate
+            out[cname] = res
         return out
 
     def _run_class_sharded(self, prefix, vfn, fused, cstate, kr, extras,
@@ -607,13 +662,16 @@ class AnalogTrainer:
             at += t.numel()
         return out
 
-    def _apply_digital(self, params, grads, opt, step, lr):
+    def _apply_digital(self, params, grads, opt, step, lr,
+                       inplace: bool = False):
         """``apply_opt`` under the mesh on this rank's stored ``params``
         blocks and the whole ``grads``: clipping on the whole gradients,
         the update on this rank's block of the moments (the parameter
         block cut over the moments' data dims), the new parameters
         gathered over those dims only. The update is element-wise, so the
-        blocks are the one-process update's."""
+        blocks are the one-process update's. ``inplace``: the moments are
+        written in place and the gathered parameters into the stored
+        blocks."""
         cfg = self.cfg.digital
         layout = self._layout()
         gnorm = torch.zeros((), dtype=torch.float32)
@@ -624,7 +682,7 @@ class AnalogTrainer:
         if moments is None:
             new_params, new_opt, _ = apply_opt(
                 params, shd.shard_tree(grads, layout["params"]), opt, step,
-                lr, cfg)
+                lr, cfg, inplace)
             return new_params, new_opt, gnorm
         pspec = {p: s.spec for p, s in flatten_with_path(layout["params"])}
         mspec = {p: s.spec for p, s in flatten_with_path(moments)}
@@ -637,10 +695,12 @@ class AnalogTrainer:
         new_params, new_opt, _ = apply_opt(
             tree_map_with_path(lambda p, t: shd.shard(
                 t, mspec[p], self.mesh, dims=data_dims(p, t.ndim)), params),
-            shd.shard_tree(grads, moments), opt, step, lr, cfg)
-        return tree_map_with_path(lambda p, t: shd.gather(
-            t, mspec[p], self.mesh, dims=data_dims(p, t.ndim)),
-            new_params), new_opt, gnorm
+            shd.shard_tree(grads, moments), opt, step, lr, cfg, inplace)
+        new_params = tree_map_with_path(lambda p, t: shd.gather(
+            t, mspec[p], self.mesh, dims=data_dims(p, t.ndim)), new_params)
+        if inplace:
+            new_params = _write_back(params, new_params)
+        return new_params, new_opt, gnorm
 
     # -- state ------------------------------------------------------------
     def init(self, key, params, sp_estimates: Optional[Dict[str, Any]] = None) -> TrainState:
@@ -717,17 +777,27 @@ class AnalogTrainer:
 
     # -- step -------------------------------------------------------------
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        tcfg = self.cfg.tile
+        """One step; returns (new state, metrics) and leaves ``state`` as it
+        was."""
+        return self._step(state, batch, donate=False)
+
+    def train_step_(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The donated step: ``train_step`` with every leaf of ``state``
+        written in place; returns (``state``, metrics)."""
+        return self._step(state, batch, donate=True)
+
+    def _step(self, state: TrainState, batch, donate: bool):
         key, k_begin, k_model, k_upd = prng.split(state["key"], 4)
         grouped = isinstance(state["tiles"], TileBank)
         path_cfgs = self._path_cfgs(state["tiles"])
 
         # phase 1: chopper / Q~ sync (under a mesh on the blocks as stored)
         if grouped:
-            tiles = self.begin_tiles(state["tiles"], k_begin)
+            tiles = self.begin_tiles(state["tiles"], k_begin, donate)
         else:
             tiles = {
-                p: alg.begin_step(ts, _crc_fold(k_begin, p), path_cfgs[p])
+                p: alg.begin_step(ts, _crc_fold(k_begin, p), path_cfgs[p],
+                                  donate)
                 for p, ts in sorted(state["tiles"].items())
             }
 
@@ -742,10 +812,11 @@ class AnalogTrainer:
         if self.mesh is None:
             new_params, new_opt, gnorm = apply_opt(
                 state["params"], dgrads, state["opt"], state["step"], lr,
-                self.cfg.digital)
+                self.cfg.digital, donate)
         else:
             new_params, new_opt, gnorm = self._apply_digital(
-                state["params"], dgrads, state["opt"], state["step"], lr)
+                state["params"], dgrads, state["opt"], state["step"], lr,
+                donate)
 
         # phase 3b: analog branch (pulse updates)
         agrads = extract_analog_grads(grads, tiles)
@@ -759,13 +830,13 @@ class AnalogTrainer:
                 arr = torch.stack(flat) if len(flat) > 1 else flat[0].unsqueeze(0)
                 stacked_grads[cname] = arr.reshape(cdims + tuple(flat[0].shape))
             new_tiles, tile_metrics = self.update_tiles(tiles, stacked_grads,
-                                                        k_upd, lr)
+                                                        k_upd, lr, donate)
         else:
             new_tiles = {}
             for p, ts in sorted(tiles.items()):
                 ts2, m = self._looped_update(p, ts, agrads[p],
                                              _crc_fold(k_upd, p),
-                                             path_cfgs[p], lr)
+                                             path_cfgs[p], lr, donate)
                 new_tiles[p] = ts2
                 tile_metrics.append(m)
 
@@ -780,6 +851,11 @@ class AnalogTrainer:
                                         if k in ("pulses", "prog_events")
                                         else torch.mean(vals))
 
+        if donate:
+            # every device leaf was written in place; the host leaves too
+            state["step"].add_(1)
+            state["key"].copy_(key)
+            return state, metrics
         new_state = TrainState(
             step=state["step"] + 1,
             key=key,
@@ -858,47 +934,61 @@ class AnalogTrainer:
         aux = {k: v * inv for k, v in aux.items()}
         return loss, aux, grads
 
-    def begin_tiles(self, bank: TileBank, key) -> TileBank:
-        """Phase 1 of the grouped engine: ``begin_step`` of every tile."""
+    def begin_tiles(self, bank: TileBank, key,
+                    donate: bool = False) -> TileBank:
+        """Phase 1 of the grouped engine: ``begin_step`` of every tile.
+        ``donate``: written into ``bank``'s stacks, which it returns."""
         begun = self._grouped_apply(
             bank,
-            lambda gcfg: _per_tile(lambda ts, k: alg.begin_step(ts, k, gcfg)),
-            key, members="local")
+            lambda gcfg: _per_tile(
+                lambda ts, k: alg.begin_step(ts, k, gcfg, donate), donate),
+            key, members="local", inplace=donate)
+        if donate:
+            return bank
         return TileBank.from_classes(begun, bank.index, bank.class_index,
                                      bank.policies)
 
-    def update_tiles(self, bank: TileBank, stacked_grads, key, lr):
+    def update_tiles(self, bank: TileBank, stacked_grads, key, lr,
+                     donate: bool = False):
         """Phase 3b of the grouped engine: the pulse update of every tile
         from whole (C, n, *member) gradients per class. Returns the new
-        bank and one {metric: (C*n,)} dict per class."""
+        bank (``donate``: ``bank``, written in place) and one
+        {metric: (C*n,)} dict per class."""
         def make_update_vfn(gcfg):
             if gcfg.update_backend == "fused":
                 return lambda ts, kr, grd: alg.update_batched(
-                    ts, grd, kr, gcfg, lr)
+                    ts, grd, kr, gcfg, lr, donate)
             return _per_tile(
-                lambda ts, k, grd: alg.update(ts, grd, k, gcfg, lr))
+                lambda ts, k, grd: alg.update(ts, grd, k, gcfg, lr, donate),
+                donate)
 
         res = self._grouped_apply(bank, make_update_vfn, key,
-                                  extras=(stacked_grads,))
-        new = TileBank.from_classes(
+                                  extras=(stacked_grads,), inplace=donate)
+        new = bank if donate else TileBank.from_classes(
             {c: res[c][0] for c, _ in bank.class_index},
             bank.index, bank.class_index, bank.policies)
         return new, [{k: v.reshape(-1) for k, v in res[c][1].items()}
                      for c, _ in bank.class_index]
 
-    def _looped_update(self, path, ts, grad, key, cfg, lr):
+    def _looped_update(self, path, ts, grad, key, cfg, lr,
+                       donate: bool = False):
         """One tile's update (looped engine); under a mesh on the whole
-        tile, gathered, then cut back to this rank's blocks."""
+        tile, gathered, then cut back to this rank's blocks (``donate``:
+        written into them)."""
         if self.mesh is None:
-            return alg.update(ts, grad, key, cfg, lr)
+            return alg.update(ts, grad, key, cfg, lr, donate)
 
         spec = lambda p: self._specs[f"tiles/{path}/{p}"]  # noqa: E731
         whole = tree_map_with_path(
             lambda p, leaf: shd.gather(leaf, spec(p), self.mesh), ts)
-        st, m = alg.update(whole, grad, key, cfg, lr)
-        return (tree_map_with_path(
-            lambda p, leaf: shd.shard(leaf, spec(p), self.mesh), st), m)
+        st, m = alg.update(whole, grad, key, cfg, lr, donate)
+        st = tree_map_with_path(
+            lambda p, leaf: shd.shard(leaf, spec(p), self.mesh), st)
+        return (_write_back(ts, st) if donate else st), m
 
     def jit_step(self, donate: bool = True, **_):
-        """The eager step (PyTorch has no jit here; ``donate`` is moot)."""
-        return self.train_step
+        """The step to run (eager; nothing is compiled): ``train_step_``,
+        which writes the state in place, as the reference's
+        ``jit_step(donate=True)`` donates it, or ``train_step`` with
+        ``donate=False``."""
+        return self.train_step_ if donate else self.train_step

@@ -6,8 +6,10 @@ and 4 written per float32 element. It takes contiguous 2-D tiles or 3-D
 ``(k, m, n)`` tile stacks of any size (it bounds-checks, so no block
 padding), ``w``/``dw`` in float32 or bfloat16, ``gamma``/``rho``/``zeta`` in
 float32 and ``ubits`` as a uint32 bit pattern (int32 or uint32 tensor).
-``kernels.ops.analog_update`` is the wrapper the model code calls; this
-module only checks operands and launches.
+``out=w`` writes the result back into ``w`` (the kernel's in-place mode,
+``repro_torch::analog_update_``). ``kernels.ops.analog_update`` is the
+wrapper the model code calls; this module only checks operands and
+launches.
 """
 from __future__ import annotations
 
@@ -61,12 +63,15 @@ def _check(w, dw, gamma, rho, ubits, zeta):
 
 def analog_update_cuda(w, dw, gamma, rho, ubits, zeta, *, dw_min: float,
                        tau_min: float, tau_max: float, sigma_c2c: float,
-                       bl: int = 0) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns the new ``w``.
-    Raises if the operands are not what the kernel takes or the launch is
-    refused."""
+                       bl: int = 0, out=None) -> torch.Tensor:
+    """Launch the kernel on the current stream; returns the new ``w``
+    (``out=w``: written into ``w``, the in-place mode). Raises if the
+    operands are not what the kernel takes or the launch is refused."""
     _check(w, dw, gamma, rho, ubits, zeta)
-    out = torch.empty_like(w)
+    if out is None:
+        out = torch.empty_like(w)
+    elif out is not w:
+        raise ValueError("out must be None or w itself")
     stream = torch.cuda.current_stream(w.device).cuda_stream
     args = (_DTYPE_CODE[w.dtype], _DTYPE_CODE[dw.dtype],
             w.data_ptr(), dw.data_ptr(), gamma.data_ptr(), rho.data_ptr(),

@@ -2,7 +2,8 @@
 
 Each kernel is one ``torch.library.custom_op`` in the ``repro_torch``
 namespace (``repro_torch::analog_update``, ``::analog_mvm``,
-``::sp_filter``), so the dispatcher routes a call by the device of its
+``::sp_filter``; K1's in-place mode is ``::analog_update_``, which writes
+``w`` and returns nothing), so the dispatcher routes a call by the device of its
 tensors, and nothing else: the CUDA implementation launches the
 hand-written kernel or raises, it never falls back; the CPU
 implementation is the plain PyTorch version (``kernels/ref.py``); the
@@ -13,7 +14,8 @@ shows each kernel call as one operation under the kernel's name.
 ``LAUNCHES`` counts, per kernel, the calls the CUDA implementations made
 to it, so a run can show that its main path went through the kernels. One
 ``analog_mvm`` call is two CUDA launches (the DAC prologue and the
-product) and counts once.
+product) and counts once. ``analog_update`` counts every K1 launch, in
+either mode; ``analog_update_`` the in-place ones among them.
 
 On any device but the CPU a wrapper hands the op the operands the kernel
 takes (contiguous, 2-D or 3-D, ``ubits`` as int32), so a ``meta`` run
@@ -33,8 +35,8 @@ from torch import Tensor
 from .. import prng
 from . import fastrng, ref
 
-LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_mvm": 0,
-                            "sp_filter": 0}
+LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_update_": 0,
+                            "analog_mvm": 0, "sp_filter": 0}
 
 
 def backend(x: torch.Tensor) -> str:
@@ -105,27 +107,71 @@ def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
     return torch.empty_like(w)
 
 
+@torch.library.custom_op("repro_torch::analog_update_", mutates_args=("w",),
+                         device_types="cpu")
+def _analog_update_inplace_op(w: Tensor, dw: Tensor, gamma: Tensor,
+                              rho: Tensor, ubits: Tensor, zeta: Tensor,
+                              dw_min: float, tau_min: float, tau_max: float,
+                              sigma_c2c: float, bl: int) -> None:
+    w.copy_(ref.analog_update_ref(w, dw, gamma, rho, ubits, zeta,
+                                  dw_min=dw_min, tau_min=tau_min,
+                                  tau_max=tau_max, sigma_c2c=sigma_c2c,
+                                  bl=bl))
+
+
+@_analog_update_inplace_op.register_kernel("cuda")
+def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
+      bl):
+    from .analog_update import analog_update_cuda
+
+    analog_update_cuda(w, dw, gamma, rho, ubits, zeta, dw_min=dw_min,
+                       tau_min=tau_min, tau_max=tau_max, sigma_c2c=sigma_c2c,
+                       bl=bl, out=w)
+    LAUNCHES["analog_update"] += 1
+    LAUNCHES["analog_update_"] += 1
+
+
+@_analog_update_inplace_op.register_fake
+def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
+      bl):
+    return None
+
+
 def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
                   tau_max: float, sigma_c2c: float, bl: int = 0,
-                  rng: str = "threefry", noise=None):
+                  rng: str = "threefry", noise=None, out=None):
     """Fused analog pulse update; see ``ref.analog_update_ref``.
 
     ``noise`` optionally supplies pre-drawn ``(ubits, zeta)`` at
     ``w.shape``; then ``key``/``rng`` are ignored and may be None.
+    ``out=w`` writes the result into ``w`` (``repro_torch::analog_update_``,
+    bit-equal to the new tensor the call returns without it) and returns
+    ``w``, which must then be contiguous: a copy would take the write.
     """
     kw = dict(dw_min=float(dw_min), tau_min=float(tau_min),
               tau_max=float(tau_max), sigma_c2c=float(sigma_c2c),
               bl=int(bl) if bl and bl > 0 else 0)
+    if out is not None and out is not w:
+        raise ValueError("out must be None or w itself")
+    if out is not None and not w.is_contiguous():
+        raise ValueError("analog_update(out=w) needs a contiguous w: the "
+                         "kernel would update a copy")
     ubits, zeta = (noise if noise is not None
                    else make_noise(key, w.shape, w.device, rng))
-    if backend(w) == "ref":
-        return _analog_update_op(w, dw, gamma, rho, ubits, zeta, **kw)
-    if ubits.dtype == torch.int64:
-        ubits = ubits.to(torch.int32)  # same low 32 bits: the u32 pattern
-    f32 = torch.float32
-    operands = [_view2d(t).contiguous() for t in (
-        w, dw, gamma.to(f32), rho.to(f32), ubits, zeta.to(f32))]
-    return _analog_update_op(*operands, **kw).reshape(w.shape)
+    plain = backend(w) == "ref"
+    if plain:
+        operands = (w, dw, gamma, rho, ubits, zeta)
+    else:
+        if ubits.dtype == torch.int64:
+            ubits = ubits.to(torch.int32)  # same low 32 bits: the u32 pattern
+        f32 = torch.float32
+        operands = [_view2d(t).contiguous() for t in (
+            w, dw, gamma.to(f32), rho.to(f32), ubits, zeta.to(f32))]
+    if out is not None:
+        _analog_update_inplace_op(*operands, **kw)
+        return w
+    res = _analog_update_op(*operands, **kw)
+    return res if plain else res.reshape(w.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -12,14 +12,16 @@ rank and has no compiler, so it accounts for one rank of the mesh (rank 0;
   element for element to the JAX package's): each leaf at its per-rank
   block shape; the host leaves (key, step counter, tile seeds) as small
   CPU tensors, as the trainer keeps them;
-* for a **train** cell, that rank's ``train_step`` runs inside
+* for a **train** cell, that rank's step runs inside
   ``distributed.runtime.abstract`` (collectives only compute shapes and
   count their bytes) under ``roofline.op_cost.OpTrace``: it reports the
   argument bytes, the peak of live storage bytes over the trace (each
   storage rounded up to the caching allocator's 512 B), the flops, memory
   and collective bytes, and the ``Roofline`` on the H100's constants
-  (``status "ok"``). ``account_step`` is that accounting alone, for any
-  trainer and state;
+  (``status "ok"``). The step is the one the CLI runs,
+  ``trainer.jit_step()``: donated, its state written in place, as the
+  reference lowers it with ``donate_argnums=(0,)``. ``account_step`` is
+  that accounting alone, for any trainer and state;
 * a **prefill** or **decode** cell builds that rank's blocks of the
   parameters (``params_shardings``) and of the fixed cache
   (``cache_shardings``) and its rows of the inputs, and runs
@@ -201,15 +203,19 @@ def _storage_bytes(tree, round_bytes: int) -> int:
 
 
 def account_step(trainer: AnalogTrainer, state, batch, mesh=None,
-                 rank: int = 0, round_bytes: int = ALLOC_ROUND) -> Dict:
-    """Run ``trainer.train_step(state, batch)`` once under ``OpTrace``
+                 rank: int = 0, round_bytes: int = ALLOC_ROUND,
+                 donate: bool = True) -> Dict:
+    """Run ``trainer.jit_step(donate)(state, batch)`` once under ``OpTrace``
     (inside ``runtime.abstract(mesh, rank)`` on a mesh of more than one
     rank) and account for it: ``argument_bytes`` (the distinct device
     storages of state and batch), ``temp_bytes`` (the peak of the storages
     the step made and still held), ``peak_bytes`` (their sum),
     ``tile_state_bytes`` (every leaf of ``state["tiles"]``, the host seeds
     included, as ``chip_smoke.py`` counts them), the ``cost`` and the
-    ``trace``. On ``meta`` tensors nothing is allocated."""
+    ``trace``. On ``meta`` tensors nothing is allocated. The donated step
+    (the default, the CLI's) writes ``state`` in place; ``donate=False``
+    accounts for the out-of-place ``train_step``, which holds the old and
+    the new state at once."""
     args = _storage_bytes((state, batch), round_bytes)
     tiles = sum(t.numel() * t.element_size()
                 for _, t in flatten_with_path(state["tiles"]))
@@ -217,7 +223,7 @@ def account_step(trainer: AnalogTrainer, state, batch, mesh=None,
            if mesh is not None and mesh.size > 1 else contextlib.nullcontext())
     t0 = time.perf_counter()
     with ctx, OpTrace(round_bytes=round_bytes) as tr:
-        new_state, metrics = trainer.train_step(state, batch)
+        new_state, metrics = trainer.jit_step(donate)(state, batch)
     seconds = time.perf_counter() - t0
     del new_state, metrics
     return dict(argument_bytes=args, temp_bytes=tr.peak_bytes,

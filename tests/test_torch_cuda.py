@@ -7,7 +7,8 @@ the card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-* K1 ``ops.analog_update``: bit-equal to the plain version.
+* K1 ``ops.analog_update``: bit-equal to the plain version; its in-place
+  mode (``out=w``) bit-equal to the out-of-place kernel.
 * K3 ``ops.analog_mvm``: within one ADC step (``out_res * s`` of the row,
   plus the rounding of the output to its dtype: four float32 ULPs or one
   bfloat16 ULP of the value) and at least 99.9 % bit-equal; the plain
@@ -113,6 +114,17 @@ def test_analog_update_kernel_matches_plain(cuda, shape, dtype):
     want = ref.analog_update_ref(w, dw, gamma, rho, ubits, zeta, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    # K1's in-place mode (``repro_torch::analog_update_``): bit-equal to the
+    # out-of-place kernel, counted once in each count
+    before_ip = ops.LAUNCHES["analog_update_"]
+    ptr = w.data_ptr()
+    out = ops.analog_update(w, dw, gamma, rho, None, noise=(ubits, zeta),
+                            out=w, **kw)
+    assert out is w and w.data_ptr() == ptr
+    assert ops.LAUNCHES["analog_update_"] == before_ip + 1
+    assert ops.LAUNCHES["analog_update"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(w, got)
 
 
 IO = dict(inp_res=1 / 126, inp_bound=1.0, out_res=1 / 510, out_bound=12.0,

@@ -185,14 +185,16 @@ def test_entrypoint_clean_on_main(name):
     ("restack", "restack"),
     ("host_transfer", "host-transfer"),
     ("f64", "dtype"),
-    # the train step keeps no leaf in place (require_donation=False): the
-    # state copied whole trips the copy ceiling
+    # the state copied whole trips the copy ceiling, and the step writes
+    # the copy, so no leaf of the given state is kept: donation
     ("no_donate", "copy"),
 ])
 def test_train_step_mutations_caught(mutant, rule):
     res = _run("train_step_fused", mutant)
     assert not res.ok
     assert rule in _rules(res), (mutant, res.violations)
+    if mutant == "no_donate":
+        assert "donation" in _rules(res), res.violations
 
 
 @pytest.mark.parametrize("mutant, rule", [
@@ -208,11 +210,32 @@ def test_serve_step_mutations_caught(mutant, rule):
 
 @pytest.mark.parametrize("name", sorted(gc.TRAIN_ENTRYPOINTS))
 def test_train_entrypoints_write_out_of_place(name):
-    """The donation gap (ROADMAP item 18): the port's train entrypoints
-    keep 0 state leaves in place, where the reference donates its state.
-    The serve entrypoints write their two page pools in place."""
-    assert _run(name).stats["aliased_outputs"] == 0
-    assert not gc.CONTRACTS[name].require_donation
+    """The train entrypoints no longer write out of place: they run the
+    donated step, which returns the state it was given with every device
+    leaf it changes written into its own storage (W, P, Q, t, prog, and c
+    and Q~ on a flip), and touches no other device leaf. The serve
+    entrypoints write their two page pools in place."""
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.roofline.op_cost import OpTrace
+
+    call, state_in = gc.ENTRYPOINTS[name](None, torch.device("meta"))
+    before = {p: t.untyped_storage()._cdata
+              for p, t in flatten_with_path(state_in)}
+    with OpTrace() as tr:
+        state_out = call()
+    after = dict(flatten_with_path(state_out))
+    assert set(after) == set(before)
+    for p, t in after.items():
+        assert t.untyped_storage()._cdata == before[p], p
+    written = {p for p, t in after.items()
+               if t.untyped_storage()._cdata in tr.written}
+    slots = {p.rsplit("/", 1)[-1] for p in written}
+    assert slots >= ({"prog", "Qt", "c"} if name == "begin_step" else
+                     {"W", "P", "Qd", "t", "prog", "key", "step"}), slots
+    assert not slots & {"scale", "gamma", "rho"}, slots
+    assert gc.CONTRACTS[name].require_donation
+    assert _run(name).stats["aliased_outputs"] == len(written) \
+        == gc.CONTRACTS[name].min_aliased
     assert _run("serve_step_lanes").stats["aliased_outputs"] == 2
 
 

@@ -164,12 +164,14 @@ def bank_batch(kind: str, device="cpu"):
 
 
 def bank(mesh, device, kind="ref", backend="vmap", engine="grouped", steps=2,
-         state_file=""):
+         state_file="", donate=False):
     """Init under the mesh (specs, bytes per rank), then ``steps`` steps
     from the whole state in ``state_file`` (or from that init), gathered;
-    rank 0 also runs the one-process steps from the same state."""
+    rank 0 also runs the one-process steps from the same state.
+    ``donate``: the ranks run the donated step, and ``kept`` tells whether
+    every block kept its storage (``moved`` lists those that did not)."""
     from repro_torch import prng
-    from repro_torch.core.paths import flatten_with_path, leaves
+    from repro_torch.core.paths import flatten_with_path, leaves, tree_map
     from repro_torch.distributed import runtime
     from repro_torch.distributed.sharding import gather_tree, local_shape
     from repro_torch.kernels import ops
@@ -188,18 +190,28 @@ def bank(mesh, device, kind="ref", backend="vmap", engine="grouped", steps=2,
     if state_file:
         whole0 = _to(torch.load(state_file, weights_only=False), device)
         state = tr.shard_state(whole0)
+    if donate:
+        # the gather hands back a replicated block itself, which the
+        # donated steps write: the one-process run starts from a copy
+        whole0 = tree_map(torch.clone, whole0)
     batch = bank_batch(kind, device)
     ops.reset_launch_counts()
     metrics = []
+    step = tr.jit_step(donate)
+    ptrs = {p: t.untyped_storage().data_ptr()
+            for p, t in flatten_with_path(state)}
     for _ in range(steps):
-        state, m = tr.train_step(state, batch)
+        state, m = step(state, batch)
         metrics.append({k: v.cpu() for k, v in m.items()})
+    moved = [p for p, t in flatten_with_path(state)
+             if t.untyped_storage().data_ptr() != ptrs[p]]
     launches = ops.LAUNCHES["analog_update"]
     bank_ = state["tiles"]
     out = {"names": [g for g, _ in getattr(bank_, "index", ())],
            "classes": [c for c, _ in getattr(bank_, "class_index", ())],
            "specs": specs, "total": total, "per_rank": per_rank,
            "shapes_ok": shapes_ok, "metrics": metrics, "launches": launches,
+           "kept": not moved, "moved": moved,
            "state": _to(tr.gather_state(state), "cpu")}
     if runtime.rank() == 0:
         one = _bank_trainer(None, backend, engine, kind)
