@@ -212,9 +212,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``max_memory_allocated``, tile bytes exact; two donated LM
               steps bit-equal to two out-of-place steps from the same init
               on every leaf and loss; (c)
-              qwen2-0.5b ``train_4k`` on pod16x16 and mamba2-2.7b
-              ``decode_32k`` on pod2x16x16 on the host, after the card's
-              phases: per-rank peak, bottleneck, roofline fraction. Before (c), a CUDA graph
+              qwen2-0.5b ``train_4k`` and gemma3-4b ``long_500k`` on
+              pod16x16 and mamba2-2.7b ``decode_32k`` on pod2x16x16 on the
+              host, after the card's phases: per-rank peak, bottleneck,
+              roofline fraction. Before (c), a CUDA graph
               capture of serve_step_lanes (whether it captures, whether a
               replay equals the eager step: a measurement, not a gate);
               (d) Qwen2-0.5B at full width and depth through the fixed
@@ -225,12 +226,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               calls and bytes a decode step; (e) ``dryrun.account_serve``
               of that model's ``serve_step`` on ``meta``, one process, at
               (d)'s batch and cache length: the step's bytes within 10 %
-              of the rise of ``max_memory_allocated`` over the step
+              of the rise of ``max_memory_allocated`` over the step;
+              (f) gemma3-4b at full width cut to 16 layers (two periods
+              of five local layers and a global one, the four-layer local
+              tail), batch 1, on the two data ranks of a (2, 1) mesh
+              sharing the card, every rank computing the row: the body
+              caches split their period axis (broadcast from the rank
+              that holds the period, ``cache/reshard``), the tail's
+              1024-slot rings their sequence (each rank's partial softmax
+              merged by log-sum-exp, ``attn/seq_merge``): (i)
+              ``fixed_generate`` with a 4096-token prompt and 8 greedy
+              tokens, identical to one process's; (ii) one step at
+              position 524287 of a 524288-slot cache filled from seeds:
+              the token equal to one process's or a near tie, the logits
+              and the slots the step wrote within ``LONG_ULPS`` bf16 ULPs
+              of their amax, every other slot its seeded value; (iii)
+              ``dryrun.account_serve`` of the one process's step on
+              ``meta`` within 10 % of the rise of ``max_memory_allocated``
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}. It needs CUDA and imports no JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3343,11 +3361,22 @@ CARD_MUTANTS = [("restack", "train_step_fused", "restack"),
 # train cell and a serve cell whose body state the reference splits over
 # its period axis (mamba2-2.7b's train cell took 35-44 s of the host)
 DRY_CELLS = [("qwen2-0.5b", "train_4k", False),
-             ("mamba2-2.7b", "decode_32k", True)]
+             ("mamba2-2.7b", "decode_32k", True),
+             ("gemma3-4b", "long_500k", False)]
 DRY_PEAK_RTOL = 0.10
 # (d)/(e): Qwen2-0.5B's fixed serve path, batch 8, a 128-token prompt and
 # 16 greedy tokens (the cache holds 144 slots)
 SERVE_MP = dict(batch=8, prompt=128, gen=16)
+# (f): gemma3-4b at full width cut to 16 layers (two periods of five local
+# layers and a global one, then the four-layer local tail) at batch 1 on
+# the two data ranks of a (2, 1) mesh: the body caches split their period
+# axis, the tail's 1024-slot rings their sequence. (i) a 4096-token prompt
+# (the rings wrap four times) and 8 greedy tokens; (ii) one step at the
+# last position of a 524288-slot cache filled from seeds, fed ``token``
+LONG = dict(layers=16, prompt=4096, gen=8, seq=524288, token=4242)
+# (ii): the logits and the cache slots the step wrote, ranks against one
+# process, within this many bfloat16 ULPs of their amax
+LONG_ULPS = 8
 
 
 def sync_errors():
@@ -3755,6 +3784,302 @@ def dry_cells(card: str) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+def long_model():
+    """(f)'s model: gemma3-4b at full width, depth cut to ``LONG["layers"]``
+    (whole periods, the tail kept), weights from ``LM.init``'s seed on the
+    card."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    cfg = get_config("gemma3-4b")
+    body = LONG["layers"] - len(cfg.tail)
+    cfg = dataclasses.replace(cfg, n_layers=LONG["layers"],
+                              n_periods=body // len(cfg.pattern))
+    model = LM(cfg)
+    return model, model.init(prng.PRNGKey(0), "cuda")
+
+
+def long_prompt():
+    import numpy as np
+    import torch
+
+    tokens = np.random.default_rng(29).integers(0, 8192, (1, LONG["prompt"]))
+    return torch.from_numpy(tokens.astype(np.int32)).cuda()
+
+
+def seeded_leaf(i: int, leaf):
+    """Cache leaf ``i``'s seeded values (standard normal in its dtype, from
+    a generator of its own on the card), the same in every process."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    return torch.randn(leaf.shape, generator=g, device="cuda",
+                       dtype=leaf.dtype)
+
+
+def long_cache(model):
+    """(ii)'s whole cache on the card: every k/v leaf ``seeded_leaf``, every
+    ``pos`` as a prefill of ``seq - 1`` tokens leaves it (a ring holds the
+    last positions at slot position % Sc; the global cache's last slot is
+    empty, the step writes it)."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+
+    S = LONG["seq"] - 1
+    cache = model.init_cache(1, LONG["seq"], device="cuda")
+    for i, (p, leaf) in enumerate(flatten_with_path(cache)):
+        if p.endswith("/pos"):
+            Sc = leaf.shape[-1]
+            kpos = torch.arange(max(S - Sc, 0), S, dtype=torch.int32,
+                                device="cuda")
+            leaf[..., kpos % Sc] = kpos
+        else:
+            leaf.copy_(seeded_leaf(i, leaf))
+    return cache
+
+
+def long_written(cache, specs=None, mesh=None):
+    """The step's writes in ``cache`` (this rank's blocks under ``specs``
+    on ``mesh``, gathered leaf by leaf): {path: every ``pos`` leaf, the
+    slot of the step's position of each k/v leaf (float32, on the host)},
+    and {path: whether every other slot holds its seeded value}."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.distributed import sharding
+
+    S = LONG["seq"] - 1
+    written, rest = {}, {}
+    for i, (p, leaf) in enumerate(flatten_with_path(cache)):
+        if mesh is not None:
+            leaf = sharding.gather(leaf, specs[p], mesh)
+        if p.endswith("/pos"):
+            written[p] = leaf.cpu()
+            continue
+        d = leaf.ndim - 3                   # the slots' dim
+        Sc = leaf.shape[d]
+        slot = S % Sc
+        written[p] = leaf.select(d, slot).float().cpu()
+        seeded = seeded_leaf(i, leaf)
+        rest[p] = all(torch.equal(leaf.narrow(d, a, n), seeded.narrow(d, a, n))
+                      for a, n in ((0, slot), (slot + 1, Sc - slot - 1)))
+        del leaf, seeded
+    return written, rest
+
+
+def long_step(model, params, mesh=None):
+    """(ii): one ``decode_step`` at position ``seq - 1`` of
+    ``long_cache``, in one process or as this rank of ``mesh`` (its blocks
+    of the weights and the cache, met as ``fixed_generate`` meets them).
+    Returns the float32 logits, the greedy token and ``long_written``."""
+    import torch
+
+    from repro_torch.core.paths import flatten_with_path
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.serve import mesh_axes
+
+    S = LONG["seq"] - 1
+    tok = torch.full((1, 1), LONG["token"], dtype=torch.int32, device="cuda")
+    cache = long_cache(model)
+    specs = None
+    if mesh is None:
+        logits, cache = model.decode_step(params, tok, cache, S)
+    else:
+        c_sh = sharding.cache_shardings(cache, mesh)
+        p_sh = sharding.params_shardings(params, mesh)
+        specs = {p: sh.spec for p, sh in flatten_with_path(c_sh)}
+        cache = sharding.shard_tree(cache, c_sh)
+        shards = sharding.CacheShards(c_sh, 1)
+        with mesh_axes(mesh, 1):
+            w = sharding.compute_params(sharding.shard_tree(params, p_sh),
+                                        p_sh)
+            logits, cache = model.decode_step(w, tok, cache, S, shards)
+        del w
+    token = int(model.greedy(logits)[0, 0])
+    logits = logits[0, -1].float().cpu()
+    written, rest = long_written(cache, specs, mesh)
+    return dict(logits=logits, token=token, written=written, rest=rest)
+
+
+def long_rank():
+    """(f) on this rank of the (2, 1) mesh: (i) ``fixed_generate`` at batch
+    1 (its tokens and ``runtime.STATS`` after prefill and after the last
+    step), then (ii) ``long_step``."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.distributed import runtime
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import fixed_generate
+
+    mesh = make_host_mesh(2, 1)
+    # one rank at a time: ``LM.init``'s threefry chains over the 262144-row
+    # embedding hold ~20 GB of the shared card while they run
+    for r in range(runtime.world()):
+        if r == runtime.rank():
+            model, params = long_model()
+            torch.cuda.empty_cache()
+        runtime.barrier()
+    runtime.reset_stats()
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = fixed_generate(model, params, long_prompt(), LONG["gen"],
+                                 mesh=mesh, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del cache
+    runtime.reset_stats()
+    t0 = time.perf_counter()
+    step = long_step(model, params, mesh)
+    torch.cuda.synchronize()
+    step.update(tokens=toks.cpu(), stats=stats, seconds=seconds,
+                step_seconds=time.perf_counter() - t0,
+                step_stats={k: dict(v) for k, v in runtime.STATS.items()},
+                peak=torch.cuda.max_memory_allocated())
+    # numpy, pickled by value: a tensor on the queue shares its storage
+    # with this process, which may be gone by the time the parent reads it
+    return convert.to_numpy(step)
+
+
+def moved(before: dict, after: dict, label: str, steps: int = 1):
+    """(calls, bytes) a step under ``label`` between two copies of
+    ``runtime.STATS``."""
+    a, b = after.get(label, {}), before.get(label, {})
+    return ((a.get("calls", 0) - b.get("calls", 0)) / steps,
+            (a.get("bytes", 0) - b.get("bytes", 0)) / steps)
+
+
+def long_context(card: str) -> None:
+    """(f): gemma3-4b at 16 layers, batch 1, in one process on the card,
+    then on the two data ranks of a (2, 1) mesh sharing the card: (i) 8
+    greedy tokens after a 4096-token prompt identical; (ii) one step at
+    position 524287: the token equal or a near tie, the logits and the
+    written slots within ``LONG_ULPS`` bf16 ULPs, every other slot its
+    seeded value, ``pos`` equal; (iii) ``dryrun.account_serve`` of the one
+    process's step on ``meta`` within 10 % of the rise of
+    ``max_memory_allocated`` over the step."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import fixed_generate
+
+    t0 = time.time()
+    S, G = LONG["seq"] - 1, LONG["gen"]
+    model, params = long_model()
+    weights = torch.cuda.memory_allocated()
+    want, cache = fixed_generate(model, params, long_prompt(), G)
+    del cache
+    t_i = time.time() - t0
+    # (ii) and (iii): the step once for its logits and writes, then again
+    # (the same slot, the same values) under a fresh peak
+    one = long_step(model, params)
+    tok = torch.full((1, 1), LONG["token"], dtype=torch.int32, device="cuda")
+    cache = long_cache(model)
+    model.serve_step(params, tok, cache, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    model.serve_step(params, tok, cache, S)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    acc = dryrun.account_serve(
+        model, dryrun.rank_tree(model.abstract_params("meta")),
+        dryrun.rank_tree(model.init_cache(1, LONG["seq"], abstract=True,
+                                          device="meta")),
+        {"tokens": torch.empty((1, 1), dtype=torch.int32, device="meta")},
+        kind="decode", pos=S)
+    grew = peak - resident
+    gap = acc["temp_bytes"] / grew - 1
+    print(f"analysis: (f)(iii) dry run of gemma3-4b's serve_step at 16 "
+          f"layers, batch 1, position {S} of a {LONG['seq']}-slot cache: "
+          f"predicted arguments {acc['argument_bytes']} B + step "
+          f"{acc['temp_bytes']} B = peak {acc['peak_bytes']} B; measured "
+          f"{weights} B allocated after the weights' init, "
+          f"{resident} B resident, max_memory_allocated {peak} B, a rise of "
+          f"{grew} B: step {100 * gap:+.2f} %, peak "
+          f"{100 * (acc['peak_bytes'] / peak - 1):+.2f} %; {acc['cost'].ops} "
+          f"ops on {card}")
+    check(abs(gap) <= DRY_PEAK_RTOL, f"analysis: (f)(iii) predicted step "
+          f"bytes {acc['temp_bytes']} vs measured {grew} ({100 * gap:+.2f} %)")
+    t1 = time.time()
+    ranks = dist_spawn(2, long_rank, timeout=600)
+    for r, res in enumerate(ranks):
+        same = torch.equal(torch.from_numpy(res["tokens"]), want.cpu())
+        check(same, f"analysis: (f)(i) rank {r}'s tokens {res['tokens']} "
+              f"differ from one process's {want.cpu()}")
+        long_check(r, res, one)
+    pre, post = ranks[0]["stats"]
+    steps = G - 1
+    r_calls, r_bytes = moved(pre, post, "cache/reshard", steps)
+    m_calls, m_bytes = moved(pre, post, "attn/seq_merge", steps)
+    p_calls, p_bytes = moved({}, pre, "cache/reshard")
+    s_calls, s_bytes = moved({}, ranks[0]["step_stats"], "cache/reshard")
+    sm_calls, sm_bytes = moved({}, ranks[0]["step_stats"], "attn/seq_merge")
+    print(f"analysis: (f)(i) gemma3-4b at 16 layers, batch 1, prompt "
+          f"{LONG['prompt']}, {G} greedy tokens on the two data ranks of a "
+          f"(2, 1) mesh sharing the card: {G} of {G} tokens identical to one "
+          f"process's ({t_i:.1f} s); a rank: prefill cache/reshard "
+          f"{p_calls:.0f} calls {p_bytes:.0f} B; a decode step cache/reshard "
+          f"{r_calls:.0f} calls {r_bytes:.0f} B, attn/seq_merge "
+          f"{m_calls:.0f} calls {m_bytes:.0f} B; "
+          f"{ranks[0]['seconds']:.1f} s a rank for the run")
+    print(f"analysis: (f)(ii) the step at position {S} a rank: "
+          f"cache/reshard {s_calls:.0f} calls {s_bytes:.0f} B, "
+          f"attn/seq_merge {sm_calls:.0f} calls {sm_bytes:.0f} B, "
+          f"{ranks[0]['step_seconds']:.1f} s (the cache gathered and checked "
+          f"included), peak {ranks[0]['peak']} B a rank ({held} B reserved "
+          f"by this process meanwhile); (f) "
+          f"{time.time() - t0:.1f} s ({time.time() - t1:.1f} s spawned) on "
+          f"{card}")
+
+
+def long_check(rank: int, res: dict, one: dict) -> None:
+    """(f)(ii)'s gates for one rank's step against one process's."""
+    import torch
+
+    label = f"analysis: (f)(ii) rank {rank}"
+    a, b = torch.from_numpy(res["logits"]), one["logits"]
+    err = float((a - b).abs().max())
+    ulp = float(bf16_ulp(b.abs().max()))
+    top = torch.topk(b, 2).values
+    gap = float(top[0] - top[1])
+    print(f"{label}: token {res['token']} / one process {one['token']} "
+          f"(top-2 gap {gap:.6g} = {gap / float(bf16_ulp(top[0])):g} bf16 "
+          f"ULP), logits max |diff| {err:.6g} = {err / ulp:g} bf16 ULP of "
+          f"their amax {float(b.abs().max()):.6g}")
+    check(res["token"] == one["token"]
+          or gap <= 2 * float(bf16_ulp(top[0])),
+          f"{label}: token {res['token']} vs {one['token']} without a "
+          f"near-tie")
+    check(err <= LONG_ULPS * ulp, f"{label}: logits differ by {err} "
+          f"(> {LONG_ULPS} bf16 ULP of {float(b.abs().max())})")
+    worst = 0.0
+    for p, w in one["written"].items():
+        g = torch.from_numpy(res["written"][p])
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{label}: {p} differs")
+            continue
+        e = float((g - w).abs().max()) / float(bf16_ulp(w.abs().max()))
+        worst = max(worst, e)
+        check(e <= LONG_ULPS, f"{label}: {p}'s written slot differs by {e:g} "
+              f"bf16 ULP of its amax")
+    bad = [p for p, ok in res["rest"].items() if not ok]
+    check(not bad and all(one["rest"].values()),
+          f"{label}: slots the step did not write changed: {bad}")
+    print(f"{label}: written slots within {worst:g} bf16 ULP of one "
+          f"process's, the {len(res['rest'])} k/v leaves' other slots and "
+          f"every pos leaf equal")
+
+
 def phase_analysis(card: str, cli_peak=None):
     """Phase 18 (see above); ``cli_peak``: phase 10a's peak, printed beside
     (b). Returns its K1 and K2 launches."""
@@ -3763,6 +4088,7 @@ def phase_analysis(card: str, cli_peak=None):
     k1 = card_contracts(card)
     k1 += dry_vs_card(card, cli_peak)
     serve_mp(card)
+    long_context(card)
     serve_capture(card)
     dry_cells(card)
     print(f"analysis: phase 18 took {time.time() - t0:.1f} s, {k1} K1 and "

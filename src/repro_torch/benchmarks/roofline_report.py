@@ -2,10 +2,7 @@
 
 Port of the JAX package's ``benchmarks/roofline_report.py``, over the
 cells ``repro_torch.launch.dryrun`` writes: the same columns and the same
-CSV rows. A cell the port reports by its argument bytes alone (``status
-"args_only"``) has a row of its own, with the argument GB a rank in the
-memory column, and a count of its own; every other status but "ok" and
-"skipped" is an error.
+CSV rows. Every status but "ok" and "skipped" is an error.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline_report [--mesh pod2x16x16]
@@ -19,7 +16,7 @@ import json
 import os
 from typing import List
 
-STATUSES = ("ok", "args_only", "skipped")
+STATUSES = ("ok", "skipped")
 
 
 def load_cells(out_dir: str = "results/dryrun", tag: str = ""):
@@ -45,11 +42,6 @@ def fmt_table(cells, mesh: str = "pod16x16") -> str:
             lines.append(f"| {r['arch']} | {r['shape']} | skipped ({r['reason'][:40]}…) "
                          "| - | - | - | - | - | - | - |")
             continue
-        if r["status"] == "args_only":
-            args = r["memory"]["argument_bytes"] / 2 ** 30
-            lines.append(f"| {r['arch']} | {r['shape']} | args only | "
-                         f"{args:.2f} (args) | - | - | - | - | - | - |")
-            continue
         if r["status"] != "ok":
             lines.append(f"| {r['arch']} | {r['shape']} | ERROR | - | - | - | - | - | - | - |")
             continue
@@ -67,14 +59,9 @@ def run(quick: bool = True, out_dir: str = "results/dryrun") -> List[str]:
     rows = []
     n = {s: sum(1 for c in cells if c["status"] == s) for s in STATUSES}
     n_err = sum(1 for c in cells if c["status"] not in STATUSES)
-    rows.append(f"roofline_cells,0,ok={n['ok']};args_only={n['args_only']};"
-                f"skipped={n['skipped']};errors={n_err}")
+    rows.append(f"roofline_cells,0,ok={n['ok']};skipped={n['skipped']};"
+                f"errors={n_err}")
     for c in cells:
-        if c["status"] == "args_only":
-            rows.append(
-                f"roofline_{c['arch']}_{c['shape']}_{c['mesh']},0,"
-                f"status=args_only;args_gb="
-                f"{c['memory']['argument_bytes'] / 2 ** 30:.3f}")
         if c["status"] != "ok":
             continue
         rf = c["roofline"]

@@ -26,9 +26,11 @@ checkpoint use.
   model-group traffic reads apart from its data-group traffic.
 - Only collectives that torch 2.11 and 2.13 both have: ``all_gather`` of a
   list and ``all_reduce`` (a reduce-scatter is an all-reduce then a slice),
-  and ``scatter`` / ``gather`` from and to one rank of a group (a serve
+  ``scatter`` / ``gather`` from and to one rank of a group (a serve
   step moves a cache block that one data rank holds into the rows each
-  rank computes, and back).
+  rank computes, and back), and ``broadcast`` from one rank of a group
+  (a one-row serve step, which every data rank computes, reads the block
+  of one period from the rank that holds it).
 - Abstract mode (``abstract(mesh, rank)``, the dry run): ``mesh.group``
   gives ``GroupSpec`` descriptors, with no process group, and the
   collectives on them return empty tensors of the right per-rank shape on
@@ -316,6 +318,36 @@ def scatter(t: torch.Tensor, group, src: int,
     parts = list(x.chunk(n)) if _group_rank(group) == src else None
     dist.scatter(out, parts, src=_global_rank(group, src), group=group)
     out = out.to(t.device).view(t.dtype)
+    _count(label, nbytes, time.perf_counter() - t0)
+    if where is not None:
+        _count("staged", 2 * nbytes, 0.0)
+    return out
+
+
+def broadcast(t: torch.Tensor, group, src: int,
+              label: str = "broadcast") -> torch.Tensor:
+    """Group rank ``src``'s ``t`` on every rank of the group: ``t`` itself
+    on ``src``, a new tensor on the others (their ``t`` gives the shape
+    and dtype and is never written). Counted under ``label`` with ``t``'s
+    bytes (what each rank receives); ``t`` itself when ``group`` is
+    None."""
+    if group is None:
+        return t
+    nbytes = t.numel() * t.element_size()
+    mine = _group_rank(group) == src
+    if isinstance(group, GroupSpec):
+        _count(label, nbytes, 0.0)
+        return t if mine else torch.empty_like(t)
+    t0 = time.perf_counter()
+    where = {"host": "cpu", "device": device()}.get(route(t))
+    if mine:
+        x = _bits(t)
+        x = x.to(where) if where is not None else x
+    else:
+        x = _bits(torch.empty_like(t, device=where or t.device,
+                                   memory_format=torch.contiguous_format))
+    dist.broadcast(x, src=_global_rank(group, src), group=group)
+    out = t if mine else x.to(t.device).view(t.dtype)
     _count(label, nbytes, time.perf_counter() - t0)
     if where is not None:
         _count("staged", 2 * nbytes, 0.0)

@@ -449,32 +449,54 @@ def cache_layout(cache_tree, mesh):
 class CacheShards:
     """A rank's blocks of a fixed serve cache (``cache_shardings``) met as
     the rows its serve step computes with (the batch split over the data
-    axes when it divides, as ``batch_shardings`` splits the tokens).
+    axes when it divides, as ``batch_shardings`` splits the tokens; else
+    every data rank computes every row, as the reference's one program
+    computes a row it cannot split).
 
     ``models.blocks.apply_stack`` asks ``view`` for each layer's cache and
     hands the result back to ``commit`` after the layer wrote it. A leaf
     split on its batch, or whole where the step computes every row, is its
-    own view. The two layouts of ``LeafLayout`` that the reference's body
-    test gives (``period``; ``None`` for a state whose period axis does not
-    divide) are moved, and counted in ``runtime.STATS`` under
-    ``cache/reshard``:
+    own view. The other layouts of ``LeafLayout`` are met so (the moves
+    counted in ``runtime.STATS`` under ``cache/reshard``):
 
-    * ``period``: the data rank that holds the layer's period scatters its
-      rows to the ranks that compute them (a decode step reads them;
-      prefill reads nothing, so its view is a buffer), and gathers back
-      what the layer wrote: one slot of a sequence leaf in decode, the
-      prompt's slots of one in prefill, the whole of a state;
-    * ``None`` with split rows: the view is this rank's rows of its copy;
-      what the layer wrote is all-gathered over the data axes, so every
-      copy stays whole and equal.
-
-    A sequence split (the ``long_500k`` cells) raises."""
+    * ``period`` (the reference's body test gives a body leaf's period
+      axis the data axes) under split rows: the data rank that holds the
+      layer's period scatters its rows to the ranks that compute them (a
+      decode step reads them; prefill reads nothing, so its view is a
+      buffer), and gathers back what the layer wrote: one slot of a
+      sequence leaf in decode, the prompt's slots of one in prefill, the
+      whole of a state;
+    * ``period`` under one row (a batch that does not divide): the rank
+      that holds the period broadcasts it to the data group in decode, and
+      every rank computes the layer; the holder's view is its own block,
+      written in place, the others' copies are dropped (every rank wrote
+      the same values). Prefill reads nothing and moves nothing;
+    * ``None`` (a state whose period axis does not divide) under split
+      rows: the view is this rank's rows of its copy; what the layer wrote
+      is all-gathered over the data axes, so every copy stays whole and
+      equal;
+    * ``sequence`` (the ``long_500k`` cells: one row, a cache's slots split
+      over the data axes): decode's view is the rank's own slots, which
+      ``attention.attn_decode`` writes where it holds ``pos``'s slot and
+      reads through a partial softmax merged over the data group; prefill
+      computes the whole cache on every rank into a buffer and keeps the
+      rank's slots of what it wrote, with no collective. The ``pos`` leaf
+      is whole on every rank and written by each. A sequence split of any
+      other leaf (MLA's latents) raises."""
 
     def __init__(self, shardings, batch: int):
         self.mesh = shardings_mesh(shardings)
         self.specs = _spec_map(shardings)
         self.layout = {p: _leaf_layout(p, spec, self.mesh)
                        for p, spec in self.specs.items()}
+        other = sorted(p for p, lay in self.layout.items()
+                       if lay.data == "sequence"
+                       and p.rsplit("/", 1)[-1] not in ("k", "v"))
+        if other:
+            # MLA's latents of an unstacked layer (deepseek-v2-236b's dense
+            # prefix at one row): no cell of the dry run meets them
+            raise NotImplementedError(f"{other[0]}: a cache split on its "
+                                      f"sequence other than attention k/v")
         data_axes, dsize, _, _ = mesh_axis_sizes(self.mesh)
         self.batch = batch
         self.rows = dsize > 1 and batch % dsize == 0
@@ -493,19 +515,9 @@ class CacheShards:
 
     def _direct(self, path: str) -> bool:
         lay = self.layout[path]
-        if lay.data == "sequence":
-            raise NotImplementedError(
-                f"{path}: a cache split on its sequence over the data axes "
-                f"(ROADMAP item 17b.2)")
         if path.rsplit("/", 1)[-1] == "pos" or lay.data == "batch":
             return True
-        if not self.rows:
-            if lay.data is None:
-                return True
-            raise NotImplementedError(
-                f"{path}: a period-split cache under a batch that does not "
-                f"divide over {self.dsize} data ranks")
-        return False
+        return lay.data is None and not self.rows
 
     def view(self, part: str, i, tree, read: bool):
         """Layer ``i``'s cache (``i`` None: an unstacked prefix or tail
@@ -513,13 +525,27 @@ class CacheShards:
         this rank computes; ``read``: the layer reads the cache (decode)."""
         def one(sub, leaf):
             path = f"{part}/{sub}"
+            data = self.layout[path].data
             if self._direct(path):
                 return leaf if i is None else leaf[i]
-            if self.layout[path].data is None:
+            if data is None:
                 mine = leaf if i is None else leaf[i]
                 n = mine.shape[0] // self.dsize
                 return mine.narrow(0, self.index * n, n)
+            if data == "sequence":
+                if read:
+                    return leaf
+                whole = list(leaf.shape)
+                whole[1] *= self.dsize
+                return leaf.new_empty(whole)
             owner, k = divmod(i, leaf.shape[0])
+            if not self.rows:
+                mine = self.index == owner
+                if read:
+                    return runtime.broadcast(leaf[k] if mine else leaf[0],
+                                             self.group, owner,
+                                             label="cache/reshard")
+                return leaf[k] if mine else leaf.new_empty(leaf.shape[1:])
             if read:
                 return runtime.scatter(leaf[k], self.group, owner,
                                        label="cache/reshard")
@@ -537,11 +563,19 @@ class CacheShards:
 
         def one(sub, leaf):
             path = f"{part}/{sub}"
-            if self._direct(path):
+            data = self.layout[path].data
+            if self._direct(path) or (data == "period" and not self.rows):
                 return leaf
             v = flat[sub]
             name = sub.rsplit("/", 1)[-1]
-            if name in CROSS_LEAVES and decode:
+            if decode and (name in CROSS_LEAVES or data == "sequence"):
+                return leaf
+            if data == "sequence":
+                n = leaf.shape[1]
+                lo = self.index * n
+                b = min(lo + n, int(length), v.shape[1])
+                if lo < b:
+                    leaf.narrow(1, 0, b - lo).copy_(v.narrow(1, lo, b - lo))
                 return leaf
             region = None                 # the whole leaf
             if name in SEQ_LEAVES:
@@ -549,7 +583,7 @@ class CacheShards:
                           (0, min(int(length), v.shape[1])))
             if region is not None:
                 v = v.narrow(1, *region)
-            if self.layout[path].data is None:
+            if data is None:
                 whole = runtime.all_gather(v, self.group, dim=0,
                                            label="cache/reshard")
                 dest = leaf if i is None else leaf[i]

@@ -30,9 +30,10 @@ rank and has no compiler, so it accounts for one rank of the mesh (rank 0;
   the weights cut where ``tp_layout`` cuts them, the cache met through
   ``sharding.CacheShards`` and written in place (the reference donates
   it). ``account_serve`` is that accounting alone. A cell whose batch
-  does not split over the data axes (``long_500k``: one row, its attention
-  caches split on their sequence) reports its argument bytes only
-  (``status "args_only"``, ROADMAP item 17b.2).
+  does not split over the data axes (``long_500k``: one row) is computed
+  by every data rank, as the reference's one program computes it: its
+  caches split on their sequence or on their period axis are met through
+  ``CacheShards`` too.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
@@ -279,7 +280,6 @@ class Cell:
     state: object = None
     batch: object = None
     serve: Optional[Dict] = None   # account_serve's arguments
-    args_only: str = ""            # why a serve cell is not traced
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, algorithm: str = "erider",
@@ -342,13 +342,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, algorithm: str = "erider",
     nbytes = (leaf_bytes(aparams, p_sh, mesh) + leaf_bytes(acache, c_sh, mesh)
               + leaf_bytes(inputs, in_sh, mesh))
     cell = Cell(spec.kind, mflops, None, nbytes)
-    if spec.global_batch % dsize:
-        # one row: the attention caches split their sequence over the data
-        # axes, and every rank would compute the same row
-        cell.args_only = (f"a batch of {spec.global_batch} over {dsize} data "
-                          f"ranks: the long-context decode (ROADMAP item "
-                          f"17b.2)")
-    elif build_state:
+    if build_state:
         feed = ({"tokens": inputs["t"]} if spec.kind == "decode"
                 else dict(inputs))
         f_sh = sharding.batch_shardings(feed, mesh)
@@ -393,46 +387,37 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         if cell.plan_line:
             result["plan"] = cell.plan_line
             print(f"[dryrun] {cell_id}: {cell.plan_line}", flush=True)
-        if cell.args_only:
-            result.update(
-                status="args_only", build_s=round(t_build, 1),
-                memory=dict(argument_bytes=cell.argument_bytes,
-                            peak_per_device_gb=None),
-                reason=cell.args_only)
-            print(f"[dryrun] {cell_id}: ARGS_ONLY args/dev="
-                  f"{cell.argument_bytes / 2 ** 30:.3f}GB", flush=True)
+        if cell.kind == "train":
+            acc = account_step(cell.trainer, cell.state, cell.batch,
+                               cell.trainer.mesh, rank)
         else:
-            if cell.kind == "train":
-                acc = account_step(cell.trainer, cell.state, cell.batch,
-                                   cell.trainer.mesh, rank)
-            else:
-                acc = account_serve(**cell.serve, mesh=mesh, rank=rank)
-            roof = analysis.analyze(
-                arch=arch, shape=shape_name, mesh_name=mesh_name,
-                chips=chips, cost=acc["cost"], model_flops=cell.model_flops,
-                peak_bytes=acc["peak_bytes"],
-                args_bytes=cell.argument_bytes)
-            tr = acc["trace"]
-            memory = dict(
-                argument_bytes=cell.argument_bytes,
-                argument_storage_bytes=acc["argument_bytes"],
-                temp_bytes=acc["temp_bytes"],
-                peak_bytes=acc["peak_bytes"],
-                peak_per_device_gb=round(acc["peak_bytes"] / 2 ** 30, 3))
-            if "tile_state_bytes" in acc:
-                memory["tile_state_bytes"] = acc["tile_state_bytes"]
-            result.update(
-                status="ok", build_s=round(t_build, 1),
-                trace_s=round(acc["trace_s"], 1), ops=len(tr.records),
-                k1_records=len(tr.kernel_records("analog_update")),
-                memory=memory,
-                collectives={k: int(v) for k, v in tr.collectives.items()},
-                roofline=roof.to_json(),
-            )
-            print(f"[dryrun] {cell_id}: OK trace={acc['trace_s']:.0f}s "
-                  f"mem/dev={result['memory']['peak_per_device_gb']}GB "
-                  f"bottleneck={roof.bottleneck} "
-                  f"frac={roof.roofline_fraction:.3f}", flush=True)
+            acc = account_serve(**cell.serve, mesh=mesh, rank=rank)
+        roof = analysis.analyze(
+            arch=arch, shape=shape_name, mesh_name=mesh_name,
+            chips=chips, cost=acc["cost"], model_flops=cell.model_flops,
+            peak_bytes=acc["peak_bytes"],
+            args_bytes=cell.argument_bytes)
+        tr = acc["trace"]
+        memory = dict(
+            argument_bytes=cell.argument_bytes,
+            argument_storage_bytes=acc["argument_bytes"],
+            temp_bytes=acc["temp_bytes"],
+            peak_bytes=acc["peak_bytes"],
+            peak_per_device_gb=round(acc["peak_bytes"] / 2 ** 30, 3))
+        if "tile_state_bytes" in acc:
+            memory["tile_state_bytes"] = acc["tile_state_bytes"]
+        result.update(
+            status="ok", build_s=round(t_build, 1),
+            trace_s=round(acc["trace_s"], 1), ops=len(tr.records),
+            k1_records=len(tr.kernel_records("analog_update")),
+            memory=memory,
+            collectives={k: int(v) for k, v in tr.collectives.items()},
+            roofline=roof.to_json(),
+        )
+        print(f"[dryrun] {cell_id}: OK trace={acc['trace_s']:.0f}s "
+              f"mem/dev={result['memory']['peak_per_device_gb']}GB "
+              f"bottleneck={roof.bottleneck} "
+              f"frac={roof.roofline_fraction:.3f}", flush=True)
     except Exception as e:  # noqa: BLE001 -- report and continue the sweep
         result.update(status="error", error=f"{type(e).__name__}: {e}",
                       traceback=traceback.format_exc()[-4000:])
@@ -488,8 +473,7 @@ def main(argv: Optional[list] = None) -> None:
                 path = os.path.join(args.out, cell + ".json")
                 if args.skip_existing and os.path.exists(path):
                     with open(path) as f:
-                        if json.load(f).get("status") in ("ok", "skipped",
-                                                          "args_only"):
+                        if json.load(f).get("status") in ("ok", "skipped"):
                             print(f"[dryrun] {cell}: cached", flush=True)
                             continue
                 run_cell(arch, shape, multi_pod=mp, out_dir=args.out,

@@ -22,7 +22,8 @@ Two engines over the same workload:
 ``fixed_generate`` is the fixed driver's prefill and greedy steps on one
 batch, in one process or as one rank of a mesh (each rank from its blocks
 of the weights and of the cache, ``distributed.sharding``), inside
-``mesh_axes``.
+``mesh_axes``; a batch that does not split over the data axes (one row)
+is computed by every data rank.
 
 With ``--ckpt-dir`` the CLI restores an analog training state written
 by ``repro_torch.launch.train`` (or the JAX package's CLI: the layout is
@@ -53,7 +54,7 @@ from ..configs import ARCHS, get_config
 from ..configs.serving import serve_defaults
 from ..data import BigramLM
 from ..distributed import sharding
-from ..models.common import data_parallel, model_parallel
+from ..models.common import data_parallel, model_parallel, sequence_parallel
 from ..models.lm import LM
 from ..serving import (EngineConfig, FeedBuilder, ServeEngine, ServeRequest,
                        Telemetry, load_effective_params, sample_greedy)
@@ -163,14 +164,18 @@ def mesh_axes(mesh, batch: int):
     """A serve step as one rank of ``mesh`` (None: one process): its model
     axis under ``common.model_parallel``, and its data axes under
     ``common.data_parallel`` when the ``batch`` rows split over them (as
-    ``sharding.batch_shardings`` splits the tokens)."""
+    ``sharding.batch_shardings`` splits the tokens), else under
+    ``common.sequence_parallel`` (every data rank computes every row; a
+    cache split on its sequence holds this rank's block of slots)."""
     if mesh is None:
         yield
         return
     data_axes, dsize, model_ax, msize = sharding.mesh_axis_sizes(mesh)
     rows = dsize > 1 and batch % dsize == 0
-    with data_parallel(mesh.group(data_axes) if rows else None,
-                       dsize if rows else 1), \
+    group = mesh.group(data_axes) if dsize > 1 else None
+    index = mesh.index(data_axes) if dsize > 1 else 0
+    with data_parallel(group if rows else None, dsize if rows else 1), \
+            sequence_parallel(group, 1 if rows else dsize, index), \
             model_parallel(*((mesh.group(model_ax), msize,
                               mesh.index(model_ax)) if msize > 1
                              else (None, 1, 0))):

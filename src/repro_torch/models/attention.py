@@ -24,7 +24,10 @@ cuts ``head_dim``, MLA's latent and rope dims, not heads): a decode
 gathers every head's queries, sums each rank's partial scores over its
 slice across the model group (``common.sum_partials``; a K/V all-gather
 would move each rank's whole cache block every step) and gathers the
-output's slices. The engine's paged paths run in one process.
+output's slices. A one-row decode whose cache the data axes split on its
+sequence (the ``long_500k`` cells' rings) takes each data rank's partial
+softmax over its slots and merges them by log-sum-exp over the data
+group (``_decode_split``). The engine's paged paths run in one process.
 
 This is plain PyTorch in the reference's order of operations: ``q`` scaled
 by ``Dk ** -0.5`` in its storage dtype, scores and accumulators in
@@ -62,8 +65,8 @@ from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec
 from .common import (apply_mrope, apply_rope, copy_to_model, dense_init, dot,
                      einsum, gather_from_model, model_index, model_slice,
-                     reduce_from_model, rms_norm, split_width, sum_partials,
-                     zeros)
+                     reduce_from_model, rms_norm, sequence_group, split_width,
+                     sum_partials, zeros)
 
 NEG_INF = -2.0e38
 
@@ -401,40 +404,99 @@ def _softmax(s):
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
-def _decode_core(q, k, v, valid):
-    """One query per row over a cache: q (B,1,H,Dk); k/v (B,Sc,KV,D*);
-    ``valid`` (B or 1, Sc) bool. Float32 scores, ``q`` scaled by
-    ``Dk ** -0.5`` in float32, as the reference's decode attention.
+def _decode_scores(q, k, valid):
+    """One query per row against a cache's keys: q (B,1,H,Dk); k
+    (B,n,KV,D); ``valid`` (B or 1, n) bool. Float32 scores (B,KV,G,n),
+    ``q`` scaled by ``Dk ** -0.5`` in float32, as the reference's decode
+    attention, masked at ``NEG_INF``.
 
-    Under ``common.model_parallel`` ``k``/``v`` may be this rank's slice
-    of ``head_dim`` (``cache_shardings``) and ``q`` every head's: each
-    rank's partial scores over its slice are summed over the model group
-    (``sum_partials``), and the output's slices gathered."""
+    Under ``common.model_parallel`` ``k`` may be this rank's slice of
+    ``head_dim`` (``cache_shardings``) and ``q`` every head's: each rank's
+    partial scores over its slice are summed over the model group
+    (``sum_partials``)."""
     B, _, H, Dk = q.shape
-    KV, Dv = k.shape[2], v.shape[-1]
-    G = H // KV
-    split = k.shape[-1] != Dk
+    KV = k.shape[2]
     qg = (model_slice(q, k.shape[-1]).to(torch.float32)
-          * (Dk ** -0.5)).reshape(B, KV, G, -1)
+          * (Dk ** -0.5)).reshape(B, KV, H // KV, -1)
     s = _f32_einsum("bkgd,bckd->bkgc", qg, k)
-    if split:
+    if k.shape[-1] != Dk:
         s = sum_partials(s, "scores")
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
-    out = _f32_einsum("bkgc,bckd->bkgd", _softmax(s), v)
+    return torch.where(valid[:, None, None, :], s,
+                       torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+
+
+def _decode_out(out, q, split: bool):
+    """(B,KV,G,Dv) float32 -> (B,1,H,Dv) in ``q``'s dtype, the slices of
+    ``head_dim`` gathered over the model group where ``split``."""
     if split:
         out = gather_from_model(out, -1, "attn_out")
-        Dv = out.shape[-1]
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    B, _, H, _ = q.shape
+    return out.reshape(B, 1, H, out.shape[-1]).to(q.dtype)
+
+
+def _decode_core(q, k, v, valid):
+    """One query per row over a cache: q (B,1,H,Dk); k/v (B,Sc,KV,D*);
+    ``valid`` (B or 1, Sc) bool (``_decode_scores``; the output's slices
+    of ``head_dim`` gathered over the model group)."""
+    out = _f32_einsum("bkgc,bckd->bkgd", _softmax(_decode_scores(q, k, valid)),
+                      v)
+    return _decode_out(out, q, k.shape[-1] != q.shape[-1])
+
+
+def _slot_block(n: int, Sc: int) -> int:
+    """The first of the ``n`` slots of a ``Sc``-slot cache that this rank
+    holds: 0 when it holds them all, else its block of a sequence split
+    over the data ranks of ``common.sequence_parallel``."""
+    if n == Sc:
+        return 0
+    seq = sequence_group()
+    if seq is None or n * seq[1] != Sc:
+        raise ValueError(f"{n} of {Sc} cache slots outside a sequence split "
+                         f"over the data axes")
+    return seq[2] * n
+
+
+def _decode_split(q, k, v, valid):
+    """``_decode_core`` where k/v (B,n,KV,D*) are this rank's block of a
+    cache whose sequence the data axes split (``valid`` (1, Sc): every
+    slot's). Each rank takes the partial softmax of its slots in float32:
+    the max ``m``, the sum of exps ``l`` and the unnormalised ``p·v``;
+    one all-gather over the data group (``attn/seq_merge``) brings every
+    rank's, merged by log-sum-exp in rank order, so every data rank holds
+    the same output bit for bit. A rank whose slots are all masked carries
+    ``m = NEG_INF`` and adds exactly zero (``exp(NEG_INF - max) == 0``)."""
+    from ..distributed import runtime
+
+    group, size, _ = sequence_group()
+    n = k.shape[1]
+    lo = _slot_block(n, valid.shape[-1])
+    s = _decode_scores(q, k, valid[:, lo:lo + n])
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    part = torch.cat([m, torch.sum(e, dim=-1, keepdim=True),
+                      _f32_einsum("bkgc,bckd->bkgd", e, v)], dim=-1)
+    every = runtime.all_gather(part, group, dim=0, label="attn/seq_merge")
+    every = every.view((size,) + tuple(part.shape))
+    top = torch.amax(every[..., :1], dim=0)
+    l = o = None
+    for r in range(size):
+        w = torch.exp(every[r, ..., :1] - top)
+        wl, wo = w * every[r, ..., 1:2], w * every[r, ..., 2:]
+        l, o = (wl, wo) if r == 0 else (l + wl, o + wo)
+    return _decode_out(o / l, q, k.shape[-1] != q.shape[-1])
 
 
 def decode_attention(q, k, v, *, k_pos, pos, window: int = 0):
     """Single-token attention over a cache. q: (B, 1, H, Dk); k/v:
     (B, Sc, KV, D*); k_pos: (Sc,) stored absolute positions (-1 = empty
-    slot); pos: the current position (an int or a 0-d tensor)."""
+    slot); pos: the current position (an int or a 0-d tensor). Where k/v
+    hold fewer slots than ``k_pos`` they are this rank's block of a cache
+    whose sequence the data axes split (``_decode_split``)."""
     valid = (k_pos >= 0) & (k_pos <= pos)
     if window and window > 0:
         valid = valid & (k_pos > pos - window)
+    if k.shape[1] != k_pos.shape[0]:
+        return _decode_split(q, k, v, valid[None])
     return _decode_core(q, k, v, valid[None])
 
 
@@ -485,18 +547,23 @@ def attn_decode(p, x, cfg: ModelConfig, *, kind: str, pos, cache):
     batch writes the same slot). cache: {'k','v': (B,Sc,KV,D), 'pos':
     (Sc,)}, written in place. Under ``common.model_parallel`` the cache
     is this rank's ``head_dim`` slice: the queries of every head meet it
-    in ``_decode_core``."""
+    in ``_decode_core``. Under ``common.sequence_parallel`` 'k'/'v' may
+    hold this rank's block of the slots and 'pos' every slot: the rank
+    that holds ``pos``'s slot writes it, every rank writes 'pos'."""
     B = x.shape[0]
     posb = torch.full((B, 1), int(pos), dtype=torch.int64, device=x.device)
     q, k, v = _serve_qkv(p, x, cfg, posb)
     if split_width(p["wq"].shape[-1], cfg.n_heads * cfg.head_dim, "attn/wq"):
         q = gather_from_model(q, 2, "q")
-    Sc = cache["k"].shape[1]
+    Sc = cache["pos"].shape[0]
     slot = int(pos) % Sc  # ring when local; Sc >= S_max when global
-    cache["k"][:, slot] = model_slice(k[:, 0], cache["k"].shape[-1]).to(
-        cache["k"].dtype)
-    cache["v"][:, slot] = model_slice(v[:, 0], cache["v"].shape[-1]).to(
-        cache["v"].dtype)
+    n = cache["k"].shape[1]
+    lo = _slot_block(n, Sc)
+    if lo <= slot < lo + n:
+        cache["k"][:, slot - lo] = model_slice(
+            k[:, 0], cache["k"].shape[-1]).to(cache["k"].dtype)
+        cache["v"][:, slot - lo] = model_slice(
+            v[:, 0], cache["v"].shape[-1]).to(cache["v"].dtype)
     cache["pos"][slot] = int(pos)
     window = cfg.window if kind == "attn_local" else 0
     out = decode_attention(q, cache["k"], cache["v"], k_pos=cache["pos"],

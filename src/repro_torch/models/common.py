@@ -37,6 +37,9 @@ identity and a module whose weights are whole runs as one process does.
 ``data_parallel`` tells a forward on one rank's rows of a global batch how
 many ranks share it, so a statistic over the batch (``data_mean``) is the
 global batch's, as the reference's one program computes it.
+``sequence_parallel`` tells a serve step whose rows do not split over the
+data axes (one row, which every data rank computes) which block of a
+cache's slots this rank holds where the data axes split its sequence.
 """
 from __future__ import annotations
 
@@ -340,6 +343,29 @@ def sum_partials(x, what: str):
     ``model/all_reduce/partial/<what>``). ``x`` itself outside
     ``model_parallel``."""
     return reduce_from_model(x, f"model/all_reduce/partial/{what}")
+
+
+_SEQUENCE_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "sequence_group", default=None)
+
+
+@contextlib.contextmanager
+def sequence_parallel(group, size: int, index: int):
+    """Within the block, ``size`` data ranks of ``group`` each compute
+    every row of a serve step (a batch that does not split over them), and
+    a cache leaf split on its sequence holds block ``index`` of its slots
+    on this rank: a decode over it merges the ranks' partial softmax over
+    the group (``attention.decode_attention``)."""
+    tok = _SEQUENCE_GROUP.set((group, size, index) if size > 1 else None)
+    try:
+        yield
+    finally:
+        _SEQUENCE_GROUP.reset(tok)
+
+
+def sequence_group():
+    """(group, size, index) of ``sequence_parallel``, or None outside."""
+    return _SEQUENCE_GROUP.get()
 
 
 def gather_from_model(x, dim: int, what: str):

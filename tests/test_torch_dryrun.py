@@ -1,11 +1,13 @@
 """The port's per-rank dry run (``repro_torch.launch.dryrun``) against the
 JAX package's: MODEL_FLOPS for every arch x shape, the per-rank argument
-bytes of train and decode cells on the mini meshes against the sum of
-JAX's ``NamedSharding.shard_shape`` bytes (``jax.eval_shape`` in one
-subprocess on 8 fake XLA devices, nothing compiled), the replay of
-``test_mini_dryrun_subprocess`` (the train, prefill and decode cells
-traced: status "ok", flops > 0; the long-context cell "args_only"), and
-the tile-state bytes the card measured."""
+bytes of train and decode cells on the mini meshes, and of the eight
+``long_500k`` cells on the production meshes, against the sum of JAX's
+``NamedSharding.shard_shape`` bytes (``jax.eval_shape`` in one subprocess
+on 8 fake XLA devices, the production meshes abstract, nothing compiled),
+the replay of ``test_mini_dryrun_subprocess`` (the train, prefill and
+decode cells traced: status "ok", flops > 0; the long-context cells too,
+one row computed by every data rank, gemma3-4b's rings split on their
+sequence), and the tile-state bytes the card measured."""
 import json
 import os
 import subprocess
@@ -27,6 +29,11 @@ MESHES = {"2x4": ((2, 4), ("data", "model")),
 CELLS = [("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
          ("mamba2-2.7b", "train_4k"), ("mamba2-2.7b", "long_500k"),
          ("minicpm3-4b", "train_4k"), ("minicpm3-4b", "decode_32k")]
+# the production meshes' long_500k cells (the archs that decode it)
+PROD = {"pod16x16": ((16, 16), ("data", "model")),
+        "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+LONG = [(a, "long_500k") for a in ("gemma3-4b", "mixtral-8x7b",
+                                   "recurrentgemma-9b", "mamba2-2.7b")]
 
 JAX_BYTES = textwrap.dedent("""
     import json, os, sys
@@ -54,10 +61,11 @@ JAX_BYTES = textwrap.dedent("""
         return total
 
     out = {}
-    for mname, (shape, axes) in json.loads(sys.argv[1]).items():
-        mesh = make_mesh(tuple(shape), tuple(axes))
+    for mname, (shape, axes, cells) in json.loads(sys.argv[1]).items():
+        mesh = (make_mesh(tuple(shape), tuple(axes)) if np.prod(shape) <= 8
+                else jax.sharding.AbstractMesh(tuple(shape), tuple(axes)))
         _, dsize, _, _ = sharding.mesh_axis_sizes(mesh)
-        for arch, shape_name in json.loads(sys.argv[2]):
+        for arch, shape_name in cells:
             cfg = get_config(arch)
             spec = SHAPES[shape_name]
             model = LM(cfg)
@@ -100,7 +108,7 @@ MINI_DRYRUN = textwrap.dedent("""
                             tag="pytest")
         out[f"{arch}/{shape}"] = {k: r.get(k) for k in
                                   ("status", "roofline", "memory", "error",
-                                   "k1_records", "ops", "reason")}
+                                   "k1_records", "ops", "collectives")}
     print("DRYRUN " + json.dumps(out))
 """)
 
@@ -109,7 +117,8 @@ MINI_DRYRUN = textwrap.dedent("""
 MINI_RUNS = [[["qwen2-0.5b", "train_4k", True],
               ["qwen2-0.5b", "decode_32k", True],
               ["qwen2-0.5b", "prefill_32k", False],
-              ["mamba2-2.7b", "long_500k", False]],
+              ["mamba2-2.7b", "long_500k", False],
+              ["gemma3-4b", "long_500k", False]],
              [["mamba2-2.7b", "train_4k", False]]]
 
 
@@ -133,9 +142,11 @@ def runs(tmp_path_factory):
     """The JAX subprocess and the port's mini dry runs, started together."""
     pytest.importorskip("jax")
     out_dir = str(tmp_path_factory.mktemp("dry"))
+    meshes = {name: list(m) + [CELLS] for name, m in MESHES.items()}
+    meshes.update({name: list(m) + [LONG] for name, m in PROD.items()})
     procs = [subprocess.Popen(
-        [sys.executable, "-c", JAX_BYTES, json.dumps(MESHES),
-         json.dumps(CELLS)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        [sys.executable, "-c", JAX_BYTES, json.dumps(meshes)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=_env(True), cwd=ROOT)]
     for cells in MINI_RUNS:
         procs.append(subprocess.Popen(
@@ -165,14 +176,14 @@ def test_model_flops_match_jax(arch):
             == janalysis.model_flops_for(jget(arch), JSHAPES[name]), name
 
 
-@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("mesh_name", sorted(MESHES) + sorted(PROD))
 def test_argument_bytes_match_jax_shards(runs, mesh_name):
     jax_bytes, _ = runs
-    shape, axes = MESHES[mesh_name]
+    shape, axes = {**MESHES, **PROD}[mesh_name]
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh(shape, axes)
-    for arch, shape_name in CELLS:
+    for arch, shape_name in CELLS if mesh_name in MESHES else LONG:
         cell = dryrun.build_cell(arch, shape_name, mesh, build_state=False)
         want = jax_bytes[f"{mesh_name}/{arch}/{shape_name}"]
         assert cell.argument_bytes == want, (arch, shape_name)
@@ -191,10 +202,17 @@ def test_mini_dryrun_cells(runs):
         assert r["ops"] > 0
         # serving launches no K1; training does
         assert (r["k1_records"] > 0) == key.endswith("train_4k")
-    r = mini["mamba2-2.7b/long_500k"]
-    assert r["status"] == "args_only", r
-    assert r["memory"]["argument_bytes"] > 0
-    assert "17b.2" in r["reason"]
+    # one row, computed by every data rank: mamba2-2.7b's body states
+    # broadcast from the rank that holds their period, gemma3-4b's tail
+    # rings split on their sequence and merged over the data group
+    for key, label in (("mamba2-2.7b/long_500k", "cache/reshard"),
+                       ("gemma3-4b/long_500k", "attn/seq_merge")):
+        r = mini[key]
+        assert r["status"] == "ok", r
+        assert r["roofline"]["hlo_flops"] > 0
+        assert r["memory"]["peak_bytes"] > r["memory"]["argument_bytes"] > 0
+        assert r["k1_records"] == 0
+        assert r["collectives"][label] > 0, r["collectives"]
 
 
 @pytest.mark.parametrize("arch, layers, mesh, want", [

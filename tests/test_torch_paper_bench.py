@@ -267,8 +267,8 @@ def test_run_refuses_what_it_does_not_run(argv, msg):
 
 def test_run_prints_the_roofline_report(tmp_path, monkeypatch, capsys):
     """``--only roofline`` tabulates the dry run's cells under
-    ``results/dryrun`` (here one skipped cell and one args-only cell, as
-    ``launch.dryrun.run_cell`` writes them)."""
+    ``results/dryrun`` (here one skipped cell and one traced long-context
+    cell, as ``launch.dryrun.run_cell`` writes them)."""
     from repro_torch.benchmarks import run
     from repro_torch.launch import dryrun
 
@@ -280,9 +280,9 @@ def test_run_prints_the_roofline_report(tmp_path, monkeypatch, capsys):
     assert run.main(["--only", "roofline", "--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[:3] == ["# device: cpu", "name,us_per_call,derived",
-                       "roofline_cells,0,ok=0;args_only=1;skipped=1;errors=0"]
+                       "roofline_cells,0,ok=1;skipped=1;errors=0"]
     assert out[3].startswith("roofline_mamba2-2.7b_long_500k_pod16x16,0,"
-                             "status=args_only;args_gb=")
+                             "bottleneck=")
     assert out[4].startswith("total,")
 
 

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import torch_ranks
-from repro_torch.configs import ARCHS, SHAPES, get_config
+from repro_torch.configs import ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.core.paths import flatten_with_path
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import make_production_mesh
@@ -35,6 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 B, S, GEN = 4, 12, 4
 SERVE_SHAPES = ("prefill_32k", "decode_32k")
+# the serve cells held to the JAX package spec for spec: these and the
+# long_500k cells of the archs that decode it
+SPEC_SHAPES = SERVE_SHAPES + ("long_500k",)
 # the reference's fault, by cell: (arch, shape, mesh) whose body caches
 # put the data axes on the period axis, or keep a state whole on every
 # data rank
@@ -104,7 +107,7 @@ def runs(tmp_path_factory):
     if _has_jax():
         jax_proc = subprocess.Popen(
             [sys.executable, "-c", JAX_SPECS, json.dumps(PROD),
-             json.dumps(archs), json.dumps(SERVE_SHAPES)],
+             json.dumps(archs), json.dumps(SPEC_SHAPES)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             cwd=ROOT, env=dict(os.environ, JAX_PLATFORMS="cpu",
                                PYTHONPATH=os.path.join(ROOT, "src")))
@@ -217,13 +220,18 @@ def test_body_state_whole_on_data(runs, arch):
 @pytest.mark.parametrize("mesh", sorted(PROD))
 def test_cache_shardings_match_jax_spec_for_spec(runs, mesh):
     """The port's ``cache_shardings`` on the production meshes, every leaf
-    of every serve cell, against the JAX package's, fault included."""
+    of every serve cell (the eight ``long_500k`` cells included), against
+    the JAX package's, fault included."""
     _, _, jspecs = runs
     if jspecs is None:
         pytest.skip("the JAX package's runtime is not installed")
     pmesh = make_production_mesh(multi_pod=mesh == "pod2x16x16")
+    long = 0
     for arch in sorted(ARCHS):
-        for sn in SERVE_SHAPES:
+        for sn in SPEC_SHAPES:
+            if not shape_applicable(get_config(arch), sn)[0]:
+                continue
+            long += sn == "long_500k"
             want = jspecs[f"{mesh}/{arch}/{sn}"]
             got = sharding.cache_shardings(_abstract_cache(arch, sn), pmesh)
             got = {p: [list(e) if isinstance(e, tuple) else e
@@ -232,6 +240,7 @@ def test_cache_shardings_match_jax_spec_for_spec(runs, mesh):
             for p, spec in want.items():
                 pad = spec + [None] * (len(got[p]) - len(spec))
                 assert got[p] == pad, (arch, sn, p, got[p], spec)
+    assert long == 4
 
 
 def test_reference_body_fault_cells():

@@ -729,6 +729,89 @@ def serve_fixed(mesh, device, archs, batch, prompt, gen):
     return out
 
 
+# the split decode's cases: (ring slots, position, window, stored
+# positions): a wrapped ring, a window that masks every slot of data rank
+# 1, and empty (-1) slots that do the same
+SEQ_DECODE_CASES = {
+    "wrapped_ring": (16, 37, 16, "ring"),
+    "window_masks_a_rank": (16, 37, 6, "ring"),
+    "empty_slots": (16, 5, 0, "prefix"),
+}
+
+
+def seq_decode_inputs(case: str, heads=4, kv=2, dim=8):
+    """Seeded float32 (q (1,1,H,D), k, v (1,Sc,KV,D), k_pos (Sc,) int32,
+    pos, window) of a split-decode case, as numpy."""
+    import numpy as np
+
+    Sc, pos, window, fill = SEQ_DECODE_CASES[case]
+    rng = np.random.default_rng(sorted(SEQ_DECODE_CASES).index(case) + 31)
+    q = rng.standard_normal((1, 1, heads, dim)).astype(np.float32)
+    k = rng.standard_normal((1, Sc, kv, dim)).astype(np.float32)
+    v = rng.standard_normal((1, Sc, kv, dim)).astype(np.float32)
+    if fill == "ring":      # the last Sc positions, slot = position % Sc
+        k_pos = np.empty(Sc, np.int32)
+        for p in range(pos - Sc + 1, pos + 1):
+            k_pos[p % Sc] = p
+    else:                   # positions 0..pos, the rest empty
+        k_pos = np.full(Sc, -1, np.int32)
+        k_pos[:pos + 1] = np.arange(pos + 1)
+    return q, k, v, k_pos, pos, window
+
+
+def serve_long(mesh, device, params_file, archs, layers, prompt, gen):
+    """A one-row serve as this rank of ``mesh``: (a) ``decode_attention``
+    of each ``SEQ_DECODE_CASES`` case on this rank's block of the slots
+    (and of ``head_dim`` over the model axis), under the mesh's
+    ``serve.mesh_axes`` at batch 1; (b) ``fixed_generate`` at batch 1 of
+    each smoke arch (depth cut to ``layers[arch]``) on the weights in
+    ``params_file``: the gathered tokens and cache, the layouts and the
+    collectives counted."""
+    import numpy as np
+
+    from repro_torch.benchmarks.step_profile import cut_depth
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import runtime, sharding
+    from repro_torch.launch.serve import fixed_generate, mesh_axes
+    from repro_torch.models import attention
+    from repro_torch.models.common import model_index, model_size
+    from repro_torch.models.lm import LM
+
+    data_axes, dsize, _, _ = sharding.mesh_axis_sizes(mesh)
+    split = {}
+    for case in SEQ_DECODE_CASES:
+        q, k, v, k_pos, pos, window = (
+            torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
+            for a in seq_decode_inputs(case))
+        runtime.reset_stats()
+        with mesh_axes(mesh, 1):
+            n, d = k.shape[1] // dsize, k.shape[-1] // model_size()
+            lo, c = mesh.index(data_axes) * n, model_index() * d
+            kb, vb = (t[:, lo:lo + n, :, c:c + d] for t in (k, v))
+            out = attention.decode_attention(q, kb, vb, k_pos=k_pos, pos=pos,
+                                             window=window)
+        split[case] = {"out": out.cpu(),
+                       "stats": {name: dict(c) for name, c in
+                                 runtime.STATS.items()}}
+    weights = torch.load(params_file, weights_only=False)
+    out = {}
+    for arch in archs:
+        model = LM(cut_depth(get_config(arch, smoke=True),
+                             layers.get(arch, 0)))
+        params = _to(weights[arch]["params"], device)
+        tokens = weights[arch]["tokens"].to(device)
+        runtime.reset_stats()
+        stats = []
+        toks, cache = fixed_generate(model, params, tokens, gen, mesh=mesh,
+                                     stats=stats)
+        acache = model.init_cache(1, prompt + gen, device="meta")
+        out[arch] = {"tokens": toks.cpu(), "cache": _to(cache, "cpu"),
+                     "layout": {p: (lay.data, lay.model_dim) for p, lay in
+                                sharding.cache_layout(acache, mesh).items()},
+                     "stats": stats}
+    return {"split": split, "serve": out}
+
+
 def _to(tree, device):
     from repro_torch.core.paths import tree_map_with_path
 
@@ -741,7 +824,7 @@ PROGRAMS = {"compress": compress, "bank": bank, "elastic": elastic,
             "cli": cli, "lm_micro": lm_micro, "cli_runs": cli_runs,
             "lm_steps": lm_steps, "tp_modules": tp_modules, "tp_all": tp_all,
             "tp_mixers": tp_mixers, "tp_mixers_all": tp_mixers_all,
-            "serve_fixed": serve_fixed}
+            "serve_fixed": serve_fixed, "serve_long": serve_long}
 
 
 def main(argv):
