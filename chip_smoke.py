@@ -17,7 +17,18 @@ Phases, each printing its own lines; any failure exits non-zero:
               (``repro_torch::analog_update_``, the donated step's) through
               the wrapper bit-equal to the out-of-place kernel and timed
               beside its plain version at (784, 256), (896, 4864), the LM
-              stack (24, 896, 4864) and the 4-D MoE stack
+              stack (24, 896, 4864) and the 4-D MoE stack; then the
+              Hopper form of ``kernels/fastrng.py`` (``phase_kernels_hash``):
+              K1's hash-noise mode (``repro_torch::analog_update_hash``,
+              in place ``::analog_update_hash_``), which draws its noise
+              in the kernel, both instantiations bit-equal to the operand
+              mode fed the eager hash draws at the sweep, main-path and LM
+              shapes (a seed a member of a stack; on the LM stacks also
+              one seed a tile, as the CLI draws) and on the MoE stack (a
+              seed an expert), and ``repro_torch::hash_normal``
+              (``csrc/fastrng.cu``) bit-equal to the eager chain for
+              salts 2, 11, 13 and 17 on the (24, 896, 4864) stack; each
+              timed against its bound beside the plain version
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -46,7 +57,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               step, all in place, every leaf on its own storage (the main
               path); bit-equal on every leaf and loss to 30 out-of-place
               steps from a copy of the same state; the first 3 steps agree
-              with the port's CPU run on the same seeds
+              with the port's CPU run on the same seeds; every "fused" K1
+              launch in K1's hash-noise mode, none under "vmap" (threefry)
   8. ckpt     the FCN on the pcm_gst preset (update_backend="fused"), fed by
               ``Prefetcher(device="cuda")``: run A takes 10 donated steps
               with an asynchronous save at step 5 carrying the GDC t0
@@ -72,11 +84,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               the bigram stream over 8192 token ids, 8 steps of the CLI's
               donated step: finite loss and sp_err at every step, the loss
               falling, 2 kernel launches per analog path per step, all in
-              place; prints the median step time, the peak allocated
-              memory and the tile state's bytes;
+              place and in K1's hash-noise mode, with three
+              ``hash_normal`` launches a K1 launch (the device drawn once
+              an array an update); prints the median step time, the peak
+              allocated memory and the tile state's bytes;
               (b) the smoke config's first 3 steps on the
               card against the port's CPU run, with the smoke tile config
-              (f32, threefry) and with the non-smoke one (bf16, hash); (c) a
+              (f32, threefry: no hash kernel launched) and with the
+              non-smoke one (bf16, hash: the hash kernels only); (c) a
               restart from the CLI's step-6 checkpoint, bit-equal to the
               unbroken 8-step run, its manifest carrying the GDC signatures
  11. lm_zoo   the other six archs: (a) the smoke configs of mixtral-8x7b,
@@ -93,7 +108,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               width, depth cut to 8 layers, through the CLI's trainer
               (bf16 hash tiles, batch 8, seq 128 / 512, 4 steps): finite
               loss and sp_err, the loss falling, 2 K1 launches per analog
-              path per step; prints ms/step, peak memory and tile bytes.
+              path per step, in K1's hash-noise mode, three
+              ``hash_normal`` launches a K1 launch; prints ms/step, peak
+              memory and tile bytes.
               Phase 3 also holds K1 bit-equal on mixtral-8x7b's 4-D expert
               stack (1, 8, 4096, 14336), bf16, and times it
  12. serve    serving (``repro_torch.serving``, ``launch/serve.py``):
@@ -111,8 +128,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               manifest validates with t0 signatures from the checkpoint,
               32 tokens a request, each stream equal to the fixed driver's
               up to a first difference at a near-tie (top two logits
-              within 2 bf16 ULPs); prints tokens/s, TTFT/TPOT p50/p99, the
-              decode step, peak memory, save/restore seconds
+              within 2 bf16 ULPs), no K1/K2/K3 launch (the aged loads'
+              drift normals through ``hash_normal``); prints tokens/s,
+              TTFT/TPOT p50/p99, the decode step, peak memory,
+              save/restore seconds
  13. serve_zoo  serving the other families: (a) the smoke configs of
               minicpm3-4b, deepseek-v2-236b (MLA latent rows),
               recurrentgemma-9b (RG-LRU state) and mamba2-2.7b (SSD state)
@@ -226,7 +245,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               calls and bytes a decode step; (e) ``dryrun.account_serve``
               of that model's ``serve_step`` on ``meta``, one process, at
               (d)'s batch and cache length: the step's bytes within 10 %
-              of the rise of ``max_memory_allocated`` over the step;
+              of the bytes the step requested of the allocator (the rise
+              of ``max_memory_allocated`` printed beside);
               (f) gemma3-4b at full width cut to 16 layers (two periods
               of five local layers and a global one, the four-layer local
               tail), batch 1, on the two data ranks of a (2, 1) mesh
@@ -579,6 +599,287 @@ def k1_moe_stack(device, kw):
                  shape=list(MOE_STACK), dtype="bfloat16"))
 
 
+# K1's hash-noise mode and the hash normal draw (csrc/fastrng.cuh): the
+# integer and float operations an element (kernels/fastrng.py counts them
+# from the source) against the card's 67 TFLOP/s outside the tensor cores
+HASH_UPDATE_OPS = 30 + 22 + 62
+HASH_NORMAL_OPS = 62
+HASH_SALTS = (2, 11, 13, 17)
+
+
+def hash_keys(shape, seed: int):
+    """(key, n) for K1's hash-noise mode at ``shape``: one host key for a
+    2-D tile, one a member (the leading dims flattened) for a stack of
+    rank 3 or more; words past 2**31 included."""
+    import numpy as np
+    import torch
+
+    n = math.prod(shape[:-2]) if len(shape) >= 3 else 1
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, size=(n, 2),
+                                         dtype=np.uint64).astype(np.int64))
+    return (keys[0] if n == 1 else keys), n
+
+
+def hash_noise_plain(key, shape, device):
+    """The eager hash draws of ``key`` at ``shape`` (salts 1 and 2, the index
+    restarting per member): the operands K1's hash mode draws itself."""
+    from repro_torch.kernels import fastrng
+
+    seeds = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                 "cpu").reshape(-1, 2)
+    return (fastrng.member_draw(fastrng.hash_bits, seeds, shape, 1, device),
+            fastrng.member_draw(fastrng.hash_normal_ref, seeds, shape, 2,
+                                device))
+
+
+def events_ms(fn, reps: int, rounds: int) -> float:
+    """Device ms per call of ``fn`` issued eagerly (CUDA events around
+    ``reps`` calls, median of ``rounds``): for plain versions that read
+    host seeds, which a CUDA graph cannot capture."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def hash_update_check(shape, dtype, bl, seed, device, kw, operands=None):
+    """K1's hash-noise mode through ``ops.analog_update(rng="hash")``, out
+    of place and in place, against the operand mode fed the eager draws:
+    bit-equal. Returns the largest |difference|."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    w, dw, gamma, rho = operands or update_operands(
+        shape, dtype, seed, device, torch.float32)
+    key, n = hash_keys(shape, seed)
+    noise = hash_noise_plain(key, shape, device)
+    want = ops.analog_update(w, dw, gamma, rho, None, noise=noise, bl=bl,
+                             **kw)
+    del noise
+    before = dict(ops.LAUNCHES)
+    got = ops.analog_update(w, dw, gamma, rho, key, rng="hash", bl=bl, **kw)
+    w2 = w.clone()
+    ops.analog_update(w2, dw, gamma, rho, key, rng="hash", bl=bl, out=w2,
+                      **kw)
+    torch.cuda.synchronize()
+    for name, more in (("analog_update_hash", 2), ("analog_update_", 1)):
+        check(ops.LAUNCHES[name] == before[name] + more,
+              f"the wrapper did not launch K1's hash mode ({name}) at "
+              f"{shape}")
+    same = torch.equal(got, want) and torch.equal(w2, want)
+    err = max((got.float() - want.float()).abs().max().item(),
+              (w2.float() - want.float()).abs().max().item())
+    print(f"kernels: analog_update_hash {shape} "
+          f"{str(w.dtype).replace('torch.', '')} bl={bl} {n} seed(s): out "
+          f"of place and in place bit-equal to the operand mode fed the "
+          f"eager draws={same} max_abs_diff={err:.3g}")
+    check(same, f"K1's hash mode differs from the operand mode at {shape} "
+                f"{w.dtype} bl={bl}")
+    return err
+
+
+def hash_update_timed(shape, dtype, device, kw, reps, rounds, operands=None):
+    """K1's hash mode alone (its binding, device seeds) out of place and in
+    place, the plain version (the eager draws and the plain update) and the
+    bound: (2 * w bytes + 12) B and HASH_UPDATE_OPS an element."""
+    import torch
+
+    from repro_torch.kernels import fastrng, ops
+    from repro_torch.kernels.analog_update import analog_update_hash_cuda
+
+    w, dw, gamma, rho = operands or update_operands(
+        shape, dtype, 9, device, torch.float32)
+    key, n = hash_keys(shape, 9)
+    host = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                "cpu").reshape(-1, 2)
+    seeds = host.to(device)
+    k, k_call = time_ms(lambda: analog_update_hash_cuda(
+        w, dw, gamma, rho, seeds, bl=10, **kw), reps, rounds)
+    ki, ki_call = time_ms(lambda: analog_update_hash_cuda(
+        w, dw, gamma, rho, seeds, bl=10, out=w, **kw), reps, rounds)
+    p = events_ms(lambda: ops._hash_update_ref(w, dw, gamma, rho, host,
+                                               bl=10, **kw),
+                  max(1, reps // 4), max(3, rounds // 3))
+    numel = math.prod(shape)
+    wb = torch.finfo(w.dtype).bits // 8
+    t_bytes = ((2 * wb + 12) * numel + 8 * n) / H100_BYTES_PER_S
+    t_ops = HASH_UPDATE_OPS * numel / H100_F32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernels: analog_update_hash {shape} "
+          f"{str(w.dtype).replace('torch.', '')} {n} seed(s): median device "
+          f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us; in place "
+          f"{ki * 1e3:.2f} us, per call {ki_call * 1e3:.2f} us (plain, the "
+          f"eager draws and update: {p * 1e3:.2f} us; bound "
+          f"{bound * 1e3:.2f} us by {by}: {t_bytes * 1e6:.2f} us of bytes, "
+          f"{t_ops * 1e6:.2f} us of operations; {bound / k:.0%} / "
+          f"{bound / ki:.0%} of it reached)")
+    return (dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=by,
+                 shape=list(shape), dtype=str(w.dtype).replace("torch.", ""),
+                 seeds=n),
+            dict(ms=ki, plain_ms=p, bound_ms=bound, bound_by=by,
+                 shape=list(shape), dtype=str(w.dtype).replace("torch.", ""),
+                 seeds=n))
+
+
+def phase_kernels_hash(device):
+    """Phase 3 for the Hopper form of ``kernels/fastrng.py``: K1's
+    hash-noise mode bit-equal to its operand mode fed the eager draws at
+    SWEEP_SHAPES (f32, bf16), MAIN_PATH_SHAPES (f32), LM_PATH_SHAPES (bf16
+    w, f32 dw; one seed a tile as the CLI draws, and one a member) and the
+    4-D MoE stack (bf16, a seed an expert); ``repro_torch::hash_normal``
+    bit-equal to the eager chain for the salts of the update and the
+    device draw on Qwen2-0.5B's largest stack; each timed against its
+    bound. Returns the JSON entries' numbers."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import fastrng, ops
+
+    kw = dict(dw_min=0.01, tau_min=1.0, tau_max=1.0, sigma_c2c=0.1)
+    t0 = time.time()
+    err = 0.0
+    cases = [(s, dt, bl) for s in SWEEP_SHAPES
+             for dt in (torch.float32, torch.bfloat16) for bl in (0, 10)]
+    cases += [(s, torch.float32, bl) for s in MAIN_PATH_SHAPES
+              for bl in (0, 10)]
+    cases += [(s, torch.bfloat16, 0) for s in LM_PATH_SHAPES]
+    for i, (shape, dtype, bl) in enumerate(cases):
+        err = max(err, hash_update_check(shape, dtype, bl, 40 + i, device,
+                                         kw))
+    # the CLI's draw on the LM stacks: one seed for the whole tile
+    for i, shape in enumerate(LM_PATH_SHAPES[:4]):
+        w, dw, gamma, rho = update_operands(shape, torch.bfloat16, 80 + i,
+                                            device, torch.float32)
+        key, _ = hash_keys(shape[-2:], 80 + i)
+        noise = hash_noise_plain(key, shape, device)
+        want = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+        got = ops.analog_update(w, dw, gamma, rho, key, rng="hash", **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"kernels: analog_update_hash {shape} bfloat16, one seed for "
+              f"the tile (the CLI's): bit-equal={same}")
+        check(same, f"K1's hash mode differs at {shape} with one seed")
+        del w, dw, gamma, rho, noise, want, got
+    # the 4-D MoE stack, a seed an expert
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    moe = ((torch.rand(MOE_STACK, generator=gen, device=device) * 1.6
+            - 0.8).to(torch.bfloat16),
+           0.05 * torch.randn(MOE_STACK, generator=gen, device=device),
+           torch.exp(0.1 * torch.randn(MOE_STACK, generator=gen,
+                                       device=device)),
+           0.3 * torch.randn(MOE_STACK, generator=gen, device=device))
+    err = max(err, hash_update_check(MOE_STACK, torch.bfloat16, 0, 29,
+                                     device, kw, moe))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"kernels: K1's hash mode, {len(cases) + 5} shapes, bit-equal to "
+          f"the operand mode in and out of place ({time.time() - t0:.1f} s)")
+
+    fcn, fcn_ip = hash_update_timed((784, 256), torch.float32, device, kw,
+                                    20, 15)
+    l2, l2_ip = hash_update_timed((896, 4864), torch.float32, device, kw,
+                                  20, 15)
+    stack, stack_ip = hash_update_timed(LM_PATH_SHAPES[2], torch.bfloat16,
+                                        device, kw, 3, 5)
+    moe_t, moe_ip = hash_update_timed(MOE_STACK, torch.bfloat16, device, kw,
+                                      3, 5, moe)
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hash normal draw: the update's salt and the device draw's, on
+    # Qwen2-0.5B's largest stack with a seed a layer and with one seed (the
+    # CLI's sample_device), bit-equal to the eager chain on the card
+    member = LM_PATH_SHAPES[2][1:]
+    for n in (LM_PATH_SHAPES[2][0], 1):
+        key, _ = hash_keys((n,) + member if n > 1 else member, 50 + n)
+        seed = fastrng.seed_from_key(key)
+        shape = LM_PATH_SHAPES[2][1:] if n > 1 else LM_PATH_SHAPES[2]
+        for salt in HASH_SALTS:
+            before = ops.LAUNCHES["hash_normal"]
+            got = fastrng.hash_normal(seed, shape, salt, device)
+            check(ops.LAUNCHES["hash_normal"] == before + 1,
+                  "fastrng.hash_normal did not launch its kernel")
+            want = fastrng.hash_normal_ref(seed, shape, salt, device)
+            torch.cuda.synchronize()
+            same = (got.shape == want.shape and torch.equal(got, want))
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            print(f"kernels: hash_normal {tuple(got.shape)} {n} seed(s) "
+                  f"salt {salt}: bit-equal to the eager chain={same} "
+                  f"max_abs_diff={e:.3g}")
+            check(same, f"hash_normal differs from the eager chain at "
+                        f"salt {salt}, {n} seed(s)")
+            del got, want
+    normal = {}
+    for shape, reps, rounds in (((896, 4864), 20, 15),
+                                (LM_PATH_SHAPES[2], 3, 5)):
+        key, n = hash_keys(shape[-2:], 60)
+        host = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                    "cpu").reshape(-1, 2)
+        seeds = host.to(device)
+        out = torch.empty(shape, device=device)
+        k, k_call = time_ms(lambda: fastrng.hash_normal_cuda(seeds, out, 11),
+                            reps, rounds)
+        p = events_ms(lambda: fastrng.hash_normal_ref(host[0], shape, 11,
+                                                      device),
+                      max(1, reps // 4), max(3, rounds // 3))
+        numel = math.prod(shape)
+        t_bytes = (4 * numel + 8) / H100_BYTES_PER_S
+        t_ops = HASH_NORMAL_OPS * numel / H100_F32_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"kernels: hash_normal {shape}: median device {k * 1e3:.2f} "
+              f"us, per call {k_call * 1e3:.2f} us (plain, the eager chain: "
+              f"{p * 1e3:.2f} us; bound {bound * 1e3:.2f} us by {by}: "
+              f"{t_bytes * 1e6:.2f} us of bytes, {t_ops * 1e6:.2f} us of "
+              f"operations; {bound / k:.0%} of it reached)")
+        normal[len(shape)] = dict(ms=k, plain_ms=p, bound_ms=bound,
+                                  bound_by=by, shape=list(shape))
+        del out
+    print(f"kernels: the hash kernels' phase took {time.time() - t0:.1f} s")
+    update = dict(max_abs_err=err, **fcn, beyond_l2=l2, lm_stack=stack,
+                  moe_stack=moe_t,
+                  in_place=dict(fcn_ip, beyond_l2=l2_ip, lm_stack=stack_ip,
+                                moe_stack=moe_ip))
+    return update, dict(max_abs_err=err, **normal[2], lm_stack=normal[3])
+
+
+def hash_launches(label: str, drawn: bool) -> dict:
+    """The hash kernels' counts since the last reset: every K1 launch of a
+    hash-noise step in the hash mode; ``drawn`` (``store_device=False``):
+    three normal draws (salts 11, 13, 17) a K1 launch, one device draw an
+    array an update."""
+    from repro_torch.kernels import ops
+
+    k1 = ops.LAUNCHES["analog_update"]
+    h = ops.LAUNCHES["analog_update_hash"]
+    z = ops.LAUNCHES["hash_normal"]
+    print(f"{label}: K1 launches {k1}, in its hash-noise mode {h}; "
+          f"hash_normal launches {z}")
+    check(h == k1 and h > 0, f"{label}: {h} of {k1} K1 launches in the "
+          f"hash-noise mode")
+    if drawn:
+        check(z == 3 * h, f"{label}: {z} hash_normal launches, not three a "
+              f"K1 launch ({3 * h})")
+    return dict(hash=h, normal=z)
+
+
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
 # ADC). K3's shapes, (x shape, w shape): the reference tests' products, in
 # float32 and bfloat16, with the ragged and the rank-3 case of its wrapper
@@ -919,6 +1220,7 @@ def phase_quickstart(device, steps: int = 100):
 
 
 FCN_CHECK_STEPS = 3
+FCN_HASH = {}   # K1's hash-mode launches of phase 7 by backend
 
 
 def fcn_snapshot(state, metrics):
@@ -962,6 +1264,13 @@ def phase_fcn(device, backend: str, steps: int = 30):
     in_place = ops.LAUNCHES["analog_update_"]
     check(in_place == launches, f"fcn[{backend}]: {in_place} of {launches} "
           f"K1 launches in place")
+    if backend == "fused":  # the batched update's hash noise, in the kernel
+        hashed = hash_launches(f"fcn[{backend}]", False)["hash"]
+    else:
+        hashed = ops.LAUNCHES["analog_update_hash"]
+        check(hashed == 0, f"fcn[{backend}]: threefry steps launched K1's "
+              f"hash mode")
+    FCN_HASH[backend] = hashed
     moved = [p for p, t in flatten_with_path(state)
              if t.untyped_storage().data_ptr() != ptrs[p]]
     check(not moved, f"fcn[{backend}]: leaves not kept in place: {moved}")
@@ -1335,6 +1644,7 @@ def phase_lm(device, card: str):
                                         "--device", device])
     launches = ops.LAUNCHES["analog_update"]
     in_place = ops.LAUNCHES["analog_update_"]
+    hashed = hash_launches("lm", True)
     peak = torch.cuda.max_memory_allocated()
     resident = torch.cuda.memory_allocated()   # the final state, held
     bank = state["tiles"]
@@ -1367,7 +1677,9 @@ def phase_lm(device, card: str):
           f"in place")
     check(tail < losses[0], "lm loss did not fall")
     return dict(launches=launches, in_place=in_place, step_ms=med,
-                peak_bytes=peak, tile_bytes=tbytes, losses=losses)
+                peak_bytes=peak, tile_bytes=tbytes, losses=losses,
+                hash_launches=hashed["hash"],
+                normal_launches=hashed["normal"])
 
 
 def bf16_ulp(x):
@@ -1391,8 +1703,17 @@ def lm_against_cpu(tiles: str):
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ops
+
     argv = LM_SMOKE_ARGV + ["--steps", str(LM_CHECK_STEPS), "--tiles", tiles]
+    ops.reset_launch_counts()
     card, card_hist, _ = run_cli(argv + ["--device", "cuda"])
+    if tiles == "full":  # hash noise: K1's hash mode, the normal kernel
+        hash_launches(f"lm[{tiles}]", True)
+    else:
+        check(ops.LAUNCHES["analog_update_hash"] == 0
+              and ops.LAUNCHES["hash_normal"] == 0,
+              f"lm[{tiles}]: threefry steps launched the hash kernels")
     cpu, cpu_hist, _ = run_cli(argv + ["--device", "cpu"])
     for i, (g, w) in enumerate(zip(card_hist, cpu_hist)):
         rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
@@ -1641,6 +1962,7 @@ def lm_full_width(arch: str, seq: int, card: str):
         hist.append(dict(loss=float(m["loss"]), sp_err=float(m["tile/sp_err"]),
                          step_s=dt))
     launches = ops.LAUNCHES["analog_update"]
+    hashed = hash_launches(f"lm[{arch}]", True)
     peak = torch.cuda.max_memory_allocated()
     dtypes = {str(st["W"].dtype) for st in bank.classes.values()}
     del state, bank, m
@@ -1668,7 +1990,8 @@ def lm_full_width(arch: str, seq: int, card: str):
           f"lm[{arch}] launches {launches} != {2 * n_paths * FULL_STEPS}")
     return dict(launches=launches, step_ms=med, peak_bytes=peak,
                 tile_bytes=tbytes, analog_elements=n_analog, layers=FULL_LAYERS,
-                seq=seq)
+                seq=seq, hash_launches=hashed["hash"],
+                normal_launches=hashed["normal"])
 
 
 def phase_lm_zoo(card: str):
@@ -1925,7 +2248,14 @@ def serve_full(root: str, card: str):
     fixed, fsummary, _, fixed_s = run_serve(SERVE_ARGV + [
         "--ckpt-dir", root, "--engine", "fixed", "--batch", str(SERVE_BATCH),
         "--dump-tokens", os.path.join(out, "fixed.json")])
-    check(dict(ops.LAUNCHES) == launches, "serve: serving launched a kernel")
+    # serving launches no K1/K2/K3; the load's aging draws its drift and
+    # read noise (``lifetime/drift.py``) through the hash_normal kernel
+    drawn = ops.LAUNCHES["hash_normal"] - launches["hash_normal"]
+    check(all(ops.LAUNCHES[k] == launches[k] for k in launches
+              if k != "hash_normal"), "serve: serving launched a kernel")
+    check(drawn > 0, "serve: the aged load drew no normal on the card")
+    print(f"serve: no K1/K2/K3 launch; the two aged loads drew "
+          f"{drawn} hash_normal launches")
 
     with open(man_path) as f:
         manifest = _json.load(f)
@@ -3702,9 +4032,11 @@ def serve_mp(card: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
     tok, cache = model.serve_step(params, tok, cache, S + 1)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.peak"] - asked
     del params, cache, tok
     torch.cuda.empty_cache()
     acc = dryrun.account_serve(
@@ -3713,17 +4045,24 @@ def serve_mp(card: str) -> None:
                                           device="meta")),
         {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta")},
         kind="decode", pos=S + 1)
+    # The gate holds the step's storages to the bytes the step requested:
+    # max_memory_allocated counts allocator blocks, and a free block left
+    # by earlier phases may serve a large request whole (the caching
+    # allocator splits a block only if over 1 MiB would remain), so its
+    # rise depends on what ran before (one run: the 2430976 B logits in a
+    # 2752512 B block).
     grew = peak - resident
-    gap = acc["temp_bytes"] / grew - 1
+    gap = acc["temp_bytes"] / asked - 1
     print(f"analysis: (e) dry run of Qwen2-0.5B's serve_step (batch {B}, "
           f"cache {S + G}): predicted arguments {acc['argument_bytes']} B + "
           f"step {acc['temp_bytes']} B = peak {acc['peak_bytes']} B; "
           f"measured {resident} B resident, max_memory_allocated {peak} B, "
-          f"a rise of {grew} B: step {100 * gap:+.2f} %, peak "
+          f"a rise of {grew} B, {asked} B requested: step "
+          f"{100 * gap:+.2f} % of the requested bytes, peak "
           f"{100 * (acc['peak_bytes'] / peak - 1):+.2f} %; {acc['cost'].ops} "
           f"ops on {card}")
     check(abs(gap) <= DRY_PEAK_RTOL, f"analysis: (e) predicted step bytes "
-          f"{acc['temp_bytes']} vs measured {grew} ({100 * gap:+.2f} %)")
+          f"{acc['temp_bytes']} vs requested {asked} ({100 * gap:+.2f} %)")
     t1 = time.time()
     ranks = dist_spawn(2, serve_mp_rank, timeout=600)
     for r, res in enumerate(ranks):
@@ -4121,6 +4460,7 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}")
 
     kern, kern_ip = phase_kernels(device)
+    k1_hash, normal = phase_kernels_hash(device)
     mvm = phase_mvm(device)
     spf = phase_sp_filter(device)
     phase_quickstart(device)
@@ -4187,6 +4527,18 @@ def main() -> int:
     spf["analysis_launches"] = ana["sp_launches"]
     spf["launches"] += ana["sp_launches"]
     kern["full_width"] = full
+    # the hash kernels on the main path: phase 7's fused steps, 10a, 11b-c
+    k1_hash["launches"] = (FCN_HASH["fused"] + lm["hash_launches"]
+                           + sum(r["hash_launches"] for r in full.values()))
+    k1_hash["fcn_launches"] = FCN_HASH["fused"]
+    k1_hash["lm_launches"] = lm["hash_launches"]
+    k1_hash["full_width_launches"] = {a: r["hash_launches"]
+                                      for a, r in full.items()}
+    normal["launches"] = (lm["normal_launches"]
+                          + sum(r["normal_launches"] for r in full.values()))
+    normal["lm_launches"] = lm["normal_launches"]
+    normal["full_width_launches"] = {a: r["normal_launches"]
+                                     for a, r in full.items()}
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_update.cu",
@@ -4198,6 +4550,15 @@ def main() -> int:
              bound_by="bytes", library_ms=None,
              launches=launches + lm["in_place"], fcn_launches=launches,
              lm_launches=lm["in_place"], **kern_ip),
+        dict(name="analog_update_hash", route="cuda",
+             source="src/repro_torch/kernels/csrc/analog_update.cu",
+             replaces="src/repro/kernels/analog_update.py:72",
+             library_ms=None, **k1_hash),
+        dict(name="hash_normal", route="cuda",
+             source="src/repro_torch/kernels/csrc/fastrng.cu",
+             replaces="none: jnp src/repro/kernels/fastrng.py:90, fused by "
+                      "XLA",
+             library_ms=None, **normal),
         dict(name="analog_mvm", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_mvm.cu",
              replaces="src/repro/kernels/analog_matmul.py:59",

@@ -407,8 +407,9 @@ CONTRACTS: Dict[str, GraphContract] = {
         allowed_dtypes=_TRAIN_DTYPES,
         min_aliased=14,          # measured 14 (12 on the device)
         max_copy_bytes=384,      # measured 256: Q~ <- Q of one 8x8 member
-        max_uploads=8,           # measured 8: the classes' tile seeds
-        max_hbm_bytes=3.7e6,     # measured 2.46M
+        max_uploads=4,           # measured 4: each class array's (n, 2)
+                                 # int32 seeds, one upload a K1 launch
+        max_hbm_bytes=6.2e5,     # measured 410k (K1 draws its noise)
     ),
     "begin_step": GraphContract(
         name="begin_step",

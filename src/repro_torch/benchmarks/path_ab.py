@@ -18,7 +18,8 @@ its own ``build/``), which measures, with the tree's own code:
   step (``chip_smoke.host_sync_cost``) and the Tables runs of E-RIDER on
   the FCN and LeNet-5 (``chip_smoke.paper_run``), ms a step;
 * phase 10a's Qwen2-0.5B step (``chip_smoke.phase_lm``) and 11b-c's
-  MiniCPM3-4B / Mamba2-2.7B at 8 layers (``chip_smoke.lm_full_width``);
+  MiniCPM3-4B / Mamba2-2.7B at 8 layers (``chip_smoke.lm_full_width``):
+  ms a step and the peak allocated GiB;
 * serving: the serve CLI on Qwen2-0.5B from ``LM.init`` (16 requests,
   prompt 128, 32 tokens, 8 lanes), TPOT p50 and the decode step;
 * zero-shifting (``core.zs.zs_estimate``, fig1's 64 x 64 device), ms a
@@ -183,11 +184,16 @@ def worker(tree: str, only=MEASURES) -> dict:
         return out
 
     def lm():
-        return cs.phase_lm("cuda", res["card"])["step_ms"]
+        r = cs.phase_lm("cuda", res["card"])
+        return dict(step_ms=r["step_ms"], peak_gib=r["peak_bytes"] / 2 ** 30)
 
     def full():
-        return {a: cs.lm_full_width(a, s, res["card"])["step_ms"]
-                for a, s in cs.FULL_WIDTH}
+        out = {}
+        for a, s in cs.FULL_WIDTH:
+            r = cs.lm_full_width(a, s, res["card"])
+            out[a] = dict(step_ms=r["step_ms"],
+                          peak_gib=r["peak_bytes"] / 2 ** 30)
+        return out
 
     fns = dict(calls=lambda: _calls(cs), fcn=fcn, paper=paper,
                zs_ms_per_pulse=_zs_ms_per_pulse, lm_10a=lm, lm_11=full,

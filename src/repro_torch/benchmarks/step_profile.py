@@ -12,8 +12,9 @@ it, for a few warm-up steps, then ``--steps`` steps under
     synchronize; profiler on, so a little above the untraced time),
   * device busy time per step (sum of the CUDA kernels' device time) and
     the idle share of the wall time,
-  * kernel launches per step, the pulse-update kernel's share, and the top
-    kernels by device time.
+  * kernel launches per step, the pulse-update kernel's share (any of its
+    modes) and the hash normal kernel's, and the top kernels by device
+    time.
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.benchmarks.step_profile \
                       --backend fused --steps 10
@@ -115,15 +116,21 @@ def main(argv=None):
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    k1 = sum(t for name, (_, t) in by_name.items()
-             if "analog_update_kernel" in name) / 1e3 / args.steps
+    def kernel_ms(*parts):
+        return sum(t for name, (_, t) in by_name.items()
+                   if all(p in name for p in parts)) / 1e3 / args.steps
+
+    # K1 in any mode (operand or hash noise, in place or not)
+    k1 = kernel_ms("analog_update", "_kernel<")
+    normal = kernel_ms("hash_normal_kernel")
     name = torch.cuda.get_device_name(0)
     what = (f"lm {args.arch}" + (f" x{args.layers} layers" if args.layers else "")
             + f" seq {args.seq}" if args.model == "lm" else args.model)
     print(f"profile[{what}, {args.backend}] on {name}: wall {wall_ms:.2f} ms/step, "
           f"device busy {busy_ms:.3f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {len(kernels) / args.steps:.0f} "
-          f"kernel launches/step, analog_update kernel {k1:.4f} ms/step")
+          f"kernel launches/step, analog_update kernel {k1:.4f} ms/step, "
+          f"hash_normal kernel {normal:.4f} ms/step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     for kname, (n, t) in top:
         print(f"  {t / 1e3 / args.steps:8.4f} ms/step  {n / args.steps:6.0f}/step"

@@ -60,7 +60,10 @@ def _has_dev_p(st: TileState) -> bool:
     return st.get("dev_p") is not None or st.get("seed_p") is not None
 
 
-def _base_metrics(cfg: TileConfig, st: TileState, dw_p=None, dw_w=None) -> Metrics:
+def _base_metrics(cfg: TileConfig, st: TileState, dw_p=None, dw_w=None,
+                  dev_p=None) -> Metrics:
+    """Pulses, and under ``metrics="full"`` P's |G|^2 and SP error at
+    ``dev_p``, the update's own draw of P's device (drawn here if None)."""
     if cfg.metrics == "none":
         return {}
     m: Metrics = {}
@@ -73,7 +76,8 @@ def _base_metrics(cfg: TileConfig, st: TileState, dw_p=None, dw_w=None) -> Metri
     if cfg.metrics == "pulses":
         return m
     if st.get("P") is not None and _has_dev_p(st):
-        dev_p = _dev(st, "p", cfg, st["P"].shape)
+        if dev_p is None:
+            dev_p = _dev(st, "p", cfg, st["P"].shape)
         _, g = fg(st["P"].to(torch.float32), dev_p, cfg.device_p)
         m["gp_sq"] = torch.mean(g * g)
         if st.get("Qd") is not None:
@@ -214,7 +218,7 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr,
             st["H"] = _drain(h, dw, st, inplace)
             st["W"] = _au(st["W"], dw, dev_w, cfg.device_w, kw, cfg,
                           inplace)
-        metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw)
+        metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw, dev_p=dev_p)
 
     elif a in ("residual", "rider", "erider"):
         c = st["c"] if a == "erider" else torch.ones((), device=dev)
@@ -234,7 +238,7 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr,
         # (12): digital EMA tracking (rider/erider only)
         if a in ("rider", "erider"):
             st["Qd"] = _ema(st["Qd"], p_new, cfg.eta, inplace)
-        metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw)
+        metrics = _base_metrics(cfg, st, dw_p=dp, dw_w=dw, dev_p=dev_p)
         if a == "erider" and cfg.metrics != "none":
             metrics["prog_events"] = st["prog"].to(torch.float32)
 
@@ -252,7 +256,8 @@ def update(st: TileState, grad, key, cfg: TileConfig, lr,
 
 def _hash_noise_batched(seeds, shape, device):
     """Per-tile fastrng streams for an (n, *shape) stack: row i is exactly
-    what ``ops.analog_update(rng='hash')`` draws for tile i alone."""
+    what ``ops.analog_update(rng='hash')`` draws for tile i alone (the
+    noise operands of the pulse modes K1 does not run)."""
     return (fastrng.hash_bits(seeds, shape, 1, device),
             fastrng.hash_normal(seeds, shape, 2, device))
 
@@ -261,7 +266,8 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
                    lr, inplace: bool = False) -> Tuple[TileState, Metrics]:
     """``update`` over a whole (n, *member) stack in one program: noise from
     per-tile hash streams, one pulse-update launch per array over the whole
-    stack. Bit-identical to the per-member loop with rng='hash': same key
+    stack (K1's hash-noise mode draws each member's noise in the kernel).
+    Bit-identical to the per-member loop with rng='hash': same key
     derivation, same bits, same element-wise math. Per-tile reductions run
     over member axes only."""
     a = cfg.algorithm
@@ -283,9 +289,12 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
                              method="hash", device=device)
 
     def au(x, dx, dev, dcfg, kraw):
-        noise = _hash_noise_batched(kraw, member, device)
-        return analog_update(x, dx, dev, dcfg, None, bl=cfg.bl,
-                             mode=cfg.pulse_mode, noise=noise,
+        if dcfg.kind in ("softbounds", "linear") and cfg.pulse_mode == "fused":
+            key, noise = kraw, None   # K1 draws it, member by member
+        else:
+            key, noise = None, _hash_noise_batched(kraw, member, device)
+        return analog_update(x, dx, dev, dcfg, key, bl=cfg.bl,
+                             mode=cfg.pulse_mode, rng="hash", noise=noise,
                              out=x if inplace else None)
 
     def pulses_of(dw, dw_min):
@@ -308,7 +317,6 @@ def update_batched(st: TileState, grad, keys_raw, cfg: TileConfig,
         if cfg.metrics == "pulses":
             return m
         if st.get("P") is not None and _has_dev_p(st):
-            dev_p = dev_of("p")
             _, gg = fg(st["P"].to(torch.float32), dev_p, cfg.device_p)
             m["gp_sq"] = torch.mean(gg * gg, dim=axes)
             if st.get("Qd") is not None:

@@ -115,7 +115,7 @@ def sample_device(key, shape, cfg: DeviceConfig, method: str = "threefry",
     alone."""
     shape = tuple(int(d) for d in shape)
     if method == "hash":
-        seed = fastrng.seed_from_key(key)
+        seed = fastrng.device_seeds(fastrng.seed_from_key(key), device)
         n_g = fastrng.hash_normal(seed, shape, 11, device)
         n_r = fastrng.hash_normal(seed, shape, 13, device)
         n_s = fastrng.hash_normal(seed, shape, 17, device)

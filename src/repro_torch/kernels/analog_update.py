@@ -7,9 +7,13 @@ and 4 written per float32 element. It takes contiguous 2-D tiles or 3-D
 padding), ``w``/``dw`` in float32 or bfloat16, ``gamma``/``rho``/``zeta`` in
 float32 and ``ubits`` as a uint32 bit pattern (int32 or uint32 tensor).
 ``out=w`` writes the result back into ``w`` (the kernel's in-place mode,
-``repro_torch::analog_update_``). ``kernels.ops.analog_update`` is the
-wrapper the model code calls; this module only checks operands and
-launches.
+``repro_torch::analog_update_``). ``analog_update_hash_cuda`` is the
+hash-noise mode (``repro_torch::analog_update_hash`` and its in-place
+``::analog_update_hash_``): no ``ubits``/``zeta`` operands, the kernel draws
+them from the fastrng hash (``csrc/fastrng.cuh``) with one ``(s0, s1)`` seed
+per member of an ``(n, *member)`` stack, 20 bytes an element (16 with bf16
+``w``). ``kernels.ops.analog_update`` is the wrapper the model code calls;
+this module only checks operands and launches.
 """
 from __future__ import annotations
 
@@ -22,26 +26,25 @@ from . import cuda_build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
              + [ctypes.c_int64] + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_HASH_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                  + [ctypes.c_int64] * 2 + [ctypes.c_float] * 5
+                  + [ctypes.c_void_p])
+
+_FNS = {}
 
 
-_FN = None
-
-
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = cuda_build.load("analog_update").analog_update_launch
-        fn.argtypes = _ARGTYPES
+def _fn(name: str = "analog_update_launch"):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load("analog_update"), name)
+        fn.argtypes = (_HASH_ARGTYPES if name == "analog_update_hash_launch"
+                       else _ARGTYPES)
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
-def _check(w, dw, gamma, rho, ubits, zeta):
-    if w.ndim not in (2, 3):
-        raise ValueError(f"analog_update kernel takes 2-D or 3-D tensors, "
-                         f"got shape {tuple(w.shape)}")
-    named = dict(w=w, dw=dw, gamma=gamma, rho=rho, ubits=ubits, zeta=zeta)
+def _check_same(w, named):
     for name, t in named.items():
         if not t.is_cuda or t.device != w.device:
             raise ValueError(f"{name} must be a CUDA tensor on {w.device}")
@@ -50,12 +53,20 @@ def _check(w, dw, gamma, rho, ubits, zeta):
                              f"w has {tuple(w.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if w.dtype not in _DTYPE_CODE or dw.dtype not in _DTYPE_CODE:
+    if w.dtype not in _DTYPE_CODE or named["dw"].dtype not in _DTYPE_CODE:
         raise TypeError(f"w/dw must be float32 or bfloat16, got "
-                        f"{w.dtype}/{dw.dtype}")
+                        f"{w.dtype}/{named['dw'].dtype}")
     for name in ("gamma", "rho", "zeta"):
-        if named[name].dtype != torch.float32:
+        if name in named and named[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {named[name].dtype}")
+
+
+def _check(w, dw, gamma, rho, ubits, zeta):
+    if w.ndim not in (2, 3):
+        raise ValueError(f"analog_update kernel takes 2-D or 3-D tensors, "
+                         f"got shape {tuple(w.shape)}")
+    _check_same(w, dict(w=w, dw=dw, gamma=gamma, rho=rho, ubits=ubits,
+                        zeta=zeta))
     if ubits.dtype not in (torch.int32, torch.uint32):
         raise TypeError(f"ubits must be a uint32 bit pattern (int32/uint32), "
                         f"got {ubits.dtype}")
@@ -78,12 +89,50 @@ def analog_update_cuda(w, dw, gamma, rho, ubits, zeta, *, dw_min: float,
             ubits.data_ptr(), zeta.data_ptr(), out.data_ptr(), w.numel(),
             dw_min, tau_min, tau_max, dw_min * sigma_c2c,
             float(bl) if bl and bl > 0 else 0.0, stream)
+    _launch(w, "analog_update_launch", args)
+    return out
+
+
+def _launch(w, name: str, args) -> None:
     if w.device.index == torch.cuda.current_device():
-        err = _fn()(*args)
+        err = _fn(name)(*args)
     else:
         with torch.cuda.device(w.device):
-            err = _fn()(*args)
+            err = _fn(name)(*args)
     if err != 0:
         raise RuntimeError(f"analog_update kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def analog_update_hash_cuda(w, dw, gamma, rho, seeds, *, dw_min: float,
+                            tau_min: float, tau_max: float, sigma_c2c: float,
+                            bl: int = 0, out=None) -> torch.Tensor:
+    """K1's hash-noise mode on the current stream: ``w`` (any shape, its
+    ``n * member`` elements an ``(n, *member)`` stack in memory order),
+    ``seeds`` an ``(n, 2)`` int32 tensor on the card (the uint32 seed words);
+    ``ubits``/``zeta`` are drawn in the kernel as ``fastrng`` draws them
+    (salts 1 and 2, the linear index restarting per member). Returns the
+    new ``w`` (``out=w``: written into ``w``). Raises as
+    ``analog_update_cuda`` does."""
+    _check_same(w, dict(w=w, dw=dw, gamma=gamma, rho=rho))
+    if (not seeds.is_cuda or seeds.device != w.device
+            or seeds.dtype != torch.int32 or seeds.ndim != 2
+            or seeds.shape[1] != 2 or not seeds.is_contiguous()):
+        raise ValueError(f"seeds must be a contiguous (n, 2) int32 tensor on "
+                         f"{w.device}, got {tuple(seeds.shape)} "
+                         f"{seeds.dtype} on {seeds.device}")
+    n = seeds.shape[0]
+    if n == 0 or w.numel() % n:
+        raise ValueError(f"{w.numel()} elements are not {n} equal members")
+    if out is None:
+        out = torch.empty_like(w)
+    elif out is not w:
+        raise ValueError("out must be None or w itself")
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    args = (_DTYPE_CODE[w.dtype], _DTYPE_CODE[dw.dtype],
+            w.data_ptr(), dw.data_ptr(), gamma.data_ptr(), rho.data_ptr(),
+            seeds.data_ptr(), out.data_ptr(), n, w.numel() // n,
+            dw_min, tau_min, tau_max, dw_min * sigma_c2c,
+            float(bl) if bl and bl > 0 else 0.0, stream)
+    _launch(w, "analog_update_hash_launch", args)
     return out

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C launch function and is compiled on
 first use into ``build/torch_ext/`` at the repository root (listed in
-``.gitignore``), under a name that hashes the source and the flags, so an
-edited source rebuilds and an unchanged one is loaded as it is. A plain C
+``.gitignore``), under a name that hashes the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is loaded as it is. A plain C
 interface keeps PyTorch's headers out of the build: one such file compiles
 in seconds, where a ``torch.utils.cpp_extension`` build takes minutes.
 ``build()`` starts one ``nvcc`` per source, all together.
@@ -23,8 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("analog_update", "analog_mvm", "sp_filter")}
+SOURCES = {name: CSRC / f"{name}.cu" for name in (
+    "analog_update", "analog_mvm", "sp_filter", "fastrng")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,7 +48,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
+    src = SOURCES[name].read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}_{tag}.so"
 

@@ -3,17 +3,33 @@
 A murmur3-style integer hash of (linear index, seed, salt), bit-identical
 to the JAX package's ``kernels/fastrng.py``: the same uint32 bits, and
 normals through the same inverse CDF (bitcast fast log + Giles' erfinv
-polynomials). uint32 math runs in int64 with ``& 0xFFFFFFFF`` masks.
+polynomials). The plain versions (``hash_bits``, ``hash_uniform``,
+``hash_normal_ref``) run uint32 math in int64 with ``& 0xFFFFFFFF`` masks.
 
 ``seed`` is a ``(2,)`` int64 tensor of uint32 words, or a ``(n, 2)`` batch
 of them: a batch draws ``(n, *shape)``, row i being exactly the draw for
-seed i alone (the linear index restarts per row).
+seed i alone (the linear index restarts per row). ``device_seeds`` gives
+the same words as int32 on a device, the form the kernels take; every
+function here takes either.
+
+``hash_normal`` is the custom op ``repro_torch::hash_normal``
+(``kernels/ops.py``): on the card one pass of the hand-written kernel
+``csrc/fastrng.cu`` (``hash_normal_cuda`` below), bit-equal to the plain
+chain there; on the CPU the plain chain; on ``meta`` the fake rule. The
+device is the ``device`` argument's. It replaces no Pallas kernel: the JAX
+module is jnp that XLA fuses into its consumer, which eager torch cannot
+do. K1's hash-noise mode (``repro_torch::analog_update_hash``) draws the
+update's noise inside the update kernel from the same device code
+(``csrc/fastrng.cuh``). So no step on the card calls ``hash_bits`` or
+``hash_uniform``, which stay plain: the operand mode of K1 (``noise=``),
+the CPU and the lifetime model's GDC reference use them.
 
 ``hash_normal`` agrees with JAX to a few ULP, not bit for bit: XLA-CPU's
 ``sqrt`` on the tail branch differs from torch's by one ULP on some inputs.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -42,12 +58,32 @@ def _finalize(x):
 
 
 def _seed_words(seed, ndim: int, device):
-    """Seed words as ints, or as ``(n, 1, ..., 1)`` tensors for a batch."""
-    seed = torch.as_tensor(seed).to(torch.int64)
+    """Seed words as ints, or as ``(n, 1, ..., 1)`` tensors for a batch
+    (int32 words, ``device_seeds``' form, taken as uint32)."""
+    seed = torch.as_tensor(seed)
+    seed = (seed.to(torch.int64) & MASK if seed.dtype == torch.int32
+            else seed.to(torch.int64))
     if seed.ndim == 1:
         return int(seed[0]), int(seed[1])
     s = seed.to(device).reshape(seed.shape[0], 2, *([1] * ndim))
     return s[:, 0], s[:, 1]
+
+
+def device_seeds(seed, device) -> torch.Tensor:
+    """The uint32 seed words of ``seed`` (``(2,)`` or ``(n, 2)``, host
+    int64) as int32 bit patterns of the same shape on ``device``, the form
+    the kernels take: one upload, made from pinned memory without a sync on
+    the card. An int32 seed is taken to be such words already and passes
+    as it is."""
+    seed = torch.as_tensor(seed)
+    if seed.dtype == torch.int32:
+        return seed
+    s = seed.to(torch.int64) & MASK
+    s = (s - ((s >> 31) << 32)).to(torch.int32)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return s.pin_memory().to(device, non_blocking=True)
+    return s.to(device)
 
 
 def hash_bits(seed, shape, salt: int, device="cuda") -> torch.Tensor:
@@ -81,8 +117,9 @@ def _fast_neg_log(y: torch.Tensor) -> torch.Tensor:
     return -_LN2 * log2y
 
 
-def hash_normal(seed, shape, salt: int, device="cuda") -> torch.Tensor:
-    """Standard normal by the inverse CDF of one hashed uniform."""
+def hash_normal_ref(seed, shape, salt: int, device="cuda") -> torch.Tensor:
+    """Standard normal by the inverse CDF of one hashed uniform: the plain
+    version of ``hash_normal``, eager, one int64 temporary a step."""
     u = (hash_bits(seed, shape, salt, device).to(torch.float32) + 0.5) * (
         1.0 / 4294967296.0)
     x = torch.clamp(2.0 * u - 1.0, -_ONE_MINUS_EPS, _ONE_MINUS_EPS)
@@ -96,6 +133,67 @@ def hash_normal(seed, shape, salt: int, device="cuda") -> torch.Tensor:
     for c in _ERFINV_TAIL:
         p2 = p2 * ws + c
     return _SQRT2 * torch.where(w < 5.0, p1, p2) * x
+
+
+def member_draw(fn, seeds, shape, salt: int, device):
+    """``fn``'s plain draw at ``shape`` from ``(n, 2)`` seeds, the n members
+    of ``shape`` in memory order (n = 1: ``shape`` whole)."""
+    n = seeds.shape[0]
+    if n == 1:
+        return fn(seeds[0], shape, salt, device)
+    return fn(seeds, (math.prod(shape) // n,), salt, device).reshape(shape)
+
+
+def hash_normal(seed, shape, salt: int, device="cuda") -> torch.Tensor:
+    """Standard normal by the inverse CDF of one hashed uniform, float32 of
+    ``shape`` (``(n, *shape)`` for an ``(n, 2)`` seed): the op
+    ``repro_torch::hash_normal`` on ``device``."""
+    from . import ops  # ops imports this module
+
+    shape = tuple(int(d) for d in shape)
+    seeds = device_seeds(seed, device)
+    if seeds.ndim == 2:
+        shape = (seeds.shape[0],) + shape
+    return ops.hash_normal_op(seeds.reshape(-1, 2), list(shape), int(salt))
+
+
+_HASH_NORMAL = None
+
+
+def hash_normal_cuda(seeds, out, salt: int) -> torch.Tensor:
+    """Launch ``csrc/fastrng.cu`` on the current stream: ``out`` (float32,
+    contiguous, ``n * member`` elements) gets the draws of the ``(n, 2)``
+    int32 ``seeds`` on the card. Raises on operands the kernel does not
+    take or a refused launch."""
+    global _HASH_NORMAL
+    if (not seeds.is_cuda or seeds.dtype != torch.int32 or seeds.ndim != 2
+            or seeds.shape[1] != 2 or not seeds.is_contiguous()):
+        raise ValueError(f"seeds must be a contiguous (n, 2) int32 CUDA "
+                         f"tensor, got {tuple(seeds.shape)} {seeds.dtype} on "
+                         f"{seeds.device}")
+    if (not out.is_cuda or out.device != seeds.device
+            or out.dtype != torch.float32 or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 tensor on "
+                         f"{seeds.device}")
+    n = seeds.shape[0]
+    if n == 0 or out.numel() % n:
+        raise ValueError(f"{out.numel()} draws are not {n} equal members")
+    if _HASH_NORMAL is None:
+        from . import cuda_build
+
+        fn = cuda_build.load("fastrng").hash_normal_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _HASH_NORMAL = fn
+    with torch.cuda.device(out.device):
+        err = _HASH_NORMAL(seeds.data_ptr(), out.data_ptr(), n,
+                           out.numel() // n, int(salt) & MASK,
+                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_normal kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def seed_from_key(key) -> torch.Tensor:

@@ -3,23 +3,30 @@
 Each kernel is one ``torch.library.custom_op`` in the ``repro_torch``
 namespace (``repro_torch::analog_update``, ``::analog_mvm``,
 ``::sp_filter``; K1's in-place mode is ``::analog_update_``, which writes
-``w`` and returns nothing), so the dispatcher routes a call by the device of its
+``w`` and returns nothing; K1's hash-noise mode, which draws its noise in
+the kernel, is ``::analog_update_hash`` and in place
+``::analog_update_hash_``; ``::hash_normal`` is the one-pass normal draw of
+``csrc/fastrng.cu``), so the dispatcher routes a call by the device of its
 tensors, and nothing else: the CUDA implementation launches the
 hand-written kernel or raises, it never falls back; the CPU
-implementation is the plain PyTorch version (``kernels/ref.py``); the
-fake rule (``meta`` tensors, fake tensors) only gives the outputs' shapes
-and dtypes. A stream of dispatched operations (``roofline.op_cost.OpTrace``)
-shows each kernel call as one operation under the kernel's name.
+implementation is the plain PyTorch version (``kernels/ref.py``, and the
+eager ``fastrng`` draws for the hash ops); the fake rule (``meta``
+tensors, fake tensors) only gives the outputs' shapes and dtypes. A
+stream of dispatched operations (``roofline.op_cost.OpTrace``) shows each
+kernel call as one operation under the kernel's name.
 
 ``LAUNCHES`` counts, per kernel, the calls the CUDA implementations made
 to it, so a run can show that its main path went through the kernels. One
 ``analog_mvm`` call is two CUDA launches (the DAC prologue and the
 product) and counts once. ``analog_update`` counts every K1 launch, in
-either mode; ``analog_update_`` the in-place ones among them.
+any mode; ``analog_update_`` the in-place ones among them and
+``analog_update_hash`` the hash-noise ones; ``hash_normal`` the launches of
+``csrc/fastrng.cu``.
 
 On any device but the CPU a wrapper hands the op the operands the kernel
-takes (contiguous, 2-D or 3-D, ``ubits`` as int32), so a ``meta`` run
-dispatches what the card would.
+takes (contiguous; in K1's operand mode 2-D or 3-D with ``ubits`` as
+int32; the hash ops' seeds as ``(n, 2)`` int32 words on the device), so a
+``meta`` run dispatches what the card would.
 
 The CUDA kernels bounds-check ragged shapes, so the Pallas block padding of
 the JAX package's ``ops.py`` has no counterpart here. Noise is always drawn
@@ -27,7 +34,7 @@ at the original shape, so both backends consume identical random bits.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import Tensor
@@ -36,6 +43,7 @@ from .. import prng
 from . import fastrng, ref
 
 LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_update_": 0,
+                            "analog_update_hash": 0, "hash_normal": 0,
                             "analog_mvm": 0, "sp_filter": 0}
 
 
@@ -69,7 +77,8 @@ def _view2d(x: torch.Tensor) -> torch.Tensor:
 
 def make_noise(key, shape, device, rng: str = "threefry"):
     """(ubits, zeta) at ``shape``: threefry (``jax.random`` bits) or the
-    fastrng hash (salts 1/2), as the JAX package draws them."""
+    fastrng hash (salts 1/2), as the JAX package draws them: the operands of
+    K1's operand mode, which its hash-noise mode draws in the kernel."""
     if rng == "hash":
         seed = fastrng.seed_from_key(key)
         return (fastrng.hash_bits(seed, shape, 1, device),
@@ -137,16 +146,87 @@ def _(w, dw, gamma, rho, ubits, zeta, dw_min, tau_min, tau_max, sigma_c2c,
     return None
 
 
+def _hash_update_ref(w, dw, gamma, rho, seeds, **kw):
+    """The plain hash-noise update: the eager ``fastrng`` draws of the
+    ``(n, 2)`` seeds (salts 1 and 2, per member) into ``analog_update_ref``."""
+    ubits = fastrng.member_draw(fastrng.hash_bits, seeds, w.shape, 1,
+                                w.device)
+    zeta = fastrng.member_draw(fastrng.hash_normal_ref, seeds, w.shape, 2,
+                               w.device)
+    return ref.analog_update_ref(w, dw, gamma, rho, ubits, zeta, **kw)
+
+
+@torch.library.custom_op("repro_torch::analog_update_hash", mutates_args=(),
+                         device_types="cpu")
+def _analog_update_hash_op(w: Tensor, dw: Tensor, gamma: Tensor, rho: Tensor,
+                           seeds: Tensor, dw_min: float, tau_min: float,
+                           tau_max: float, sigma_c2c: float,
+                           bl: int) -> Tensor:
+    return _hash_update_ref(w, dw, gamma, rho, seeds, dw_min=dw_min,
+                            tau_min=tau_min, tau_max=tau_max,
+                            sigma_c2c=sigma_c2c, bl=bl)
+
+
+@_analog_update_hash_op.register_kernel("cuda")
+def _(w, dw, gamma, rho, seeds, dw_min, tau_min, tau_max, sigma_c2c, bl):
+    from .analog_update import analog_update_hash_cuda
+
+    out = analog_update_hash_cuda(w, dw, gamma, rho, seeds, dw_min=dw_min,
+                                  tau_min=tau_min, tau_max=tau_max,
+                                  sigma_c2c=sigma_c2c, bl=bl)
+    LAUNCHES["analog_update"] += 1
+    LAUNCHES["analog_update_hash"] += 1
+    return out
+
+
+@_analog_update_hash_op.register_fake
+def _(w, dw, gamma, rho, seeds, dw_min, tau_min, tau_max, sigma_c2c, bl):
+    return torch.empty_like(w)
+
+
+@torch.library.custom_op("repro_torch::analog_update_hash_",
+                         mutates_args=("w",), device_types="cpu")
+def _analog_update_hash_inplace_op(w: Tensor, dw: Tensor, gamma: Tensor,
+                                   rho: Tensor, seeds: Tensor, dw_min: float,
+                                   tau_min: float, tau_max: float,
+                                   sigma_c2c: float, bl: int) -> None:
+    w.copy_(_hash_update_ref(w, dw, gamma, rho, seeds, dw_min=dw_min,
+                             tau_min=tau_min, tau_max=tau_max,
+                             sigma_c2c=sigma_c2c, bl=bl))
+
+
+@_analog_update_hash_inplace_op.register_kernel("cuda")
+def _(w, dw, gamma, rho, seeds, dw_min, tau_min, tau_max, sigma_c2c, bl):
+    from .analog_update import analog_update_hash_cuda
+
+    analog_update_hash_cuda(w, dw, gamma, rho, seeds, dw_min=dw_min,
+                            tau_min=tau_min, tau_max=tau_max,
+                            sigma_c2c=sigma_c2c, bl=bl, out=w)
+    LAUNCHES["analog_update"] += 1
+    LAUNCHES["analog_update_"] += 1
+    LAUNCHES["analog_update_hash"] += 1
+
+
+@_analog_update_hash_inplace_op.register_fake
+def _(w, dw, gamma, rho, seeds, dw_min, tau_min, tau_max, sigma_c2c, bl):
+    return None
+
+
 def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
                   tau_max: float, sigma_c2c: float, bl: int = 0,
                   rng: str = "threefry", noise=None, out=None):
     """Fused analog pulse update; see ``ref.analog_update_ref``.
 
     ``noise`` optionally supplies pre-drawn ``(ubits, zeta)`` at
-    ``w.shape``; then ``key``/``rng`` are ignored and may be None.
-    ``out=w`` writes the result into ``w`` (``repro_torch::analog_update_``,
-    bit-equal to the new tensor the call returns without it) and returns
-    ``w``, which must then be contiguous: a copy would take the write.
+    ``w.shape`` (the operand mode); then ``key``/``rng`` are ignored and may
+    be None. Without it, ``rng="hash"`` takes K1's hash-noise mode: a
+    ``(2,)`` key seeds ``w`` whole, an ``(n, 2)`` batch of keys the n
+    members of an ``(n, *member)`` stack, each drawn as for that member
+    alone; the noise is drawn in the kernel, bit-equal to the operand mode
+    fed ``make_noise``. ``out=w`` writes the result into ``w``
+    (``repro_torch::analog_update_``, ``::analog_update_hash_``), bit-equal
+    to the new tensor the call returns without it, and returns ``w``,
+    which must then be contiguous: a copy would take the write.
     """
     kw = dict(dw_min=float(dw_min), tau_min=float(tau_min),
               tau_max=float(tau_max), sigma_c2c=float(sigma_c2c),
@@ -156,15 +236,25 @@ def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
     if out is not None and not w.is_contiguous():
         raise ValueError("analog_update(out=w) needs a contiguous w: the "
                          "kernel would update a copy")
+    plain = backend(w) == "ref"
+    f32 = torch.float32
+    if noise is None and rng == "hash":
+        seeds = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                     w.device).reshape(-1, 2)
+        operands = ((w, dw, gamma, rho) if plain else
+                    [t.contiguous() for t in (w, dw, gamma.to(f32),
+                                              rho.to(f32))])
+        if out is not None:
+            _analog_update_hash_inplace_op(*operands, seeds, **kw)
+            return w
+        return _analog_update_hash_op(*operands, seeds, **kw)
     ubits, zeta = (noise if noise is not None
                    else make_noise(key, w.shape, w.device, rng))
-    plain = backend(w) == "ref"
     if plain:
         operands = (w, dw, gamma, rho, ubits, zeta)
     else:
         if ubits.dtype == torch.int64:
             ubits = ubits.to(torch.int32)  # same low 32 bits: the u32 pattern
-        f32 = torch.float32
         operands = [_view2d(t).contiguous() for t in (
             w, dw, gamma.to(f32), rho.to(f32), ubits, zeta.to(f32))]
     if out is not None:
@@ -172,6 +262,34 @@ def analog_update(w, dw, gamma, rho, key, *, dw_min: float, tau_min: float,
         return w
     res = _analog_update_op(*operands, **kw)
     return res if plain else res.reshape(w.shape)
+
+
+# ---------------------------------------------------------------------------
+# hash normal draw
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::hash_normal", mutates_args=(),
+                         device_types="cpu")
+def hash_normal_op(seeds: Tensor, shape: List[int], salt: int) -> Tensor:
+    """float32 normals of ``shape`` from ``(n, 2)`` int32 seed words, the n
+    members of ``shape`` in memory order (``fastrng.hash_normal`` is the
+    wrapper). CPU: the eager chain ``fastrng.hash_normal_ref``."""
+    return fastrng.member_draw(fastrng.hash_normal_ref, seeds, tuple(shape),
+                               salt, "cpu")
+
+
+@hash_normal_op.register_kernel("cuda")
+def _(seeds, shape, salt):
+    out = torch.empty(shape, dtype=torch.float32, device=seeds.device)
+    fastrng.hash_normal_cuda(seeds, out, salt)
+    LAUNCHES["hash_normal"] += 1
+    return out
+
+
+@hash_normal_op.register_fake
+def _(seeds, shape, salt):
+    return seeds.new_empty(shape, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -410,6 +410,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
             status="ok", build_s=round(t_build, 1),
             trace_s=round(acc["trace_s"], 1), ops=len(tr.records),
             k1_records=len(tr.kernel_records("analog_update")),
+            hash_normal_records=len(tr.kernel_records("hash_normal")),
+            kernel_element_ops=acc["cost"].element_ops,
             memory=memory,
             collectives={k: int(v) for k, v in tr.collectives.items()},
             roofline=roof.to_json(),

@@ -8,7 +8,12 @@ the card and PyTorch alone:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 * K1 ``ops.analog_update``: bit-equal to the plain version; its in-place
-  mode (``out=w``) bit-equal to the out-of-place kernel.
+  mode (``out=w``) bit-equal to the out-of-place kernel. Its hash-noise
+  mode (``rng="hash"``, no ``noise``; ``repro_torch::analog_update_hash``
+  and ``::analog_update_hash_``), both instantiations, bit-equal to the
+  operand mode fed the eager hash draws, on a tile, stacks with a seed per
+  member and a 4-D stack; ``repro_torch::hash_normal`` (``csrc/fastrng.cu``)
+  bit-equal to the eager chain ``fastrng.hash_normal_ref`` on the card.
 * K3 ``ops.analog_mvm``: within one ADC step (``out_res * s`` of the row,
   plus the rounding of the output to its dtype: four float32 ULPs or one
   bfloat16 ULP of the value) and at least 99.9 % bit-equal; the plain
@@ -436,6 +441,74 @@ def test_analog_update_kernel_on_a_stacked_bf16_tile(cuda, shape):
     want = ref.analog_update_ref(w, dw, gamma, rho, *noise, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _hash_keys(n, seed):
+    """``n`` host keys, words past 2**31 included."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 2 ** 32, size=(n, 2),
+                                         dtype=np.uint64).astype(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((33, 97), 1), ((3, 96, 160), 3),
+                                     ((2, 4, 16, 24), 2), ((24, 128), 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bl", [0, 10])
+def test_analog_update_hash_kernel_matches_plain(cuda, shape, n, dtype, bl):
+    """K1's hash-noise mode, out of place and in place, bit-equal to the
+    operand mode fed the eager draws of the same seeds (salts 1 and 2, the
+    index restarting per member); one launch each."""
+    from repro_torch.kernels import fastrng
+
+    kw = dict(dw_min=0.01, tau_min=1.0, tau_max=1.0, sigma_c2c=0.1, bl=bl)
+    rng = np.random.default_rng(9)
+    w, dw, gamma, rho = _card(
+        [rng.uniform(-0.8, 0.8, shape).astype(np.float32),
+         (0.05 * rng.standard_normal(shape)).astype(np.float32),
+         np.exp(0.1 * rng.standard_normal(shape)).astype(np.float32),
+         (0.3 * rng.standard_normal(shape)).astype(np.float32)],
+        [dtype, "float32", "float32", "float32"])
+    keys = _hash_keys(n, 10)
+    key = keys[0] if n == 1 else keys
+    seed = fastrng.seed_from_key(key)
+    member = shape[1:] if n > 1 else shape
+    noise = (fastrng.hash_bits(seed, member, 1, "cuda").reshape(shape),
+             fastrng.hash_normal_ref(seed, member, 2, "cuda").reshape(shape))
+    want = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+    before = dict(ops.LAUNCHES)
+    got = ops.analog_update(w, dw, gamma, rho, key, rng="hash", **kw)
+    w2 = w.clone()
+    assert ops.analog_update(w2, dw, gamma, rho, key, rng="hash", out=w2,
+                             **kw) is w2
+    torch.cuda.synchronize()
+    for name, more in (("analog_update", 2), ("analog_update_hash", 2),
+                       ("analog_update_", 1)):
+        assert ops.LAUNCHES[name] == before[name] + more, name
+    assert got.shape == shape and got.dtype == w.dtype
+    assert torch.equal(got, want)
+    assert torch.equal(w2, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("salt", [2, 11, 13, 17])
+@pytest.mark.parametrize("shape,n", [((1000,), 1), ((4, 33, 97), 4),
+                                     ((896, 4864), 1)])
+def test_hash_normal_kernel_matches_plain(cuda, salt, shape, n):
+    """The one-pass draw bit-equal to the eager chain on the card (4.4 M
+    draws at (896, 4864): the erfinv tail branch is taken)."""
+    from repro_torch.kernels import fastrng
+
+    keys = _hash_keys(n, salt)
+    seed = fastrng.seed_from_key(keys[0] if n == 1 else keys)
+    member = shape[1:] if n > 1 else shape
+    before = ops.LAUNCHES["hash_normal"]
+    got = fastrng.hash_normal(seed, member, salt, "cuda")
+    assert ops.LAUNCHES["hash_normal"] == before + 1
+    want = fastrng.hash_normal_ref(seed, member, salt, "cuda")
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

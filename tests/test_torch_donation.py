@@ -7,7 +7,8 @@ place, bit-equal to the pure ``train_step``.
   AdamW: 3 donated steps bit-equal to 3 pure steps from the same init,
   metrics too; the step returns the state it was given, every leaf on its
   own storage; E-RIDER's Q~ and Q never share storage; every pulse update
-  goes through K1's in-place op. The same for bfloat16 tile state and a
+  goes through K1's in-place op (under 'fused' its hash-noise mode,
+  ``repro_torch::analog_update_hash_``). The same for bfloat16 tile state and a
   bfloat16 digital leaf, where every write rounds at its store.
 * K1's in-place op (``repro_torch::analog_update_``) on the CPU bit-equal
   to the out-of-place op, its write seen on a ``meta`` trace, a
@@ -44,6 +45,9 @@ ENGINES = ("vmap", "fused", "looped")
 OPTS = ("sgd", "sgdm", "adam", "adamw")
 K1 = "repro_torch.analog_update.default"
 K1_INPLACE = "repro_torch.analog_update_.default"
+# K1's hash-noise mode, which the 'fused' engine's batched update takes
+K1_HASH = "repro_torch.analog_update_hash.default"
+K1_HASH_INPLACE = "repro_torch.analog_update_hash_.default"
 
 DEV_W = DeviceConfig(dw_min=0.01, sigma_pm=0.3, sigma_d2d=0.1, sigma_c2c=0.05)
 DEV_P = DeviceConfig(dw_min=0.01, sigma_pm=0.3, sigma_d2d=0.1, sigma_c2c=0.05,
@@ -106,7 +110,8 @@ def _check_donated(tr, dtype=torch.float32, steps=3):
         with OpTrace() as trace:
             out, m = donated(state, _batch(i))
         assert out is state
-        kinds |= {r.name for r in trace.records if r.name in (K1, K1_INPLACE)}
+        kinds |= {r.name for r in trace.records
+                  if r.name in (K1, K1_INPLACE, K1_HASH, K1_HASH_INPLACE)}
         assert m.keys() == m_pure.keys()
         for k in m:
             assert torch.equal(m[k], m_pure[k]), (i, k)
@@ -123,7 +128,9 @@ def _check_donated(tr, dtype=torch.float32, steps=3):
         assert got[p].dtype == want[p].dtype, p
         assert torch.equal(got[p], want[p]), p
     # every P and W write through K1's in-place mode, none out of place
-    assert kinds == {K1_INPLACE}, kinds
+    # (the 'fused' engine's in its hash-noise mode)
+    fused = tr.cfg.tile.update_backend == "fused"
+    assert kinds == {K1_HASH_INPLACE if fused else K1_INPLACE}, kinds
     return state
 
 

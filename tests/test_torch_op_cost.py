@@ -70,13 +70,37 @@ def _k1(shape, wdtype, device):
 @pytest.mark.parametrize("wdtype, per_elem", [(torch.float32, 28),
                                               (torch.bfloat16, 24)])
 def test_k1_priced_at_its_bound_bytes(wdtype, per_elem):
+    """``per_elem``: the operand mode's bytes (noise given); the hash-noise
+    mode (``rng="hash"``, no noise) reads no noise, 8 B an element less,
+    and one (1, 2) int32 seed."""
     shape = (24, 896, 4864)
     w, dw, g, r = _k1(shape, wdtype, META)
+    noise = (torch.zeros(shape, dtype=torch.int32, device=META),
+             torch.zeros(shape, device=META))
     with OpTrace() as tr:
         out = ops.analog_update(w, dw, g, r, prng.PRNGKey(3), rng="hash", **KW)
+        ops.analog_update(w, dw, g, r, None, noise=noise, **KW)
     assert out.shape == shape and out.dtype == wdtype
-    (rec,) = tr.kernel_records("analog_update")
-    assert record_bytes(rec) == per_elem * w.numel()
+    hashed, operand = tr.kernel_records("analog_update")
+    assert hashed.name == "repro_torch.analog_update_hash.default"
+    assert record_bytes(hashed) == (per_elem - 8) * w.numel() + 8
+    assert record_bytes(operand) == per_elem * w.numel()
+    assert op_cost.element_ops(hashed) == 114 * w.numel()
+    assert op_cost.element_ops(operand) == 30 * w.numel()
+
+
+def test_hash_normal_priced_at_its_bound_bytes():
+    """4 B an element written, 8 B a seed read; one record a draw."""
+    from repro_torch.kernels import fastrng
+
+    seeds = torch.tensor([[1, 2], [3, 4], [5, 6]])
+    with OpTrace() as tr:
+        z = fastrng.hash_normal(seeds, (896, 4864), 11, META)
+    assert z.shape == (3, 896, 4864) and z.dtype == torch.float32
+    (rec,) = tr.kernel_records("hash_normal")
+    assert record_bytes(rec) == 4 * z.numel() + 3 * 8
+    assert op_cost.element_ops(rec) == 62 * z.numel()
+    assert [x.upload_bytes for x in tr.records if x.upload_bytes] == [24]
 
 
 def test_k2_priced_at_its_bound_bytes():
