@@ -25,10 +25,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               mode fed the eager hash draws at the sweep, main-path and LM
               shapes (a seed a member of a stack; on the LM stacks also
               one seed a tile, as the CLI draws) and on the MoE stack (a
-              seed an expert), and ``repro_torch::hash_normal``
+              seed an expert), ``repro_torch::hash_normal``
               (``csrc/fastrng.cu``) bit-equal to the eager chain for
-              salts 2, 11, 13 and 17 on the (24, 896, 4864) stack; each
-              timed against its bound beside the plain version
+              salts 2, 11, 13 and 17 on the (24, 896, 4864) stack, and
+              ``repro_torch::hash_device`` (the device draw of
+              ``core/device.py``, ``csrc/fastrng.cu``) bit-equal to its
+              eager chain for the CLI's W and P devices and one without
+              sigma_d2d, at (896, 4864) with one seed and (24, 896, 4864)
+              with 24 and with one; each timed against its bound beside
+              the plain version
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -84,9 +89,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               the bigram stream over 8192 token ids, 8 steps of the CLI's
               donated step: finite loss and sp_err at every step, the loss
               falling, 2 kernel launches per analog path per step, all in
-              place and in K1's hash-noise mode, with three
-              ``hash_normal`` launches a K1 launch (the device drawn once
-              an array an update); prints the median step time, the peak
+              place and in K1's hash-noise mode, with one
+              ``hash_device`` launch a K1 launch (the device drawn once
+              an array an update) and no ``hash_normal`` launch; prints
+              the median step time, those launches a step, the peak
               allocated memory and the tile state's bytes;
               (b) the smoke config's first 3 steps on the
               card against the port's CPU run, with the smoke tile config
@@ -108,9 +114,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               width, depth cut to 8 layers, through the CLI's trainer
               (bf16 hash tiles, batch 8, seq 128 / 512, 4 steps): finite
               loss and sp_err, the loss falling, 2 K1 launches per analog
-              path per step, in K1's hash-noise mode, three
-              ``hash_normal`` launches a K1 launch; prints ms/step, peak
-              memory and tile bytes.
+              path per step, in K1's hash-noise mode, one
+              ``hash_device`` launch a K1 launch and no ``hash_normal``
+              launch; prints ms/step, those launches a step, peak memory
+              and tile bytes.
               Phase 3 also holds K1 bit-equal on mixtral-8x7b's 4-D expert
               stack (1, 8, 4096, 14336), bf16, and times it
  12. serve    serving (``repro_torch.serving``, ``launch/serve.py``):
@@ -122,14 +129,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               fixed driver's on the card, and both equal the CPU run's on
               the same parameters; serving launches no K1/K2/K3;
               (b) Qwen2-0.5B at full width and depth trained 2 steps by the
-              CLI (48 K1 launches), checkpointed, then served by the serve
+              CLI (48 K1 launches, 48 ``hash_device``), checkpointed,
+              then served by the serve
               CLI aged one year with GDC (16 requests, prompt 128, gen 32,
               8 lanes, page 16, chunk 64) and by the fixed driver: the
               manifest validates with t0 signatures from the checkpoint,
               32 tokens a request, each stream equal to the fixed driver's
               up to a first difference at a near-tie (top two logits
-              within 2 bf16 ULPs), no K1/K2/K3 launch (the aged loads'
-              drift normals through ``hash_normal``); prints tokens/s,
+              within 2 bf16 ULPs), no K1/K2/K3 or ``hash_device``
+              launch (the aged loads' drift normals through
+              ``hash_normal``); prints tokens/s,
               TTFT/TPOT p50/p99, the decode step, peak memory,
               save/restore seconds
  13. serve_zoo  serving the other families: (a) the smoke configs of
@@ -605,6 +614,12 @@ def k1_moe_stack(device, kw):
 HASH_UPDATE_OPS = 30 + 22 + 62
 HASH_NORMAL_OPS = 62
 HASH_SALTS = (2, 11, 13, 17)
+# DeviceConfig fields of phase 3's device draws: the training CLI's W and
+# P (launch/train.py) and one without sigma_d2d (gamma 1)
+HASH_DEVICES = {
+    "dev_w": dict(sigma_d2d=0.1, sigma_pm=0.3),
+    "dev_p": dict(sigma_d2d=0.1, sigma_pm=0.3, ref_mean=0.1, ref_std=0.1),
+    "no_d2d": dict(sigma_d2d=0.0, sigma_pm=0.3)}
 
 
 def hash_keys(shape, seed: int):
@@ -852,32 +867,139 @@ def phase_kernels_hash(device):
         normal[len(shape)] = dict(ms=k, plain_ms=p, bound_ms=bound,
                                   bound_by=by, shape=list(shape))
         del out
+    drawn = hash_device_phase(device)
     print(f"kernels: the hash kernels' phase took {time.time() - t0:.1f} s")
     update = dict(max_abs_err=err, **fcn, beyond_l2=l2, lm_stack=stack,
                   moe_stack=moe_t,
                   in_place=dict(fcn_ip, beyond_l2=l2_ip, lm_stack=stack_ip,
                                 moe_stack=moe_ip))
-    return update, dict(max_abs_err=err, **normal[2], lm_stack=normal[3])
+    return (update, dict(max_abs_err=err, **normal[2], lm_stack=normal[3]),
+            drawn)
+
+
+def float_ulps(a, b) -> int:
+    """The largest distance of two float32 tensors in ULPs (signs apart)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def hash_device_phase(device):
+    """``repro_torch::hash_device`` (``sample_device(method="hash")``, one
+    launch a draw) bit-equal to its plain version, the eager chain on the
+    card (``fastrng.hash_device_ref``), for HASH_DEVICES at (896, 4864)
+    with one seed and (24, 896, 4864) with 24 seeds and with one (the
+    CLI's draw of a stack); then timed at both shapes with one seed
+    against its bound: 8 B an element written (8 B a seed read) and
+    ``op_cost.device_draw_ops`` an element. Returns the JSON entry's
+    numbers, the top level ``dev_p`` at (896, 4864)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.device import DeviceConfig, sample_device
+    from repro_torch.kernels import fastrng, ops
+    from repro_torch.kernels.ref import device_scalars
+    from repro_torch.roofline.op_cost import device_draw_ops
+
+    stack = LM_PATH_SHAPES[2]
+    err = 0.0
+    for shape, n in ((stack[1:], 1), (stack, stack[0]), (stack, 1)):
+        key, _ = hash_keys(shape if n > 1 else shape[-2:],
+                           70 + len(shape) + n)
+        member = shape[1:] if n > 1 else shape
+        for name, fields in HASH_DEVICES.items():
+            cfg = DeviceConfig(**fields)
+            before = dict(ops.LAUNCHES)
+            got = sample_device(key, member, cfg, method="hash",
+                                device=device)
+            check(ops.LAUNCHES["hash_device"] == before["hash_device"] + 1
+                  and ops.LAUNCHES["hash_normal"] == before["hash_normal"],
+                  f"sample_device did not launch hash_device once ({name})")
+            want = fastrng.hash_device_ref(
+                fastrng.device_seeds(fastrng.seed_from_key(key), device),
+                shape, device, **device_scalars(cfg))
+            torch.cuda.synchronize()
+            same = all(got[k].shape == w.shape and torch.equal(got[k], w)
+                       for k, w in zip(("gamma", "rho"), want))
+            ulps = [float_ulps(got[k], w)
+                    for k, w in zip(("gamma", "rho"), want)]
+            e = max((got[k] - w).abs().max().item()
+                    for k, w in zip(("gamma", "rho"), want))
+            err = max(err, e)
+            print(f"kernels: hash_device {shape} {n} seed(s) {name}: "
+                  f"bit-equal to the eager chain={same} (ULPs gamma "
+                  f"{ulps[0]}, rho {ulps[1]}; max_abs_diff {e:.3g})")
+            check(same, f"hash_device differs from the eager chain at "
+                        f"{shape}, {n} seed(s), {name}")
+            del got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    out = {}
+    for shape, reps, rounds in ((stack[1:], 20, 15), (stack, 3, 5)):
+        key, _ = hash_keys(shape[-2:], 90)
+        host = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                    "cpu").reshape(-1, 2)
+        seeds = host.to(device)
+        numel = math.prod(shape)
+        gamma = torch.empty(shape, device=device)
+        rho = torch.empty_like(gamma)
+        for name, fields in HASH_DEVICES.items():
+            scalars = device_scalars(DeviceConfig(**fields))
+            per = device_draw_ops(scalars["sigma_d2d"], scalars["ref_mean"],
+                                  scalars["ref_std"])
+            k, k_call = time_ms(lambda: fastrng.hash_device_cuda(
+                seeds, gamma, rho, **scalars), reps, rounds)
+            p = events_ms(lambda: fastrng.hash_device_ref(
+                host, shape, device, **scalars), max(1, reps // 4),
+                max(3, rounds // 3))
+            t_bytes = (8 * numel + 8) / H100_BYTES_PER_S
+            t_ops = per * numel / H100_F32_FLOPS
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"kernels: hash_device {shape} {name}: median device "
+                  f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us "
+                  f"(plain, the eager chain: {p * 1e3:.2f} us; bound "
+                  f"{bound * 1e3:.2f} us by {by}: {t_bytes * 1e6:.2f} us of "
+                  f"bytes, {t_ops * 1e6:.2f} us of {per} operations an "
+                  f"element; {bound / k:.0%} of it reached)")
+            out.setdefault(name, {})[len(shape)] = dict(
+                ms=k, call_ms=k_call, plain_ms=p, bound_ms=bound,
+                bound_by=by, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+                shape=list(shape))
+        del gamma, rho
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=err, **out["dev_p"][2],
+                lm_stack=out["dev_p"][3],
+                configs={name: dict(tile=v[2], lm_stack=v[3])
+                         for name, v in out.items()})
 
 
 def hash_launches(label: str, drawn: bool) -> dict:
     """The hash kernels' counts since the last reset: every K1 launch of a
-    hash-noise step in the hash mode; ``drawn`` (``store_device=False``):
-    three normal draws (salts 11, 13, 17) a K1 launch, one device draw an
-    array an update."""
+    hash-noise step in the hash mode, and no ``hash_normal`` launch (K1
+    draws the noise, ``hash_device`` the devices); ``drawn``
+    (``store_device=False``): one ``hash_device`` launch a K1 launch, the
+    device of the array it updates, and none otherwise."""
     from repro_torch.kernels import ops
 
     k1 = ops.LAUNCHES["analog_update"]
     h = ops.LAUNCHES["analog_update_hash"]
     z = ops.LAUNCHES["hash_normal"]
+    d = ops.LAUNCHES["hash_device"]
     print(f"{label}: K1 launches {k1}, in its hash-noise mode {h}; "
-          f"hash_normal launches {z}")
+          f"hash_device launches {d}, hash_normal launches {z}")
     check(h == k1 and h > 0, f"{label}: {h} of {k1} K1 launches in the "
           f"hash-noise mode")
-    if drawn:
-        check(z == 3 * h, f"{label}: {z} hash_normal launches, not three a "
-              f"K1 launch ({3 * h})")
-    return dict(hash=h, normal=z)
+    check(z == 0, f"{label}: {z} hash_normal launches in training steps")
+    check(d == (h if drawn else 0), f"{label}: {d} hash_device launches, "
+          f"not {'one a K1 launch' if drawn else 'none'}")
+    return dict(hash=h, normal=z, device=d)
 
 
 # The IO settings of the reference's tests (paper Table 7: 7-bit DAC, 9-bit
@@ -1665,6 +1787,8 @@ def phase_lm(device, card: str):
           f"-> {tail:.4f} (mean of the last 3), kernel launches {launches} "
           f"({launches / LM_STEPS:g} per step, {n_paths} analog paths), tile "
           f"shapes {shapes}")
+    print(f"lm: {hashed['device'] / LM_STEPS:g} hash_device and "
+          f"{hashed['normal'] / LM_STEPS:g} hash_normal launches a step")
     print(f"lm: median {med:.2f} ms/step (host clock, synchronized, first "
           f"step dropped), peak allocated {peak / 2 ** 30:.3f} GiB "
           f"({before / 2 ** 30:.3f} GiB before, {resident / 2 ** 30:.3f} GiB "
@@ -1679,7 +1803,8 @@ def phase_lm(device, card: str):
     return dict(launches=launches, in_place=in_place, step_ms=med,
                 peak_bytes=peak, tile_bytes=tbytes, losses=losses,
                 hash_launches=hashed["hash"],
-                normal_launches=hashed["normal"])
+                normal_launches=hashed["normal"],
+                device_launches=hashed["device"])
 
 
 def bf16_ulp(x):
@@ -1712,7 +1837,8 @@ def lm_against_cpu(tiles: str):
         hash_launches(f"lm[{tiles}]", True)
     else:
         check(ops.LAUNCHES["analog_update_hash"] == 0
-              and ops.LAUNCHES["hash_normal"] == 0,
+              and ops.LAUNCHES["hash_normal"] == 0
+              and ops.LAUNCHES["hash_device"] == 0,
               f"lm[{tiles}]: threefry steps launched the hash kernels")
     cpu, cpu_hist, _ = run_cli(argv + ["--device", "cpu"])
     for i, (g, w) in enumerate(zip(card_hist, cpu_hist)):
@@ -1977,7 +2103,9 @@ def lm_full_width(arch: str, seq: int, card: str):
           f"{hist[0]['sp_err']:.4g} -> {hist[-1]['sp_err']:.4g}; {n_paths} "
           f"analog paths, {n_analog} analog elements (largest leaf "
           f"{largest}), tile dtypes {sorted(dtypes)}; K1 launches {launches} "
-          f"({launches / FULL_STEPS:g} per step)")
+          f"({launches / FULL_STEPS:g} per step), "
+          f"{hashed['device'] / FULL_STEPS:g} hash_device and "
+          f"{hashed['normal'] / FULL_STEPS:g} hash_normal launches a step")
     print(f"lm[{arch}]: median {med:.2f} ms/step (host clock, synchronized, "
           f"first step dropped), peak allocated {peak / 2 ** 30:.3f} GiB "
           f"({before / 2 ** 30:.3f} GiB before), tile state {tbytes} bytes, "
@@ -1991,7 +2119,8 @@ def lm_full_width(arch: str, seq: int, card: str):
     return dict(launches=launches, step_ms=med, peak_bytes=peak,
                 tile_bytes=tbytes, analog_elements=n_analog, layers=FULL_LAYERS,
                 seq=seq, hash_launches=hashed["hash"],
-                normal_launches=hashed["normal"])
+                normal_launches=hashed["normal"],
+                device_launches=hashed["device"])
 
 
 def phase_lm_zoo(card: str):
@@ -2205,6 +2334,7 @@ def serve_full(root: str, card: str):
     n_paths = sum(len(ps) for _, ps in state["tiles"].index)
     check(ops.LAUNCHES["analog_update"] == 2 * n_paths * SERVE_STEPS,
           f"serve: training launched K1 {ops.LAUNCHES['analog_update']} times")
+    trained = hash_launches("serve", True)
     timed = os.path.join(root, "timed_save")
     t0 = time.perf_counter()
     ckpt.save(state, timed, SERVE_STEPS)
@@ -2248,14 +2378,15 @@ def serve_full(root: str, card: str):
     fixed, fsummary, _, fixed_s = run_serve(SERVE_ARGV + [
         "--ckpt-dir", root, "--engine", "fixed", "--batch", str(SERVE_BATCH),
         "--dump-tokens", os.path.join(out, "fixed.json")])
-    # serving launches no K1/K2/K3; the load's aging draws its drift and
-    # read noise (``lifetime/drift.py``) through the hash_normal kernel
+    # serving launches no K1/K2/K3 and draws no device; the load's aging
+    # draws its drift and read noise (``lifetime/drift.py``) through the
+    # hash_normal kernel
     drawn = ops.LAUNCHES["hash_normal"] - launches["hash_normal"]
     check(all(ops.LAUNCHES[k] == launches[k] for k in launches
               if k != "hash_normal"), "serve: serving launched a kernel")
     check(drawn > 0, "serve: the aged load drew no normal on the card")
-    print(f"serve: no K1/K2/K3 launch; the two aged loads drew "
-          f"{drawn} hash_normal launches")
+    print(f"serve: no K1/K2/K3 or hash_device launch; the two aged loads "
+          f"drew {drawn} hash_normal launches")
 
     with open(man_path) as f:
         manifest = _json.load(f)
@@ -2316,7 +2447,8 @@ def serve_full(root: str, card: str):
     print(f"serve: prefill signatures (Cb, Bb, tw) {sigs}")
     return dict(tokens_per_s=summary["tokens_per_s"],
                 step_ms=lat["gap"]["p50"] * 1e3, peak_bytes=peak,
-                train_launches=2 * n_paths * SERVE_STEPS)
+                train_launches=2 * n_paths * SERVE_STEPS,
+                device_launches=trained["device"], normal_launches=drawn)
 
 
 def phase_serve(card: str):
@@ -4460,7 +4592,7 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}")
 
     kern, kern_ip = phase_kernels(device)
-    k1_hash, normal = phase_kernels_hash(device)
+    k1_hash, normal, drawn = phase_kernels_hash(device)
     mvm = phase_mvm(device)
     spf = phase_sp_filter(device)
     phase_quickstart(device)
@@ -4534,11 +4666,19 @@ def main() -> int:
     k1_hash["lm_launches"] = lm["hash_launches"]
     k1_hash["full_width_launches"] = {a: r["hash_launches"]
                                       for a, r in full.items()}
-    normal["launches"] = (lm["normal_launches"]
-                          + sum(r["normal_launches"] for r in full.values()))
-    normal["lm_launches"] = lm["normal_launches"]
-    normal["full_width_launches"] = {a: r["normal_launches"]
-                                     for a, r in full.items()}
+    # the device draws of the hash steps with drawn devices: 10a, 11b-c
+    # and 12b's two training steps; training launches no hash_normal, the
+    # aged loads of 12b draw the drift's normals through it
+    drawn["launches"] = (lm["device_launches"] + serve["device_launches"]
+                         + sum(r["device_launches"] for r in full.values()))
+    drawn["lm_launches"] = lm["device_launches"]
+    drawn["full_width_launches"] = {a: r["device_launches"]
+                                    for a, r in full.items()}
+    drawn["serve_train_launches"] = serve["device_launches"]
+    normal["launches"] = serve["normal_launches"]
+    normal["lm_launches"] = (lm["normal_launches"]
+                             + sum(r["normal_launches"]
+                                   for r in full.values()))
     print(json.dumps({"kernels": [
         dict(name="analog_update", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_update.cu",
@@ -4559,6 +4699,11 @@ def main() -> int:
              replaces="none: jnp src/repro/kernels/fastrng.py:90, fused by "
                       "XLA",
              library_ms=None, **normal),
+        dict(name="hash_device", route="cuda",
+             source="src/repro_torch/kernels/csrc/fastrng.cu",
+             replaces="none: jnp src/repro/core/device.py:140 (the hash "
+                      "branch of sample_device), fused by XLA",
+             library_ms=None, **drawn),
         dict(name="analog_mvm", route="cuda",
              source="src/repro_torch/kernels/csrc/analog_mvm.cu",
              replaces="src/repro/kernels/analog_matmul.py:59",

@@ -183,17 +183,20 @@ def worker(tree: str, only=MEASURES) -> dict:
             out[f"tables_{kind}_erider_ms"] = r.wall_s * 1e3 / len(r.losses)
         return out
 
+    def lm_numbers(r, steps):
+        # the hash kernels' launches a step, where the tree counts them
+        out = dict(step_ms=r["step_ms"], peak_gib=r["peak_bytes"] / 2 ** 30)
+        for k in ("normal_launches", "device_launches"):
+            if k in r:
+                out[f"{k}_per_step"] = r[k] / steps
+        return out
+
     def lm():
-        r = cs.phase_lm("cuda", res["card"])
-        return dict(step_ms=r["step_ms"], peak_gib=r["peak_bytes"] / 2 ** 30)
+        return lm_numbers(cs.phase_lm("cuda", res["card"]), cs.LM_STEPS)
 
     def full():
-        out = {}
-        for a, s in cs.FULL_WIDTH:
-            r = cs.lm_full_width(a, s, res["card"])
-            out[a] = dict(step_ms=r["step_ms"],
-                          peak_gib=r["peak_bytes"] / 2 ** 30)
-        return out
+        return {a: lm_numbers(cs.lm_full_width(a, s, res["card"]),
+                              cs.FULL_STEPS) for a, s in cs.FULL_WIDTH}
 
     fns = dict(calls=lambda: _calls(cs), fcn=fcn, paper=paper,
                zs_ms_per_pulse=_zs_ms_per_pulse, lm_10a=lm, lm_11=full,

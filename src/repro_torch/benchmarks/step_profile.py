@@ -13,7 +13,8 @@ it, for a few warm-up steps, then ``--steps`` steps under
   * device busy time per step (sum of the CUDA kernels' device time) and
     the idle share of the wall time,
   * kernel launches per step, the pulse-update kernel's share (any of its
-    modes) and the hash normal kernel's, and the top kernels by device
+    modes), the hash normal and hash device kernels' (with their launches
+    a step), the peak allocated memory, and the top kernels by device
     time.
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.benchmarks.step_profile \
@@ -120,9 +121,16 @@ def main(argv=None):
         return sum(t for name, (_, t) in by_name.items()
                    if all(p in name for p in parts)) / 1e3 / args.steps
 
+    def kernel_launches(part):
+        return sum(n for name, (n, _) in by_name.items()
+                   if part in name) / args.steps
+
     # K1 in any mode (operand or hash noise, in place or not)
     k1 = kernel_ms("analog_update", "_kernel<")
     normal = kernel_ms("hash_normal_kernel")
+    drawn = kernel_ms("hash_device_kernel")
+    n_drawn = kernel_launches("hash_device_kernel")
+    n_normal = kernel_launches("hash_normal_kernel")
     name = torch.cuda.get_device_name(0)
     what = (f"lm {args.arch}" + (f" x{args.layers} layers" if args.layers else "")
             + f" seq {args.seq}" if args.model == "lm" else args.model)
@@ -130,7 +138,10 @@ def main(argv=None):
           f"device busy {busy_ms:.3f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {len(kernels) / args.steps:.0f} "
           f"kernel launches/step, analog_update kernel {k1:.4f} ms/step, "
-          f"hash_normal kernel {normal:.4f} ms/step")
+          f"hash_normal kernel {normal:.4f} ms/step ({n_normal:g} "
+          f"launches/step), hash_device kernel {drawn:.4f} ms/step "
+          f"({n_drawn:g} launches/step), peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
     for kname, (n, t) in top:
         print(f"  {t / 1e3 / args.steps:8.4f} ms/step  {n / args.steps:6.0f}/step"

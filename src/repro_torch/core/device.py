@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import prng
-from ..kernels import fastrng
+from ..kernels import fastrng, ops
 from ..kernels import ref as kref
 from .paths import TensorSpec
 
@@ -102,43 +102,23 @@ PRESETS = {
 }
 
 
-def _clip_pm(x, gamma, frac: float = 0.95):
-    """clip(x, -frac*gamma, frac*gamma), element-wise bounds."""
-    return torch.minimum(torch.maximum(x, -frac * gamma), frac * gamma)
-
-
 def sample_device(key, shape, cfg: DeviceConfig, method: str = "threefry",
                   device="cuda") -> DeviceParams:
     """Per-element (gamma, rho) for a tile of ``shape`` (App. F.1).
-    ``method='hash'`` draws from the fastrng hash (salts 11/13/17); there a
+    ``method='hash'`` draws from the fastrng hash (salts 11/13/17) through
+    the op ``repro_torch::hash_device`` (one pass on the card); there a
     ``(n, 2)`` batch of keys samples ``(n, *shape)``, row i as key i
     alone."""
     shape = tuple(int(d) for d in shape)
     if method == "hash":
-        seed = fastrng.device_seeds(fastrng.seed_from_key(key), device)
-        n_g = fastrng.hash_normal(seed, shape, 11, device)
-        n_r = fastrng.hash_normal(seed, shape, 13, device)
-        n_s = fastrng.hash_normal(seed, shape, 17, device)
-    else:
-        kg, kr, ks = prng.split(key, 3)
-        n_g = prng.normal(kg, shape, device)
-        n_r = prng.normal(kr, shape, device)
-        n_s = prng.normal(ks, shape, device)
-    if cfg.sigma_d2d > 0:
-        gamma = torch.exp(cfg.sigma_d2d * n_g)
-    else:
-        gamma = torch.ones_like(n_g)
-    # Def. 2.1 positive-definiteness: |rho| < gamma keeps both alpha+- > 0
-    rho = _clip_pm(cfg.sigma_pm * n_r, gamma)
-
-    if cfg.ref_mean != 0.0 or cfg.ref_std != 0.0:
-        # rho realizing a target SP w* ~ N(ref_mean, ref_std^2)
-        w_star = cfg.ref_mean + cfg.ref_std * n_s
-        w_star = torch.clamp(w_star, -0.95 * cfg.tau_min, 0.95 * cfg.tau_max)
-        num = w_star * gamma * (cfg.tau_min + cfg.tau_max)
-        den = (2.0 * cfg.tau_min * cfg.tau_max
-               + w_star * (cfg.tau_min - cfg.tau_max))
-        rho = _clip_pm(num / den, gamma)
+        seeds = fastrng.device_seeds(fastrng.seed_from_key(key), device)
+        if seeds.ndim == 2:
+            shape = (seeds.shape[0],) + shape
+        gamma, rho = ops.hash_device(seeds, shape, cfg)
+        return {"gamma": gamma, "rho": rho}
+    n = [prng.normal(k, shape, device) for k in prng.split(key, 3)]
+    gamma, rho = kref.device_params_ref(n.__getitem__, shape, device,
+                                        **kref.device_scalars(cfg))
     return {"gamma": gamma, "rho": rho}
 
 

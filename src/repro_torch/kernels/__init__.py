@@ -14,5 +14,7 @@ plain PyTorch versions.
   ops.py                — dispatching wrappers and launch counts
   ref.py                — plain PyTorch versions (the math's ground truth)
   fastrng.py            — stateless hash RNG (fastrng port)
+  csrc/fastrng.cu       — its normal draw and a tile's device draw (gamma,
+                          rho), one pass each, CUDA C++ for sm_90a
 """
 from . import fastrng, ops, ref  # noqa: F401

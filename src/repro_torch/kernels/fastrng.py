@@ -24,6 +24,12 @@ update's noise inside the update kernel from the same device code
 ``hash_uniform``, which stay plain: the operand mode of K1 (``noise=``),
 the CPU and the lifetime model's GDC reference use them.
 
+``hash_device_cuda`` binds the same file's device draw, the op
+``repro_torch::hash_device`` (``kernels/ops.py``) that
+``core/device.py``'s ``sample_device(method="hash")`` calls: a tile's
+``(gamma, rho)`` in one pass from the normals of salts 11, 13 and 17,
+bit-equal to its plain version ``hash_device_ref``.
+
 ``hash_normal`` agrees with JAX to a few ULP, not bit for bit: XLA-CPU's
 ``sqrt`` on the tail branch differs from torch's by one ULP on some inputs.
 """
@@ -35,6 +41,7 @@ import math
 import torch
 
 from ..prng import MASK, mul32
+from . import ref
 
 _SQRT2 = 1.4142135623730951
 # f32 just below 1: keeps erfinv off its +/-1 poles (see the JAX module)
@@ -144,6 +151,26 @@ def member_draw(fn, seeds, shape, salt: int, device):
     return fn(seeds, (math.prod(shape) // n,), salt, device).reshape(shape)
 
 
+# the salts of the three normals a device draw may read: the slope
+# (gamma), the asymmetry (rho) and the target SP
+DEVICE_SALTS = (11, 13, 17)
+
+
+def hash_device_ref(seeds, shape, device, **scalars):
+    """The plain version of ``repro_torch::hash_device``: float32 ``(gamma,
+    rho)`` of ``shape`` on ``device`` from ``(n, 2)`` seed words (the n
+    members of ``shape``; n = 1: ``shape`` whole) for the ``DeviceConfig``
+    scalars given (``ref.DEVICE_FIELDS``), the eager chain drawing only the
+    normals they read (``hash_normal_ref``)."""
+    seeds = torch.as_tensor(seeds).reshape(-1, 2)
+
+    def normal(i):
+        return member_draw(hash_normal_ref, seeds, shape, DEVICE_SALTS[i],
+                           device)
+
+    return ref.device_params_ref(normal, shape, device, **scalars)
+
+
 def hash_normal(seed, shape, salt: int, device="cuda") -> torch.Tensor:
     """Standard normal by the inverse CDF of one hashed uniform, float32 of
     ``shape`` (``(n, *shape)`` for an ``(n, 2)`` seed): the op
@@ -194,6 +221,57 @@ def hash_normal_cuda(seeds, out, salt: int) -> torch.Tensor:
         raise RuntimeError(f"hash_normal kernel launch failed: CUDA error "
                            f"{err}")
     return out
+
+
+_HASH_DEVICE = None
+
+
+def hash_device_cuda(seeds, gamma, rho, *, sigma_d2d: float,
+                     sigma_pm: float, ref_mean: float, ref_std: float,
+                     tau_min: float, tau_max: float) -> None:
+    """Launch ``csrc/fastrng.cu``'s ``hash_device`` on the current stream:
+    ``gamma`` and ``rho`` (float32, contiguous, ``n * member`` elements
+    each) get the device parameters of the ``(n, 2)`` int32 ``seeds`` on
+    the card, for the ``DeviceConfig`` scalars given. Raises on operands
+    the kernel does not take or a refused launch."""
+    global _HASH_DEVICE
+    if (not seeds.is_cuda or seeds.dtype != torch.int32 or seeds.ndim != 2
+            or seeds.shape[1] != 2 or not seeds.is_contiguous()):
+        raise ValueError(f"seeds must be a contiguous (n, 2) int32 CUDA "
+                         f"tensor, got {tuple(seeds.shape)} {seeds.dtype} on "
+                         f"{seeds.device}")
+    for t in (gamma, rho):
+        if (not t.is_cuda or t.device != seeds.device
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.numel() != gamma.numel()):
+            raise ValueError(f"gamma and rho must be contiguous float32 "
+                             f"tensors of one size on {seeds.device}, "
+                             f"16-byte aligned")
+    n = seeds.shape[0]
+    if n == 0 or gamma.numel() % n:
+        raise ValueError(f"{gamma.numel()} elements are not {n} equal "
+                         f"members")
+    member = gamma.numel() // n
+    if member >= 2 ** 31:
+        raise ValueError(f"a member of {member} elements is past the "
+                         f"kernel's 32-bit index")
+    if _HASH_DEVICE is None:
+        from . import cuda_build
+
+        fn = cuda_build.load("fastrng").hash_device_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+                       + [ctypes.c_double] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _HASH_DEVICE = fn
+    with torch.cuda.device(gamma.device):
+        err = _HASH_DEVICE(seeds.data_ptr(), gamma.data_ptr(),
+                           rho.data_ptr(), n, member, float(sigma_d2d),
+                           float(sigma_pm), float(ref_mean), float(ref_std),
+                           float(tau_min), float(tau_max),
+                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_device kernel launch failed: CUDA error "
+                           f"{err}")
 
 
 def seed_from_key(key) -> torch.Tensor:

@@ -6,22 +6,23 @@ namespace (``repro_torch::analog_update``, ``::analog_mvm``,
 ``w`` and returns nothing; K1's hash-noise mode, which draws its noise in
 the kernel, is ``::analog_update_hash`` and in place
 ``::analog_update_hash_``; ``::hash_normal`` is the one-pass normal draw of
-``csrc/fastrng.cu``), so the dispatcher routes a call by the device of its
-tensors, and nothing else: the CUDA implementation launches the
-hand-written kernel or raises, it never falls back; the CPU
-implementation is the plain PyTorch version (``kernels/ref.py``, and the
-eager ``fastrng`` draws for the hash ops); the fake rule (``meta``
-tensors, fake tensors) only gives the outputs' shapes and dtypes. A
-stream of dispatched operations (``roofline.op_cost.OpTrace``) shows each
-kernel call as one operation under the kernel's name.
+``csrc/fastrng.cu`` and ``::hash_device`` its one-pass device draw), so
+the dispatcher routes a call by the device of its tensors, and nothing
+else: the CUDA implementation launches the hand-written kernel or raises,
+it never falls back; the CPU implementation is the plain PyTorch version
+(``kernels/ref.py``, the eager ``fastrng`` draws for the hash ops and
+``fastrng.hash_device_ref`` for the device draw); the fake
+rule (``meta`` tensors, fake tensors) only gives the outputs' shapes and
+dtypes. A stream of dispatched operations (``roofline.op_cost.OpTrace``)
+shows each kernel call as one operation under the kernel's name.
 
 ``LAUNCHES`` counts, per kernel, the calls the CUDA implementations made
 to it, so a run can show that its main path went through the kernels. One
 ``analog_mvm`` call is two CUDA launches (the DAC prologue and the
 product) and counts once. ``analog_update`` counts every K1 launch, in
 any mode; ``analog_update_`` the in-place ones among them and
-``analog_update_hash`` the hash-noise ones; ``hash_normal`` the launches of
-``csrc/fastrng.cu``.
+``analog_update_hash`` the hash-noise ones; ``hash_normal`` and
+``hash_device`` the launches of ``csrc/fastrng.cu``'s two kernels.
 
 On any device but the CPU a wrapper hands the op the operands the kernel
 takes (contiguous; in K1's operand mode 2-D or 3-D with ``ubits`` as
@@ -44,7 +45,8 @@ from . import fastrng, ref
 
 LAUNCHES: Dict[str, int] = {"analog_update": 0, "analog_update_": 0,
                             "analog_update_hash": 0, "hash_normal": 0,
-                            "analog_mvm": 0, "sp_filter": 0}
+                            "hash_device": 0, "analog_mvm": 0,
+                            "sp_filter": 0}
 
 
 def backend(x: torch.Tensor) -> str:
@@ -290,6 +292,57 @@ def _(seeds, shape, salt):
 @hash_normal_op.register_fake
 def _(seeds, shape, salt):
     return seeds.new_empty(shape, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# hash device draw
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::hash_device", mutates_args=(),
+                         device_types="cpu")
+def hash_device_op(seeds: Tensor, shape: List[int], sigma_d2d: float,
+                   sigma_pm: float, ref_mean: float, ref_std: float,
+                   tau_min: float, tau_max: float) -> Tuple[Tensor, Tensor]:
+    """float32 ``(gamma, rho)`` of ``shape`` from ``(n, 2)`` int32 seed
+    words, the n members of ``shape`` in memory order, for the
+    ``DeviceConfig`` scalars given (``hash_device`` is the wrapper). CPU:
+    the eager chain ``fastrng.hash_device_ref``."""
+    return fastrng.hash_device_ref(seeds, tuple(shape), "cpu",
+                                   sigma_d2d=sigma_d2d, sigma_pm=sigma_pm,
+                                   ref_mean=ref_mean, ref_std=ref_std,
+                                   tau_min=tau_min, tau_max=tau_max)
+
+
+@hash_device_op.register_kernel("cuda")
+def _(seeds, shape, sigma_d2d, sigma_pm, ref_mean, ref_std, tau_min,
+      tau_max):
+    gamma = torch.empty(shape, dtype=torch.float32, device=seeds.device)
+    rho = torch.empty_like(gamma)
+    fastrng.hash_device_cuda(seeds, gamma, rho, sigma_d2d=sigma_d2d,
+                             sigma_pm=sigma_pm, ref_mean=ref_mean,
+                             ref_std=ref_std, tau_min=tau_min,
+                             tau_max=tau_max)
+    LAUNCHES["hash_device"] += 1
+    return gamma, rho
+
+
+@hash_device_op.register_fake
+def _(seeds, shape, sigma_d2d, sigma_pm, ref_mean, ref_std, tau_min,
+      tau_max):
+    return (seeds.new_empty(shape, dtype=torch.float32),
+            seeds.new_empty(shape, dtype=torch.float32))
+
+
+def hash_device(seeds, shape, cfg) -> Tuple[Tensor, Tensor]:
+    """A tile's device parameters ``(gamma, rho)``, float32 of ``shape``,
+    drawn from the hash (salts 11, 13, 17) for the ``DeviceConfig`` ``cfg``:
+    the op ``repro_torch::hash_device`` on the seeds' device. ``seeds`` are
+    ``fastrng.device_seeds`` words, ``(2,)`` for ``shape`` whole or
+    ``(n, 2)`` for its n leading members."""
+    # positional: ``op_cost`` prices a record from these scalars
+    return hash_device_op(seeds.reshape(-1, 2), [int(d) for d in shape],
+                          *ref.device_scalars(cfg).values())
 
 
 # ---------------------------------------------------------------------------

@@ -204,3 +204,43 @@ def sp_filter_ref(q, p, gamma_p, rho_p, *, eta: float, tau_min: float,
     q_new, g2, d2 = sp_filter_terms(q, p, gamma_p, rho_p, eta=eta,
                                     tau_min=tau_min, tau_max=tau_max)
     return q_new.to(q.dtype), torch.sum(g2), torch.sum(d2)
+
+
+# ---------------------------------------------------------------------------
+# device parameters (App. F.1)
+# ---------------------------------------------------------------------------
+
+# the DeviceConfig fields a device draw reads
+DEVICE_FIELDS = ("sigma_d2d", "sigma_pm", "ref_mean", "ref_std", "tau_min",
+                 "tau_max")
+
+
+def device_scalars(cfg) -> dict:
+    """The ``DEVICE_FIELDS`` of a ``DeviceConfig``, as Python floats."""
+    return {k: float(getattr(cfg, k)) for k in DEVICE_FIELDS}
+
+
+def clip_pm(x, gamma, frac: float = 0.95):
+    """clip(x, -frac*gamma, frac*gamma), element-wise bounds."""
+    return torch.minimum(torch.maximum(x, -frac * gamma), frac * gamma)
+
+
+def device_params_ref(normal, shape, device, *, sigma_d2d: float,
+                      sigma_pm: float, ref_mean: float, ref_std: float,
+                      tau_min: float, tau_max: float):
+    """float32 ``(gamma, rho)`` of ``shape`` from ``normal(i)``, the standard
+    normals of ``shape`` for the slope (i = 0), the asymmetry (1) and the
+    target SP (2); only those the scalars read are asked for."""
+    if sigma_d2d > 0:
+        gamma = torch.exp(sigma_d2d * normal(0))
+    else:
+        gamma = torch.ones(shape, dtype=torch.float32, device=device)
+    if ref_mean != 0.0 or ref_std != 0.0:
+        # rho realizing a target SP w* ~ N(ref_mean, ref_std^2)
+        w_star = ref_mean + ref_std * normal(2)
+        w_star = torch.clamp(w_star, -0.95 * tau_min, 0.95 * tau_max)
+        num = w_star * gamma * (tau_min + tau_max)
+        den = 2.0 * tau_min * tau_max + w_star * (tau_min - tau_max)
+        return gamma, clip_pm(num / den, gamma)
+    # Def. 2.1 positive-definiteness: |rho| < gamma keeps both alpha+- > 0
+    return gamma, clip_pm(sigma_pm * normal(1), gamma)

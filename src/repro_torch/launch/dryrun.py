@@ -411,6 +411,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
             trace_s=round(acc["trace_s"], 1), ops=len(tr.records),
             k1_records=len(tr.kernel_records("analog_update")),
             hash_normal_records=len(tr.kernel_records("hash_normal")),
+            hash_device_records=len(tr.kernel_records("hash_device")),
             kernel_element_ops=acc["cost"].element_ops,
             memory=memory,
             collectives={k: int(v) for k, v in tr.collectives.items()},

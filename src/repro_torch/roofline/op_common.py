@@ -75,13 +75,15 @@ class OpRecord(NamedTuple):
     """One dispatched operation. ``mutated`` indexes ``inputs`` (the tensor
     arguments in order) that the op writes in place; ``host_read`` is set
     when it reads a device tensor to the host, ``upload_bytes`` when it
-    copies a host tensor to a device."""
+    copies a host tensor to a device; ``elem_ops``: an element-wise
+    kernel's operations an element (``op_cost.ELEMENT_OPS``), else 0."""
     name: str
     inputs: Tuple[TensorMeta, ...]
     outputs: Tuple[TensorMeta, ...]
     mutated: Tuple[int, ...] = ()
     host_read: bool = False
     upload_bytes: int = 0
+    elem_ops: int = 0
 
     @property
     def short(self) -> str:

@@ -13,7 +13,10 @@ the card and PyTorch alone:
   and ``::analog_update_hash_``), both instantiations, bit-equal to the
   operand mode fed the eager hash draws, on a tile, stacks with a seed per
   member and a 4-D stack; ``repro_torch::hash_normal`` (``csrc/fastrng.cu``)
-  bit-equal to the eager chain ``fastrng.hash_normal_ref`` on the card.
+  bit-equal to the eager chain ``fastrng.hash_normal_ref`` on the card;
+  ``repro_torch::hash_device`` (``sample_device(method="hash")``, one
+  launch a draw) bit-equal to its plain version
+  ``fastrng.hash_device_ref`` for four device configs.
 * K3 ``ops.analog_mvm``: within one ADC step (``out_res * s`` of the row,
   plus the rounding of the output to its dtype: four float32 ULPs or one
   bfloat16 ULP of the value) and at least 99.9 % bit-equal; the plain
@@ -509,6 +512,49 @@ def test_hash_normal_kernel_matches_plain(cuda, salt, shape, n):
     torch.cuda.synchronize()
     assert got.shape == shape and got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+# DeviceConfig fields of the device draws: the training CLI's W and P
+# (launch/train.py), and two without sigma_d2d (gamma 1), with and
+# without a target SP
+HASH_DEVICES = {
+    "dev_w": dict(sigma_d2d=0.1, sigma_pm=0.3),
+    "dev_p": dict(sigma_d2d=0.1, sigma_pm=0.3, ref_mean=0.1, ref_std=0.1),
+    "no_d2d": dict(sigma_d2d=0.0, sigma_pm=0.3),
+    "no_d2d_target": dict(sigma_d2d=0.0, sigma_pm=0.3, tau_min=0.5,
+                          ref_mean=-0.1, ref_std=0.05)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(HASH_DEVICES))
+@pytest.mark.parametrize("shape,n", [((1000,), 1), ((4, 33, 97), 4),
+                                     ((3, 5, 6), 3), ((896, 4864), 1),
+                                     ((24, 896, 4864), 1)])
+def test_hash_device_kernel_matches_plain(cuda, name, shape, n):
+    """``repro_torch::hash_device`` (``sample_device(method="hash")``)
+    bit-equal to its plain version, the eager chain on the card, in one
+    launch; members of 3201 and 30 elements take the scalar stores, and
+    Qwen2-0.5B's largest stack drawn from one seed (as the training CLI
+    draws it) runs the index up to 1.05e8."""
+    from repro_torch.core import device
+    from repro_torch.kernels import fastrng
+
+    cfg = device.DeviceConfig(**HASH_DEVICES[name])
+    keys = _hash_keys(n, 12)
+    key = keys[0] if n == 1 else keys
+    member = shape[1:] if n > 1 else shape
+    before = dict(ops.LAUNCHES)
+    got = device.sample_device(key, member, cfg, method="hash",
+                               device="cuda")
+    assert ops.LAUNCHES["hash_device"] == before["hash_device"] + 1
+    assert ops.LAUNCHES["hash_normal"] == before["hash_normal"]
+    want = fastrng.hash_device_ref(
+        fastrng.device_seeds(fastrng.seed_from_key(key), "cuda"), shape,
+        "cuda", **ref.device_scalars(cfg))
+    torch.cuda.synchronize()
+    for k, w in zip(("gamma", "rho"), want):
+        assert got[k].shape == shape and got[k].dtype == torch.float32
+        assert torch.equal(got[k], w), k
 
 
 @pytest.mark.cuda
