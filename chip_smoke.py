@@ -33,7 +33,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               eager chain for the CLI's W and P devices and one without
               sigma_d2d, at (896, 4864) with one seed and (24, 896, 4864)
               with 24 and with one; each timed against its bound beside
-              the plain version
+              the plain version; the exhaustive checks of those kernels'
+              exact rewrites on check kernels only this script launches
+              (every divisor K1 takes from the repo's configs and 24 drawn
+              at random, each over all 2^32 float32 x, the normal's
+              division over all 2^23 mantissas, every whole |n_q| through
+              the square-root table: 0 mismatches each), and each
+              kernel's SASS instructions an
+              element (``benchmarks/sass_count.py`` on this run's build),
+              whose issue bound is printed beside each time
   4. mvm      the analog MVM through ``ops.analog_mvm`` at the reference
               tests' shapes (f32, bf16, ragged, rank 3), the FCN's three
               layers at batch 64 and Qwen2-0.5B's MLP up-projection on 2048
@@ -467,11 +475,13 @@ def phase_kernels(device):
         wb = torch.finfo(dtype).bits // 8
         bound = max((2 * wb + 20) * n / H100_BYTES_PER_S,
                     30 * n / H100_F32_FLOPS) * 1e3
+        issue = issue_ms(k1_label(dtype, torch.float32, False), n)
         print(f"kernels: analog_update {shape} "
               f"{str(dtype).replace('torch.', '')} median device "
               f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us (plain: "
               f"device {p * 1e3:.2f} us, per call {p_call * 1e3:.2f} us; "
-              f"memory bound {bound * 1e3:.2f} us)")
+              f"memory bound {bound * 1e3:.2f} us, issue bound "
+              f"{issue * 1e3:.2f} us)")
         want = analog_update_cuda(*ops_, bl=10, **kw)
         w2 = w.clone()
         before = ops.LAUNCHES["analog_update_"]
@@ -497,7 +507,8 @@ def phase_kernels(device):
               f"{pi * 1e3:.2f} us; memory bound {bound * 1e3:.2f} us)")
         del want, w2, got
         return k, p, bound, dict(ms=ki, plain_ms=pi, bound_ms=bound,
-                                 max_abs_err=err, shape=list(shape),
+                                 issue_ms=issue, max_abs_err=err,
+                                 shape=list(shape),
                                  dtype=str(dtype).replace("torch.", ""))
 
     timed((512, 1024))
@@ -517,6 +528,7 @@ def phase_kernels(device):
                 beyond_l2=dict(ms=k_lm, plain_ms=p_lm, bound_ms=bound_lm,
                                shape=[896, 4864]),
                 lm_stack=dict(ms=k_st, plain_ms=p_st, bound_ms=bound_st,
+                              issue_ms=ip_st["issue_ms"],
                               shape=list(LM_PATH_SHAPES[2]), dtype="bfloat16"),
                 moe_stack=moe), inplace
 
@@ -620,6 +632,179 @@ HASH_DEVICES = {
     "dev_w": dict(sigma_d2d=0.1, sigma_pm=0.3),
     "dev_p": dict(sigma_d2d=0.1, sigma_pm=0.3, ref_mean=0.1, ref_std=0.1),
     "no_d2d": dict(sigma_d2d=0.0, sigma_pm=0.3)}
+
+
+# The issue bound (benchmarks/sass_count.py): the SASS instructions an
+# element of each kernel in this run's build, issued at 128 a clock on each
+# of the 132 SMs at the card's clocks.max.sm
+SASS_COUNTS = {"clock_mhz": None, "kernels": {}}
+
+
+def sass_counts() -> None:
+    """Counts the SASS of K1's and the hash kernels' libraries as built for
+    this run, prints each kernel's instructions an element by class and its
+    registers, and keeps them in SASS_COUNTS."""
+    from repro_torch.benchmarks import sass_count
+    from repro_torch.kernels import cuda_build
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    SASS_COUNTS["clock_mhz"] = float(out.stdout.split()[0])
+    for name in ("analog_update", "fastrng"):
+        SASS_COUNTS["kernels"].update(sass_count.count_library(
+            str(cuda_build.library_path(name))))
+    for label, e in sorted(SASS_COUNTS["kernels"].items()):
+        by = ", ".join(f"{k} {v:.2f}"
+                       for k, v in e["per_element_by_class"].items())
+        print(f"kernels: SASS {label}: {e['per_element']:.2f} instructions "
+              f"an element ({by}), {e['registers']} registers, "
+              f"{e['static']} in all")
+
+
+def issue_ms(label: str, numel: int) -> float:
+    """The issue bound of ``numel`` elements of kernel ``label``, ms."""
+    from repro_torch.benchmarks import sass_count
+
+    e = SASS_COUNTS["kernels"][label]
+    return sass_count.issue_us(e["per_element"], numel,
+                               SASS_COUNTS["clock_mhz"]) / 1e3
+
+
+def k1_label(w_dtype, dw_dtype, hash_mode: bool) -> str:
+    short = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
+    return (f"analog_update{'_hash' if hash_mode else ''}"
+            f"<w {short[str(w_dtype)]}, dw {short[str(dw_dtype)]}>")
+
+
+def k1_configs():
+    """(dw_min, tau_min, tau_max, sigma_c2c) of every device config the
+    repo gives K1: phase 3's, path_ab.py's, core/device.py's presets, the
+    training CLI's P and W (smoke and full), the paper harness's defaults
+    and its Tables device, the dataclass default."""
+    from repro_torch.benchmarks.common import device_pair
+    from repro_torch.core.device import PRESETS, DeviceConfig
+    from repro_torch.launch.train import make_tile_cfg
+
+    cfgs = [DeviceConfig(), *PRESETS.values(), *device_pair(),
+            *device_pair(**TABLES_DEVICE)]
+    for smoke in (True, False):
+        t = make_tile_cfg("erider", smoke)
+        cfgs += [t.device_p, t.device_w]
+    out = {(0.01, 1.0, 1.0, 0.1), (1e-3, 0.9, 1.1, 0.05)}
+    out |= {(c.dw_min, c.tau_min, c.tau_max, c.sigma_c2c) for c in cfgs}
+    return sorted(out)
+
+
+# the divisors (d, r, hi) and noise scales already swept, and the K1
+# launch scalars the script's launches used (recorded from phase 3 on)
+SWEPT = {"div": {}, "sqrt": {}}
+K1_LAUNCHED = set()
+# divisors drawn at random over the fast division's range, beyond the
+# configs': any significand, exponents from -32 to 31
+RANDOM_DIVISORS = 24
+
+
+def record_k1_launches() -> None:
+    """Records every K1 launch's (dw_min, tau_min, tau_max, sigma_c2c), so
+    that the end of the script sweeps any the configs did not name."""
+    from repro_torch.kernels import analog_update
+
+    base = analog_update.launch_scalars
+
+    def recorded(dw_min, tau_min, tau_max, sigma_c2c, bl=0):
+        K1_LAUNCHED.add((float(dw_min), float(tau_min), float(tau_max),
+                         float(sigma_c2c)))
+        return base(dw_min, tau_min, tau_max, sigma_c2c, bl)
+
+    analog_update.launch_scalars = recorded
+
+
+def exact_sweeps(configs, label: str = "kernels") -> dict:
+    """The exhaustive checks of the kernels' exact rewrites, on check
+    kernels only this script launches: each divisor of ``configs``
+    (dw_min, tau_min, tau_max, with the reciprocal and range the wrapper
+    computes) over all 2^32 float32 x, div_fast where div_ok and the IEEE
+    division elsewhere, against __fdiv_rn; each noise scale's square-root
+    table against noise_scale * sqrtf for every whole |n_q| < 2^24, inf and
+    NaN; the first call also ``RANDOM_DIVISORS`` divisors drawn from a
+    fixed seed, and every mantissa through the normal's division
+    (fastrng.cuh, log_div). Each must show 0 mismatches (two NaNs agree).
+    One line a check."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.analog_update import launch_scalars
+
+    lib = cuda_build.load("analog_update")
+    div = lib.analog_update_div_sweep
+    div.argtypes = [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+    sq = lib.analog_update_sqrt_sweep
+    sq.argtypes = [ctypes.c_float] + [ctypes.c_void_p] * 2
+    stream = torch.cuda.current_stream().cuda_stream
+    t0 = time.time()
+
+    def counts(n, launch):
+        c = torch.zeros(n, dtype=torch.int64, device="cuda")
+        check(launch(c.data_ptr()) == 0, "an exact-rewrite check kernel "
+                                         "did not launch")
+        torch.cuda.synchronize()
+        return c.tolist()
+
+    def sweep(d, r, hi, what):
+        key = (float(d), float(r), float(hi))
+        if key in SWEPT["div"]:
+            return
+        bad, fast, first = counts(3, lambda p: div(d, r, hi, p, stream))
+        SWEPT["div"][key] = bad
+        print(f"{label}: exact division by {float(d)!r} ({what}, reciprocal "
+              f"{float(r)!r}): all 2^32 float32 x, {fast} through div_fast, "
+              f"{bad} mismatches against __fdiv_rn")
+        check(bad == 0, f"div_fast differs from __fdiv_rn for divisor "
+                        f"{float(d)!r} (first x bits "
+                        f"{first & 0xFFFFFFFF:#010x})")
+
+    for cfg in configs:
+        s = launch_scalars(*cfg)
+        for d, r, hi in ((s[0], s[1], s[8]), (s[2], s[3], s[9]),
+                         (s[4], s[5], s[9])):
+            sweep(d, r, hi, "a config's")
+        ns = float(s[6])
+        if ns not in SWEPT["sqrt"]:
+            bad, hits = counts(2, lambda p: sq(ns, p, stream))
+            SWEPT["sqrt"][ns] = bad
+            print(f"{label}: square-root table, noise scale {ns!r}: every "
+                  f"whole |n_q| < 2^24 of both signs, inf and NaN, {hits} "
+                  f"read from the table, {bad} mismatches")
+            check(bad == 0, f"the square-root table differs for noise scale "
+                            f"{ns!r}")
+    if "log_div_mismatches" not in SWEPT:
+        rng = np.random.default_rng(31)
+        bits = ((rng.integers(127 - 32, 127 + 32, RANDOM_DIVISORS) << 23)
+                | rng.integers(0, 1 << 23, RANDOM_DIVISORS))
+        for d in bits.astype(np.uint32).view(np.float32):
+            s = launch_scalars(float(d), 1.0, 1.0, 0.1)
+            sweep(s[0], s[1], s[8], "drawn at random")
+        fl = cuda_build.load("fastrng").fastrng_log_div_sweep
+        fl.argtypes = [ctypes.c_void_p] * 2
+        bad, first = counts(2, lambda p: fl(p, stream))
+        SWEPT["log_div_mismatches"] = bad
+        print(f"{label}: the normal's division 1.72587999 / (mant + "
+              f"0.3520887068): all 2^23 mantissas, {bad} mismatches against "
+              f"__fdiv_rn")
+        check(bad == 0, f"log_div differs from __fdiv_rn (first mantissa "
+                        f"{first & 0xFFFFFFFF:#x})")
+    out = dict(divisors=len(SWEPT["div"]), random_divisors=RANDOM_DIVISORS,
+               div_mismatches=sum(SWEPT["div"].values()),
+               sqrt_scales=len(SWEPT["sqrt"]),
+               sqrt_mismatches=sum(SWEPT["sqrt"].values()),
+               log_div_mismatches=SWEPT["log_div_mismatches"])
+    print(f"{label}: exact-rewrite checks took {time.time() - t0:.1f} s")
+    return out
 
 
 def hash_keys(shape, seed: int):
@@ -733,20 +918,79 @@ def hash_update_timed(shape, dtype, device, kw, reps, rounds, operands=None):
     t_ops = HASH_UPDATE_OPS * numel / H100_F32_FLOPS
     bound = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
+    issue = issue_ms(k1_label(w.dtype, dw.dtype, True), numel)
     print(f"kernels: analog_update_hash {shape} "
           f"{str(w.dtype).replace('torch.', '')} {n} seed(s): median device "
           f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us; in place "
           f"{ki * 1e3:.2f} us, per call {ki_call * 1e3:.2f} us (plain, the "
           f"eager draws and update: {p * 1e3:.2f} us; bound "
           f"{bound * 1e3:.2f} us by {by}: {t_bytes * 1e6:.2f} us of bytes, "
-          f"{t_ops * 1e6:.2f} us of operations; {bound / k:.0%} / "
-          f"{bound / ki:.0%} of it reached)")
-    return (dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=by,
+          f"{t_ops * 1e6:.2f} us of operations at 67 TFLOP/s; "
+          f"{bound / k:.0%} / {bound / ki:.0%} of it reached; issue bound "
+          f"{issue * 1e3:.2f} us)")
+    entry = dict(plain_ms=p, bound_ms=bound, bound_by=by,
+                 bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3, issue_ms=issue,
                  shape=list(shape), dtype=str(w.dtype).replace("torch.", ""),
-                 seeds=n),
-            dict(ms=ki, plain_ms=p, bound_ms=bound, bound_by=by,
-                 shape=list(shape), dtype=str(w.dtype).replace("torch.", ""),
-                 seeds=n))
+                 seeds=n)
+    return dict(entry, ms=k), dict(entry, ms=ki)
+
+
+# Shapes whose members take the kernels' scalar loop: a tile of 3201
+# elements (800 groups of 4 and one left) and 4 members of 3201 (only the
+# first 16-byte aligned); then views one element past a buffer's start.
+SCALAR_PATH_SHAPES = [(33, 97), (4, 33, 97)]
+
+
+def scalar_path_checks(device, kw) -> float:
+    """K1 in both modes (in and out of place), ``hash_normal`` and
+    ``hash_device`` where the vector path cannot take a member whole:
+    bit-equal to their plain versions. Returns the largest |difference|."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.benchmarks.common import offset_view
+    from repro_torch.core.device import DeviceConfig
+    from repro_torch.kernels import fastrng, ops, ref
+    from repro_torch.kernels.ref import device_scalars
+
+    err = 0.0
+    for i, (shape, dtype, offset) in enumerate(
+            (s, dt, o) for s in SCALAR_PATH_SHAPES
+            for dt in (torch.float32, torch.bfloat16) for o in (0, 1)):
+        operands = update_operands(shape, dtype, 120 + i, device,
+                                   torch.float32)
+        if offset:
+            operands = tuple(offset_view(t) for t in operands)
+        noise = ops.make_noise(prng.PRNGKey(130 + i), shape, device, "hash")
+        got = ops.analog_update(*operands, None, noise=noise, bl=10, **kw)
+        want = ref.analog_update_ref(*operands, *noise, bl=10, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 differs from plain at {shape} "
+                                      f"{dtype}, offset {offset}")
+        err = max(err, hash_update_check(shape, dtype, 10, 140 + i, device,
+                                         kw, operands))
+    shape = SCALAR_PATH_SHAPES[1]
+    key, _ = hash_keys(shape, 150)
+    seed = fastrng.seed_from_key(key)
+    for salt in (2, 17):
+        got = fastrng.hash_normal(seed, shape[1:], salt, device)
+        want = fastrng.hash_normal_ref(seed, shape[1:], salt, device)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"hash_normal differs at {shape}")
+    seeds = fastrng.device_seeds(seed, device)
+    for name, fields in HASH_DEVICES.items():
+        sc = device_scalars(DeviceConfig(**fields))
+        gamma = torch.empty(shape, device=device)
+        rho = torch.empty_like(gamma)
+        fastrng.hash_device_cuda(seeds, gamma, rho, **sc)
+        want = fastrng.hash_device_ref(seeds, shape, device, **sc)
+        torch.cuda.synchronize()
+        check(torch.equal(gamma, want[0]) and torch.equal(rho, want[1]),
+              f"hash_device differs at {shape} ({name})")
+    print(f"kernels: the scalar path (members of 3201, views one element "
+          f"off): K1 both modes, hash_normal, hash_device bit-equal to "
+          f"their plain versions")
+    return err
 
 
 def phase_kernels_hash(device):
@@ -766,6 +1010,7 @@ def phase_kernels_hash(device):
 
     kw = dict(dw_min=0.01, tau_min=1.0, tau_max=1.0, sigma_c2c=0.1)
     t0 = time.time()
+    exact = exact_sweeps(k1_configs())
     err = 0.0
     cases = [(s, dt, bl) for s in SWEEP_SHAPES
              for dt in (torch.float32, torch.bfloat16) for bl in (0, 10)]
@@ -775,6 +1020,7 @@ def phase_kernels_hash(device):
     for i, (shape, dtype, bl) in enumerate(cases):
         err = max(err, hash_update_check(shape, dtype, bl, 40 + i, device,
                                          kw))
+    err = max(err, scalar_path_checks(device, kw))
     # the CLI's draw on the LM stacks: one seed for the whole tile
     for i, shape in enumerate(LM_PATH_SHAPES[:4]):
         w, dw, gamma, rho = update_operands(shape, torch.bfloat16, 80 + i,
@@ -859,20 +1105,29 @@ def phase_kernels_hash(device):
         t_ops = HASH_NORMAL_OPS * numel / H100_F32_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
+        issue = issue_ms("hash_normal", numel)
         print(f"kernels: hash_normal {shape}: median device {k * 1e3:.2f} "
               f"us, per call {k_call * 1e3:.2f} us (plain, the eager chain: "
               f"{p * 1e3:.2f} us; bound {bound * 1e3:.2f} us by {by}: "
               f"{t_bytes * 1e6:.2f} us of bytes, {t_ops * 1e6:.2f} us of "
-              f"operations; {bound / k:.0%} of it reached)")
+              f"operations at 67 TFLOP/s; {bound / k:.0%} of it reached; "
+              f"issue bound {issue * 1e3:.2f} us)")
         normal[len(shape)] = dict(ms=k, plain_ms=p, bound_ms=bound,
-                                  bound_by=by, shape=list(shape))
+                                  bound_by=by, bytes_ms=t_bytes * 1e3,
+                                  ops_ms=t_ops * 1e3, issue_ms=issue,
+                                  shape=list(shape))
         del out
     drawn = hash_device_phase(device)
     print(f"kernels: the hash kernels' phase took {time.time() - t0:.1f} s")
     update = dict(max_abs_err=err, **fcn, beyond_l2=l2, lm_stack=stack,
                   moe_stack=moe_t,
                   in_place=dict(fcn_ip, beyond_l2=l2_ip, lm_stack=stack_ip,
-                                moe_stack=moe_ip))
+                                moe_stack=moe_ip),
+                  exact_checks=exact,
+                  sass=dict(clock_mhz=SASS_COUNTS["clock_mhz"], kernels={
+                      k: dict(per_element=e["per_element"],
+                              registers=e["registers"])
+                      for k, e in SASS_COUNTS["kernels"].items()}))
     return (update, dict(max_abs_err=err, **normal[2], lm_stack=normal[3]),
             drawn)
 
@@ -961,16 +1216,18 @@ def hash_device_phase(device):
             t_ops = per * numel / H100_F32_FLOPS
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
+            issue = issue_ms(f"hash_device<{name}>", numel)
             print(f"kernels: hash_device {shape} {name}: median device "
                   f"{k * 1e3:.2f} us, per call {k_call * 1e3:.2f} us "
                   f"(plain, the eager chain: {p * 1e3:.2f} us; bound "
                   f"{bound * 1e3:.2f} us by {by}: {t_bytes * 1e6:.2f} us of "
                   f"bytes, {t_ops * 1e6:.2f} us of {per} operations an "
-                  f"element; {bound / k:.0%} of it reached)")
+                  f"element at 67 TFLOP/s; {bound / k:.0%} of it reached; "
+                  f"issue bound {issue * 1e3:.2f} us)")
             out.setdefault(name, {})[len(shape)] = dict(
                 ms=k, call_ms=k_call, plain_ms=p, bound_ms=bound,
                 bound_by=by, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
-                shape=list(shape))
+                issue_ms=issue, shape=list(shape))
         del gamma, rho
         gc.collect()
         torch.cuda.empty_cache()
@@ -4590,6 +4847,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
+    sass_counts()
+    record_k1_launches()
 
     kern, kern_ip = phase_kernels(device)
     k1_hash, normal, drawn = phase_kernels_hash(device)
@@ -4644,6 +4903,9 @@ def main() -> int:
               f"{card}")
     ana = phase_analysis(card, lm["peak_bytes"])
 
+    # the divisors and noise scales of every K1 launch since phase 3 that
+    # the configs did not name (none, where k1_configs is complete)
+    k1_hash["exact_checks"] = exact_sweeps(sorted(K1_LAUNCHED), "end")
     kern["launches"] = (launches + lm["launches"] + zoo
                         + sum(r["launches"] for r in full.values())
                         + serve["train_launches"] + paper["launches"]

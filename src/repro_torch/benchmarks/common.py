@@ -87,6 +87,15 @@ def cuda_numerics() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element past a fresh buffer's start:
+    contiguous, not 16-byte aligned (a kernel's unaligned path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     out = subprocess.run(

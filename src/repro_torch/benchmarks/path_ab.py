@@ -23,7 +23,12 @@ its own ``build/``), which measures, with the tree's own code:
 * serving: the serve CLI on Qwen2-0.5B from ``LM.init`` (16 requests,
   prompt 128, 32 tokens, 8 lanes), TPOT p50 and the decode step;
 * zero-shifting (``core.zs.zs_estimate``, fig1's 64 x 64 device), ms a
-  pulse.
+  pulse;
+* the kernels alone, device time by CUDA graph replay
+  (``chip_smoke.time_ms``): K1 in both noise modes, out of place and in
+  place, at phase 3's four shapes, ``hash_normal`` and ``hash_device``
+  (the CLI's P and W devices and one without sigma_d2d) at (896, 4864) and
+  (24, 896, 4864).
 
 ``--only`` picks some of them. Only functions both trees have are
 called. The parent prints one table, a column a run, and writes every
@@ -142,8 +147,100 @@ def _zs_ms_per_pulse(pulses: int = 300) -> float:
     return (time.perf_counter() - t0) * 1e3 / pulses
 
 
+# phase 3's K1 shapes: the FCN's fc1, Qwen2-0.5B's MLP tile (f32), its
+# stacked mlp/wi of 24 layers and Mixtral's 4-D expert stack (bf16 w)
+K1_SHAPES = (((784, 256), "float32", 20, 15), ((896, 4864), "float32", 20, 15),
+             ((24, 896, 4864), "bfloat16", 3, 5),
+             ((1, 8, 4096, 14336), "bfloat16", 3, 5))
+K1_KW = dict(dw_min=0.01, tau_min=1.0, tau_max=1.0, sigma_c2c=0.1, bl=10)
+
+
+def _k1_times(cs, shape, dtype, reps, rounds, modes=("operand", "hash")):
+    """K1's device ms through its bindings: {mode: (out of place, in
+    place)} on the same operands (f32 dw; a seed a member for the hash
+    mode, as phase 3 times it)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import fastrng
+    from repro_torch.kernels.analog_update import (analog_update_cuda,
+                                                   analog_update_hash_cuda)
+
+    w, dw, g, rho = cs.update_operands(shape, getattr(torch, dtype), 9,
+                                       "cuda", torch.float32)
+    hash_shape = shape
+    out = {}
+    if "operand" in modes:
+        # the binding takes 2-D or 3-D: a 4-D stack as ops._view2d sees it
+        w, dw, g, rho = (t.view(-1, shape[-1]) if len(shape) > 3 else t
+                         for t in (w, dw, g, rho))
+        shape = w.shape
+        ku, kz = prng.split(prng.PRNGKey(9))
+        ub = prng.bits(ku, shape, "cuda").to(torch.int32)
+        z = prng.normal(kz, shape, "cuda")
+        out["operand"] = (
+            cs.time_ms(lambda: analog_update_cuda(w, dw, g, rho, ub, z,
+                                                  **K1_KW), reps, rounds)[0],
+            cs.time_ms(lambda: analog_update_cuda(w, dw, g, rho, ub, z,
+                                                  out=w, **K1_KW),
+                       reps, rounds)[0])
+        del ub, z
+    if "hash" in modes:
+        key, _ = cs.hash_keys(hash_shape, 9)
+        seeds = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                     "cpu").reshape(-1, 2).to("cuda")
+        out["hash"] = (
+            cs.time_ms(lambda: analog_update_hash_cuda(w, dw, g, rho, seeds,
+                                                       **K1_KW),
+                       reps, rounds)[0],
+            cs.time_ms(lambda: analog_update_hash_cuda(w, dw, g, rho, seeds,
+                                                       out=w, **K1_KW),
+                       reps, rounds)[0])
+    del w, dw, g, rho
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernels(cs) -> dict:
+    """Device ms of K1 (both modes, out of place and in place, phase 3's
+    shapes), hash_normal and hash_device (three configs) at (896, 4864)
+    and (24, 896, 4864), one seed."""
+    import torch
+
+    from repro_torch.core.device import DeviceConfig
+    from repro_torch.kernels import fastrng
+    from repro_torch.kernels.ref import device_scalars
+
+    r = {}
+    for shape, dtype, reps, rounds in K1_SHAPES:
+        tag = "x".join(map(str, shape))
+        for mode, (oop, ip) in _k1_times(cs, shape, dtype, reps,
+                                         rounds).items():
+            r[f"k1_{mode}_{tag}"] = oop
+            r[f"k1_{mode}_inplace_{tag}"] = ip
+    for shape, reps, rounds in (((896, 4864), 20, 15),
+                                ((24, 896, 4864), 3, 5)):
+        tag = "x".join(map(str, shape))
+        key, _ = cs.hash_keys(shape[-2:], 60)
+        seeds = fastrng.device_seeds(fastrng.seed_from_key(key),
+                                     "cpu").reshape(-1, 2).to("cuda")
+        out = torch.empty(shape, device="cuda")
+        r[f"hash_normal_{tag}"] = cs.time_ms(
+            lambda: fastrng.hash_normal_cuda(seeds, out, 11), reps,
+            rounds)[0]
+        rho = torch.empty_like(out)
+        for name, fields in cs.HASH_DEVICES.items():
+            sc = device_scalars(DeviceConfig(**fields))
+            r[f"hash_device_{name}_{tag}"] = cs.time_ms(
+                lambda: fastrng.hash_device_cuda(seeds, out, rho, **sc),
+                reps, rounds)[0]
+        del out, rho
+        torch.cuda.empty_cache()
+    return r
+
+
 MEASURES = ("calls", "fcn", "paper", "zs_ms_per_pulse", "lm_10a", "lm_11",
-            "serve")
+            "serve", "kernels")
 
 
 def worker(tree: str, only=MEASURES) -> dict:
@@ -200,7 +297,7 @@ def worker(tree: str, only=MEASURES) -> dict:
 
     fns = dict(calls=lambda: _calls(cs), fcn=fcn, paper=paper,
                zs_ms_per_pulse=_zs_ms_per_pulse, lm_10a=lm, lm_11=full,
-               serve=_serve_tpot)
+               serve=_serve_tpot, kernels=lambda: _kernels(cs))
     for name in only:
         fn = fns[name]
         t1 = time.time()

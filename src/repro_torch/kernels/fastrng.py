@@ -41,7 +41,7 @@ import math
 import torch
 
 from ..prng import MASK, mul32
-from . import ref
+from . import cuda_build, ref
 
 _SQRT2 = 1.4142135623730951
 # f32 just below 1: keeps erfinv off its +/-1 poles (see the JAX module)
@@ -205,17 +205,22 @@ def hash_normal_cuda(seeds, out, salt: int) -> torch.Tensor:
     n = seeds.shape[0]
     if n == 0 or out.numel() % n:
         raise ValueError(f"{out.numel()} draws are not {n} equal members")
+    member = out.numel() // n
+    if member >= 2 ** 31:
+        raise ValueError(f"a member of {member} elements is past the "
+                         f"kernel's 32-bit index")
     if _HASH_NORMAL is None:
-        from . import cuda_build
-
         fn = cuda_build.load("fastrng").hash_normal_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p]
+                       ctypes.c_int64, ctypes.c_uint32, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _HASH_NORMAL = fn
+    # 16-byte stores where every member starts 16-byte aligned
+    vec = out.data_ptr() % 16 == 0 and (n == 1 or member % 4 == 0)
     with torch.cuda.device(out.device):
-        err = _HASH_NORMAL(seeds.data_ptr(), out.data_ptr(), n,
-                           out.numel() // n, int(salt) & MASK,
+        err = _HASH_NORMAL(seeds.data_ptr(), out.data_ptr(), n, member,
+                           int(salt) & MASK, int(vec),
                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hash_normal kernel launch failed: CUDA error "
@@ -256,8 +261,6 @@ def hash_device_cuda(seeds, gamma, rho, *, sigma_d2d: float,
         raise ValueError(f"a member of {member} elements is past the "
                          f"kernel's 32-bit index")
     if _HASH_DEVICE is None:
-        from . import cuda_build
-
         fn = cuda_build.load("fastrng").hash_device_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
                        + [ctypes.c_double] * 6 + [ctypes.c_void_p])

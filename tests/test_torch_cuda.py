@@ -494,6 +494,51 @@ def test_analog_update_hash_kernel_matches_plain(cuda, shape, n, dtype, bl):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [False, True])
+def test_analog_update_kernel_edge_operands(cuda, dtype, offset):
+    """K1 in both noise modes, out of place and in place, bit-equal to the
+    plain version where its divisions leave the fast range (dw and w at 0,
+    -0, tiny, subnormal, huge, inf, NaN: the IEEE division), where |n_q|
+    leaves the square-root table (dw up to 40 dw_min), and on views one
+    element past a buffer's start (the scalar loop)."""
+    from repro_torch.benchmarks.common import offset_view
+    from repro_torch.kernels import fastrng
+
+    kw = dict(dw_min=0.01, tau_min=0.9, tau_max=1.1, sigma_c2c=0.1, bl=0)
+    shape = (64, 129)
+    rng = np.random.default_rng(21)
+    w = rng.uniform(-0.8, 0.8, shape).astype(np.float32)
+    dw = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1e-30, -3e-39, 1e-45, 5e-20, 3e19, 1e30,
+                      np.inf, -np.inf, np.nan, 4.0], np.float32)
+    w.reshape(-1)[:edges.size] = edges
+    dw.reshape(-1)[100:100 + edges.size] = edges
+    dw.reshape(-1)[200:264] = 0.0
+    w, dw, gamma, rho = _card(
+        [w, dw, np.exp(0.1 * rng.standard_normal(shape)).astype(np.float32),
+         (0.3 * rng.standard_normal(shape)).astype(np.float32)],
+        [dtype, "float32", "float32", "float32"])
+    if offset:
+        w, dw, gamma, rho = map(offset_view, (w, dw, gamma, rho))
+    key = _hash_keys(1, 22)[0]
+    seed = fastrng.seed_from_key(key)
+    noise = (fastrng.hash_bits(seed, shape, 1, "cuda"),
+             fastrng.hash_normal_ref(seed, shape, 2, "cuda"))
+    want = ref.analog_update_ref(w, dw, gamma, rho, *noise, **kw)
+    got = ops.analog_update(w, dw, gamma, rho, None, noise=noise, **kw)
+    hashed = ops.analog_update(w, dw, gamma, rho, key, rng="hash", **kw)
+    w2 = offset_view(w) if offset else w.clone()
+    ops.analog_update(w2, dw, gamma, rho, key, rng="hash", out=w2, **kw)
+    torch.cuda.synchronize()
+    for t in (got, hashed, w2):
+        same = (t == want) | (t.isnan() & want.isnan())
+        assert bool(same.all())
+        assert torch.equal(t.float().view(-1)[:2].signbit(),
+                           want.float().view(-1)[:2].signbit())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("salt", [2, 11, 13, 17])
 @pytest.mark.parametrize("shape,n", [((1000,), 1), ((4, 33, 97), 4),
                                      ((896, 4864), 1)])
