@@ -1,0 +1,1 @@
+"""See ``bench/run.py``: files here are found by name."""
