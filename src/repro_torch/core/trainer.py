@@ -99,6 +99,7 @@ from .. import prng
 from ..distributed import runtime
 from ..distributed import sharding as shd
 from ..kernels.ref import div
+from ..trace import span
 from . import algorithms as alg
 from .digital_opt import (DigitalOptConfig, ScheduleConfig, apply_opt,
                           clip_by_global_norm, init_opt, lr_at)
@@ -787,19 +788,24 @@ class AnalogTrainer:
         return self._step(state, batch, donate=True)
 
     def _step(self, state: TrainState, batch, donate: bool):
+        with span("train/step", lambda: str(int(state["step"]))):
+            return self._phases(state, batch, donate)
+
+    def _phases(self, state: TrainState, batch, donate: bool):
         key, k_begin, k_model, k_upd = prng.split(state["key"], 4)
         grouped = isinstance(state["tiles"], TileBank)
         path_cfgs = self._path_cfgs(state["tiles"])
 
         # phase 1: chopper / Q~ sync (under a mesh on the blocks as stored)
-        if grouped:
-            tiles = self.begin_tiles(state["tiles"], k_begin, donate)
-        else:
-            tiles = {
-                p: alg.begin_step(ts, _crc_fold(k_begin, p), path_cfgs[p],
-                                  donate)
-                for p, ts in sorted(state["tiles"].items())
-            }
+        with span("train/begin"):
+            if grouped:
+                tiles = self.begin_tiles(state["tiles"], k_begin, donate)
+            else:
+                tiles = {
+                    p: alg.begin_step(ts, _crc_fold(k_begin, p), path_cfgs[p],
+                                      donate)
+                    for p, ts in sorted(state["tiles"].items())
+                }
 
         # phase 2: forward/backward on effective weights (+ accumulation)
         loss, aux, grads = self.loss_and_grads(state["params"], tiles, batch,
@@ -809,47 +815,51 @@ class AnalogTrainer:
 
         # phase 3a: digital branch
         dgrads = mask_digital_grads(grads, tiles)
-        if self.mesh is None:
-            new_params, new_opt, gnorm = apply_opt(
-                state["params"], dgrads, state["opt"], state["step"], lr,
-                self.cfg.digital, donate)
-        else:
-            new_params, new_opt, gnorm = self._apply_digital(
-                state["params"], dgrads, state["opt"], state["step"], lr,
-                donate)
+        with span("train/digital"):
+            if self.mesh is None:
+                new_params, new_opt, gnorm = apply_opt(
+                    state["params"], dgrads, state["opt"], state["step"], lr,
+                    self.cfg.digital, donate)
+            else:
+                new_params, new_opt, gnorm = self._apply_digital(
+                    state["params"], dgrads, state["opt"], state["step"], lr,
+                    donate)
 
         # phase 3b: analog branch (pulse updates)
-        agrads = extract_analog_grads(grads, tiles)
-        tile_metrics = []
-        if grouped:
-            pidx = dict(tiles.index)
-            stacked_grads = {}
-            for cname, gnames in tiles.class_index:
-                flat = [agrads[p] for g in gnames for p in pidx[g]]
-                cdims = (len(gnames), len(pidx[gnames[0]]))
-                arr = torch.stack(flat) if len(flat) > 1 else flat[0].unsqueeze(0)
-                stacked_grads[cname] = arr.reshape(cdims + tuple(flat[0].shape))
-            new_tiles, tile_metrics = self.update_tiles(tiles, stacked_grads,
-                                                        k_upd, lr, donate)
-        else:
-            new_tiles = {}
-            for p, ts in sorted(tiles.items()):
-                ts2, m = self._looped_update(p, ts, agrads[p],
-                                             _crc_fold(k_upd, p),
-                                             path_cfgs[p], lr, donate)
-                new_tiles[p] = ts2
-                tile_metrics.append(m)
+        with span("train/update"):
+            agrads = extract_analog_grads(grads, tiles)
+            tile_metrics = []
+            if grouped:
+                pidx = dict(tiles.index)
+                stacked_grads = {}
+                for cname, gnames in tiles.class_index:
+                    flat = [agrads[p] for g in gnames for p in pidx[g]]
+                    cdims = (len(gnames), len(pidx[gnames[0]]))
+                    arr = (torch.stack(flat) if len(flat) > 1
+                           else flat[0].unsqueeze(0))
+                    stacked_grads[cname] = arr.reshape(cdims
+                                                       + tuple(flat[0].shape))
+                new_tiles, tile_metrics = self.update_tiles(
+                    tiles, stacked_grads, k_upd, lr, donate)
+            else:
+                new_tiles = {}
+                for p, ts in sorted(tiles.items()):
+                    ts2, m = self._looped_update(p, ts, agrads[p],
+                                                 _crc_fold(k_upd, p),
+                                                 path_cfgs[p], lr, donate)
+                    new_tiles[p] = ts2
+                    tile_metrics.append(m)
 
-        metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, **aux}
-        if tile_metrics:
-            # mixed plans: aggregate each key over the groups that emit it
-            keys = sorted({k for m in tile_metrics for k in m})
-            for k in keys:
-                vals = torch.cat([torch.atleast_1d(m[k]) for m in tile_metrics
-                                  if k in m])
-                metrics[f"tile/{k}"] = (torch.sum(vals)
-                                        if k in ("pulses", "prog_events")
-                                        else torch.mean(vals))
+            metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, **aux}
+            if tile_metrics:
+                # mixed plans: aggregate each key over the groups that emit it
+                keys = sorted({k for m in tile_metrics for k in m})
+                for k in keys:
+                    vals = torch.cat([torch.atleast_1d(m[k])
+                                      for m in tile_metrics if k in m])
+                    metrics[f"tile/{k}"] = (torch.sum(vals)
+                                            if k in ("pulses", "prog_events")
+                                            else torch.mean(vals))
 
         if donate:
             # every device leaf was written in place; the host leaves too
@@ -877,7 +887,8 @@ class AnalogTrainer:
         if self.mesh is not None:
             params = self._compute_params(params)
             batch, split = self._local_batch(batch)
-        eff = self._merged(params, tiles, path_cfgs, compute=True)
+        with span("train/merge"):
+            eff = self._merged(params, tiles, path_cfgs, compute=True)
         del params
         if split or self.tp is not None:
             # batch statistics inside the model (the MoE router's) are the
@@ -908,31 +919,32 @@ class AnalogTrainer:
     def _forward_backward(self, eff, batch, k_model):
         """(loss, aux, grads) of ``batch``, accumulated over
         ``cfg.microbatch`` slices of it."""
-        mb = self.cfg.microbatch
-        if mb <= 1:
-            return _value_and_grad(self.loss_fn, eff, batch, k_model)
+        with span("train/fwd_bwd"):
+            mb = self.cfg.microbatch
+            if mb <= 1:
+                return _value_and_grad(self.loss_fn, eff, batch, k_model)
 
-        def slice_batch(i):
-            return tree_map(
-                lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
-                if getattr(x, "ndim", 0) >= 1 else x, batch)
+            def slice_batch(i):
+                return tree_map(
+                    lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
+                    if getattr(x, "ndim", 0) >= 1 else x, batch)
 
-        loss, aux, grads = _value_and_grad(
-            self.loss_fn, eff, slice_batch(0), prng.fold_in(k_model, 0))
-        loss = loss.to(torch.float32)
-        grads = tree_map(lambda g: g.to(self.cfg.accum_dtype), grads)
-        for i in range(1, mb):
-            l, a, g = _value_and_grad(self.loss_fn, eff, slice_batch(i),
-                                      prng.fold_in(k_model, i))
-            grads = tree_map(lambda acc, gi: acc + gi.to(self.cfg.accum_dtype),
-                             grads, g)
-            aux = {k: aux[k] + a[k] for k in aux}
-            loss = loss + l
-        inv = 1.0 / mb
-        grads = tree_map(lambda g: g * inv, grads)
-        loss = loss * inv
-        aux = {k: v * inv for k, v in aux.items()}
-        return loss, aux, grads
+            loss, aux, grads = _value_and_grad(
+                self.loss_fn, eff, slice_batch(0), prng.fold_in(k_model, 0))
+            loss = loss.to(torch.float32)
+            grads = tree_map(lambda g: g.to(self.cfg.accum_dtype), grads)
+            for i in range(1, mb):
+                l, a, g = _value_and_grad(self.loss_fn, eff, slice_batch(i),
+                                          prng.fold_in(k_model, i))
+                grads = tree_map(
+                    lambda acc, gi: acc + gi.to(self.cfg.accum_dtype), grads, g)
+                aux = {k: aux[k] + a[k] for k in aux}
+                loss = loss + l
+            inv = 1.0 / mb
+            grads = tree_map(lambda g: g * inv, grads)
+            loss = loss * inv
+            aux = {k: v * inv for k, v in aux.items()}
+            return loss, aux, grads
 
     def begin_tiles(self, bank: TileBank, key,
                     donate: bool = False) -> TileBank:

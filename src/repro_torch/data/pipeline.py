@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.paths import tree_map
+from ..trace import span
 
 
 class Prefetcher:
@@ -68,10 +69,12 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        batch = self._q.get()
+        with span("data/wait"):
+            batch = self._q.get()
         if isinstance(batch, Exception):
             raise batch
-        return self._place(batch)
+        with span("data/place"):
+            return self._place(batch)
 
     def close(self, timeout: Optional[float] = 10.0) -> None:
         """Stop the producer thread and wait up to ``timeout`` s for it."""

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec, tree_map
+from ..trace import span
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
@@ -158,8 +159,9 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "attn_local"):
         if mode == "fwd":
-            mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
-                                    positions=positions, causal=causal)
+            with span("model/attn"):
+                mix = attn.attn_forward(p["attn"], h, cfg, kind=kind,
+                                        positions=positions, causal=causal)
         elif mode == "prefill":
             mix, _ = attn.attn_prefill(p["attn"], h, cfg, kind=kind,
                                        positions=positions, cache=cache["kv"])
@@ -208,7 +210,8 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
             hold_idle(st, cache["state"])
     elif kind == "ssm":
         if mode == "fwd":
-            mix = rec_mod.ssm_forward(p["mix"], h, cfg)
+            with span("model/ssm"):
+                mix = rec_mod.ssm_forward(p["mix"], h, cfg)
         elif mode == "prefill":
             mix, st = rec_mod.ssm_forward_with_state(p["mix"], h, cfg)
             _write(cache["state"], st)
@@ -249,6 +252,9 @@ def apply_layer(p: Dict, x, cfg: ModelConfig, kind: str, mode: str, *,
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
             ff, aux = moe_mod.moe_forward(p["moe"], h2, cfg)
+        elif mode == "fwd":
+            with span("model/mlp"):
+                ff = moe_mod.mlp_forward(p["mlp"], h2, cfg)
         else:
             ff = moe_mod.mlp_forward(p["mlp"], h2, cfg)
         x = x + rs * ff

@@ -54,6 +54,7 @@ import torch
 from .. import prng
 from ..configs.base import ModelConfig
 from ..core.paths import TensorSpec, tree_map
+from ..trace import span
 from .blocks import (apply_stack, commit_stack_prefill, init_paged_stack_cache,
                      init_stack, init_stack_cache)
 from .common import (copy_to_model, dot, embed_init, rms_norm,
@@ -130,7 +131,8 @@ class LM:
         return rms_norm(x, params["enc"]["ln_f"], cfg.norm_eps)
 
     # ---------------------------------------------------------------- forward
-    def forward(self, params, tokens, frames=None):
+    def _hidden(self, params, tokens, frames=None):
+        """(the last layer's output, the MoE aux loss) of ``tokens``."""
         cfg = self.cfg
         enc_out = self._encode(params, frames) if cfg.is_encdec else None
         x = self._embed(params, tokens, frames)
@@ -138,14 +140,19 @@ class LM:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         x, aux, _ = apply_stack(params["stack"], x, cfg, "fwd",
                                 positions=positions, enc_out=enc_out)
+        return x, aux
+
+    def forward(self, params, tokens, frames=None):
+        x, aux = self._hidden(params, tokens, frames)
         return self._logits(params, x), aux
 
     def loss(self, params, batch, rng) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
-        logits, aux_moe = self.forward(params, batch["tokens"],
-                                       batch.get("frames"))
-        loss, aux = softmax_cross_entropy(logits, batch["labels"],
-                                          vocab=cfg.vocab)
+        x, aux_moe = self._hidden(params, batch["tokens"], batch.get("frames"))
+        with span("model/head_loss"):
+            logits = self._logits(params, x)
+            loss, aux = softmax_cross_entropy(logits, batch["labels"],
+                                              vocab=cfg.vocab)
         if cfg.n_experts:
             loss = loss + cfg.aux_loss_coef * aux_moe
             aux["moe_aux"] = aux_moe

@@ -28,6 +28,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from .trace import span
+
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
@@ -96,11 +98,12 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable form): subkey i is
     threefry(key, (0, i)). A batch of keys ``(..., 2)`` splits to
     ``(..., num, 2)``."""
-    k0, k1 = _words(key)
-    k0, k1 = k0[..., None], k1[..., None]
-    cnt = torch.arange(num, dtype=torch.int64, device=key.device)
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
-    return torch.stack([b0, b1], dim=-1)
+    with span("prng/split"):
+        k0, k1 = _words(key)
+        k0, k1 = k0[..., None], k1[..., None]
+        cnt = torch.arange(num, dtype=torch.int64, device=key.device)
+        b0, b1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
+        return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -109,14 +112,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     (``vmap(fold_in)`` over a batch of keys and data, as the serving
     engine's per-lane keys take it); negative data wraps to uint32 as
     JAX's does."""
-    k0, k1 = _words(key)
-    if torch.is_tensor(data):
-        d = (data.to(torch.int64) & MASK).to(k0.device)
-        k0, k1, d = torch.broadcast_tensors(k0, k1, d)
-    else:
-        d = torch.full_like(k0, int(data) & MASK)
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
-    return torch.stack([b0, b1], dim=-1)
+    with span("prng/fold_in"):
+        k0, k1 = _words(key)
+        if torch.is_tensor(data):
+            d = (data.to(torch.int64) & MASK).to(k0.device)
+            k0, k1, d = torch.broadcast_tensors(k0, k1, d)
+        else:
+            d = torch.full_like(k0, int(data) & MASK)
+        b0, b1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+        return torch.stack([b0, b1], dim=-1)
 
 
 # ---------------------------------------------------------------------------
